@@ -17,17 +17,38 @@ Phases (any failure exits non-zero):
      rollout_batch with small random deltas; finite states and rewards;
      K3 = 25 launches per step, K1 = 2 per step + 1 for the reset; one
      policy step of the kernel path against the plain path; one step with
-     the fused path disabled, which must run through K1 and K2.
-Timings use CUDA events (a profiler pass shows one policy step's device
-time); every number is printed beside the card's name and power limit,
-which the first line gives. TF32 is off, so the plain versions are float32
-references. The line before the last is one JSON object listing the
-kernels; the last line is {"ok": true, "device": {...}}. A JSON copy of the
-results goes to chiprun_out/chip_smoke.json.
+     the fused path disabled, which must run through K1 and K2;
+  8. K4 (pose-only FK) against its plain version on random arm poses at
+     B=4096 and at the MPC path's widths (128, 512, 8192, 32768);
+  9. K3's emit_aux variant against its plain version at the contact-rich
+     state on the 2-point planning model (dt 25 ms, 10 solver iterations),
+     at B=512 and at the MPPI width B*K=4096; pair distances in every
+     scenario, a mismatch set aside only with a float64 witness that it is
+     a SAT near-tie (hold_pair_dist);
+ 10. the MPC planning hooks, kernel path against the plain path: the
+     planning returns of make_plan_return on a subset (8 solves x 32
+     samples, H=8), and the forward-difference sweep of make_plan_dynamics
+     at full width (B*H*(1+nx+nu) = 335,872 scenarios, one K1 and one K3
+     launch) against the plain path on a strided sample of its rows
+     (before the division by eps);
+ 11. the MPC slice at bench.py's width (B=128, H=64, K=32, MPPI + 1 iLQR
+     iteration, relinearized every 4th tick): a warm-up tick, then ticks
+     1-4 timed on the host clock, with the launches per tick the config
+     implies, finite actions in [-1, 1], the peak device memory and a
+     profiler pass over one more tick.
+Timings use CUDA events (profiler passes show one policy step's and one
+MPC tick's device time); every number is printed beside the card's name
+and power limit, which the first line gives. TF32 is off, so the plain
+versions are float32 references. Each phase prints its seconds. The line
+before the last is one JSON object listing the kernels (launches: the
+env-step path's plus the MPC ticks'); the last line is
+{"ok": true, "device": {...}}. A JSON copy of the results goes to
+chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -111,10 +132,74 @@ def hold_step(label, state, qpos, qvel):
         check(f"{label} {name} p99 over scenarios", float(torch.quantile(e, 0.99)), tol)
 
 
-def op_counts(model, nrows):
+def box_box_branches(model, qpos, k):
+    """Box-box pair k at qpos (N, nq), recomputed in float64: (the SAT tie
+    margin best_e - max_face, the pair's minimum distance over its 16 vertex
+    candidates alone, and over those and the best edge-cross candidates),
+    the two values its minimum distance takes on either side of the tie."""
+    import torch
+    from robosuite_tpu_torch.physics import contact as C
+    from robosuite_tpu_torch.physics import kinematics
+
+    m64 = model.replace().double()
+    kin = kinematics.fk(m64, qpos.double())
+
+    def operand(g):
+        return (tuple(kin.geom_xpos[:, g, i] for i in range(3)),
+                [[kin.geom_xmat[:, g, i, j] for j in range(3)] for i in range(3)],
+                tuple(m64.geom_size[g, i] for i in range(3)))
+
+    args = operand(model.pair_geom1[k]) + operand(model.pair_geom2[k])
+    vertex = torch.stack([c[0] for c in C._np_box_box(*args)[:16]], dim=-1).amin(dim=-1)
+    max_face, best_e, cands = C.box_box_sat(*args)
+    edge = torch.stack([torch.where(valid & (sep >= best_e - 1e-9), sep, torch.full_like(sep, float("inf")))
+                        for sep, _, _, valid in cands], dim=-1).amin(dim=-1)
+    return best_e - max_face, vertex, torch.minimum(vertex, edge)
+
+
+def hold_pair_dist(label, model, pd_k, pd_p, qpos_k, qpos_p, tol=2e-5, tie=1e-5):
+    """Hold per-pair minimum distances (B, npair) to the plain version's in
+    every scenario. A box-box pair emits an edge-cross candidate only where
+    its best edge separation beats every face separation; where the two tie
+    within the float32 rounding of the two versions' post-step poses, they
+    can decide differently, and the minimum jumps between two values. A
+    (scenario, pair) beyond `tol` passes only with that witness: the
+    float64 tie margin within `tie` at both versions' post-step qpos, and
+    the kernel's and the plain version's values each within `tol` of a
+    different side of the tie. Every case is printed. -> the largest error
+    held (the witnessed near-ties set aside)."""
+    import torch
+
+    from robosuite_tpu_torch.models import spec as S
+
+    err = (pd_k - pd_p).abs()
+    bad = torch.nonzero(err > tol).tolist()
+    witnessed = 0
+    if len(bad) <= 64:
+        for b, k in bad:
+            dk, dp = float(pd_k[b, k]), float(pd_p[b, k])
+            if model.geom_type[model.pair_geom1[k]] != S.BOX or model.geom_type[model.pair_geom2[k]] != S.BOX:
+                print(f"{label} scenario {b} pair {k}: kernel {dk:.6e} plain {dp:.6e}, not a box-box pair")
+                continue
+            mk, vk, ek = (float(x[0]) for x in box_box_branches(model, qpos_k[b:b + 1], k))
+            mp, vp, ep = (float(x[0]) for x in box_box_branches(model, qpos_p[b:b + 1], k))
+            flip = (abs(mk) <= tie and abs(mp) <= tie
+                    and ((abs(dk - vk) <= tol and abs(dp - ep) <= tol) or (abs(dk - ek) <= tol and abs(dp - vp) <= tol)))
+            print(f"{label} scenario {b} pair {k}: kernel {dk:.6e} plain {dp:.6e}; float64 tie margin, vertex-only "
+                  f"and with-edge minimum at the kernel's qpos {mk:.3e} {vk:.6e} {ek:.6e}, at the plain's qpos "
+                  f"{mp:.3e} {vp:.6e} {ep:.6e}: {'a near-tie decided differently' if flip else 'NOT a near-tie'}")
+            if flip:
+                err[b, k] = 0.0
+                witnessed += 1
+    check(f"{label} pair_dist, every scenario ({witnessed} witnessed near-ties set aside)", float(err.max()), tol)
+    return float(err.max())
+
+
+def op_counts(model, nrows, iters=30, power_iters=8):
     """Float operations per scenario of each kernel, counted from the
-    kernels' arithmetic stage by stage (multiply and add count one each):
-    returns {"K1": flops, "K2": flops, "K3": flops}."""
+    kernels' arithmetic stage by stage (multiply and add count one each),
+    for `nrows` contact rows and the contact solve's iteration counts:
+    returns {"K1", "K2", "K3", "K3-aux", "K4": flops}."""
     nb, nv, ng, ns = model.nbody, model.nv, model.ngeom, model.nsite
     anc = model.ancestor_mask.cpu()
     pairs_db = int(anc.sum())                                    # (body, dof) pairs in a subtree
@@ -127,13 +212,16 @@ def op_counts(model, nrows):
     chol = nv ** 3 // 3 + 2 * nv * nv
     matvec = 4 * nv * ntot + ntot
     k2 = (2 * chol + ntot * nv * (nv + 4)
-          + (8 + 1) * (matvec + 3 * ntot) + 30 * (matvec + 20 * nrows) + 2 * nv * ntot)
+          + (power_iters + 1) * (matvec + 3 * ntot) + iters * (matvec + 20 * nrows) + 2 * nv * ntot)
     na = 7
     osc = 2 * na ** 3 + 3 * 6 * na * na + 6 * 6 * na + 2 * 6 ** 3 + nv * 24
-    narrow = 12 * (16 * 90 + 9 * 110) + 3 * 8 * 30 + 3 * 2 * 90 + nrows * (nv * 0 + 40)
+    cands = 12 * (16 * 90 + 9 * 110) + 3 * 8 * 30 + 3 * 2 * 90  # 12 box-box, 3 plane-box, 3 capsule-box
+    narrow = cands + nrows * 40
     rows = nrows * (nv * (6 + 3 * 6) + 60)
     k3 = k1 - (ng + ns) * 72 + osc + narrow + rows + k2 + nv * 20
-    return {"K1": k1, "K2": k2, "K3": k3}
+    k4 = nb * (27 + 28) + nv * (3 * 27 + 28 + 26)               # pose-only walk: rotate, compose, hinge
+    aux = k4 + nb * 30 + ns * (18 + 24 + 30) + 18 * 2 * 72 + cands  # walk, matrices, sites, pair poses, candidates
+    return {"K1": k1, "K2": k2, "K3": k3, "K3-aux": k3 + aux, "K4": k4}
 
 
 def bound(bytes_, flops):
@@ -148,6 +236,61 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+PHASE_T = [time.perf_counter()]
+
+
+def phase_done(name):
+    now = time.perf_counter()
+    print(f"phase {name}: {now - PHASE_T[0]:.1f} s", flush=True)
+    PHASE_T[0] = now
+
+
+@contextlib.contextmanager
+def plain_path(env):
+    """Route the env's kernel wrappers to their plain versions on the card:
+    the forward products (K1) and the fused substep with and without aux
+    (K3, K3-aux), as the env fetches them when a hook runs or is made."""
+    from robosuite_tpu_torch.ops import forward, substep
+    from robosuite_tpu_torch.physics import engine
+
+    saved = engine.forward_products
+
+    def forward_products(model, qpos, qvel):
+        return forward.forward_plain(model, qpos, qvel, *forward.runtime_leaves(model, qpos.shape[0]))
+
+    def fused_for(model, emit_aux=False):
+        plain = substep.substep_aux_plain if emit_aux else substep.substep_plain
+        return lambda *args: plain(env, model, *args)
+
+    engine.forward_products, env._fused_for = forward_products, fused_for
+    try:
+        yield
+    finally:
+        engine.forward_products = saved
+        del env._fused_for
+
+
+def tick_launches(cfg, mpc, env, full):
+    """Kernel launches of one MPC tick (solve_batch + the executed
+    rollout_batch) that the config implies; `full` = a full
+    relinearization tick."""
+    H, n_plan = cfg.horizon, mpc.plan_substeps
+    n_lin = max(1, int(round(1.0 / (env.control_freq * cfg.fd_timestep)))) if cfg.fd_timestep else n_plan
+    k = {"K1": 1 + 2, "K2": 0, "K3": env.n_substeps, "K3-aux": H * n_plan, "K4": 0}  # MPPI start + executed step
+    if cfg.n_ilqr_iters:
+        k["K1"] += H                      # the nominal rollout: one dynamics call per planned step
+        k["K3"] += H * n_plan
+        k["K4"] += 2                      # its stage costs and terminal cost
+        for _ in range(cfg.n_ilqr_iters):
+            k["K1"] += H                  # the line search over all alphas, per planned step
+            k["K3"] += H * n_plan
+            k["K4"] += 2
+            if full:                      # the forward-difference sweep: one dynamics call
+                k["K1"] += 1
+                k["K3"] += n_lin
+    return k
+
+
 def main():
     try:
         import torch
@@ -158,7 +301,9 @@ def main():
     sys.path.insert(0, HERE)
     try:
         import robosuite_tpu_torch as R
-        from robosuite_tpu_torch.ops import build, contact_solve, forward, substep
+        from robosuite_tpu_torch.envs.base import map_state
+        from robosuite_tpu_torch.mpc import receding
+        from robosuite_tpu_torch.ops import build, contact_solve, fk, forward, substep
         from robosuite_tpu_torch.physics import contact as C
         from robosuite_tpu_torch.physics import engine
     except ImportError as e:
@@ -196,12 +341,15 @@ def main():
     flops = op_counts(model, nrows)
 
     # ---- 4. K1 vs plain ------------------------------------------------------
+    phase_done("build, env, reset")
     q, qd = states.physics.qpos, states.physics.qvel
+    q_reset = q
     leaves = forward.runtime_leaves(model, B)
     kin_k, M_k, bias_k = forward.forward_products(model, q, qd, *leaves)
     kin_p, M_p, bias_p = forward.forward_plain(model, q, qd, *leaves)
     torch.cuda.synchronize()
-    pose_err = max(max_err(getattr(kin_k, f), getattr(kin_p, f)) for f in kin_p.__dict__)
+    kin_fields = [f for f, v in kin_p.__dict__.items() if v is not None]
+    pose_err = max(max_err(getattr(kin_k, f), getattr(kin_p, f)) for f in kin_fields)
     # poses: float32 rounding of chains of ~26 rotations (|x| <= 3 m);
     # M and bias: the kernel sums in double, the plain version in float32
     check("K1 poses", pose_err, 2e-5)
@@ -212,7 +360,7 @@ def main():
     k1_err = max(pose_err, max_err(M_k, M_p), max_err(bias_k, bias_p))
     k1_ms = cuda_ms(lambda: forward.forward_products(model, q, qd, *leaves), 20)
     k1_plain = cuda_ms(lambda: forward.forward_plain(model, q, qd, *leaves), 3)
-    k1_bytes = nbytes(q, qd, *leaves, M_k, bias_k, *kin_k.__dict__.values())
+    k1_bytes = nbytes(q, qd, *leaves, M_k, bias_k, *(getattr(kin_k, f) for f in kin_fields))
     results["kernels"]["K1"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
                                     bound=bound(k1_bytes, flops["K1"] * B))
     torch.cuda.synchronize()
@@ -284,7 +432,7 @@ def main():
     actions = 0.1 * torch.randn(B, env.action_dim, generator=gen, device="cuda")
     forward.forward_products.launches = 0
     contact_solve.vel_update.launches = 0
-    substep.make_fused_substep.launches = 0
+    substep.make_fused_substep.launches = substep.make_fused_substep.aux_launches = fk.fk_pose.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     states, _ = env.reset_batch(B, gen)
@@ -297,9 +445,11 @@ def main():
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = {"K1": forward.forward_products.launches, "K2": contact_solve.vel_update.launches,
-              "K3": substep.make_fused_substep.launches}
+              "K3": substep.make_fused_substep.launches, "K3-aux": substep.make_fused_substep.aux_launches,
+              "K4": fk.fk_pose.launches}
     print(f"main path launches over reset + {STEPS} policy steps: {counts}")
-    if counts["K3"] != 25 * STEPS or counts["K1"] != 2 * STEPS + 1 or counts["K2"] != 0:
+    if (counts["K3"] != 25 * STEPS or counts["K1"] != 2 * STEPS + 1 or counts["K2"] != 0
+            or counts["K3-aux"] != 0 or counts["K4"] != 0):
         fail(f"unexpected launch counts {counts}")
     rew = torch.stack(rewards)
     if not (torch.isfinite(states.physics.qpos).all() and torch.isfinite(states.physics.qvel).all()
@@ -372,22 +522,231 @@ def main():
         fail(f"unexpected unfused launch counts {counts_u}")
     hold_step("unfused vs fused policy step", s2, s1.physics.qpos, s1.physics.qvel)
     check("unfused vs fused policy step reward", max_err(r2, r1), 1e-4)
+    phase_done("env-step slice (reset + policy steps, profile, kernel vs plain, unfused)")
+
+    # ---- 8. K4 (pose-only FK) vs plain at random arm poses, at B=4096 and at
+    # the MPC path's widths: the iLQR costs at B, B*H, 4*B and 4*B*H (128, 8192,
+    # 512, 32768 for bench.py's B=128, H=64 and 4 line-search steps)
+    B4, BK4 = 4096, 32768
+    g4 = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    q4 = q_reset.repeat(BK4 // B, 1)
+    q4[:, :7] += 0.5 * torch.randn(BK4, 7, generator=g4, device="cuda")
+    k4_err = 0.0
+    for n in (128, 512, B4, 8192, BK4):
+        xp_k, xq_k = fk.fk_pose(model, q4[:n])
+        xp_p, xq_p = fk.fk_pose_plain(model, q4[:n])
+        torch.cuda.synchronize()
+        # float32 rounding of chains of ~26 rotations, as K1's poses
+        check(f"K4 xpos (B={n})", max_err(xp_k, xp_p), 2e-5)
+        check(f"K4 xquat (B={n})", max_err(xq_k, xq_p), 2e-5)
+        k4_err = max(k4_err, max_err(xp_k, xp_p), max_err(xq_k, xq_p))
+    print(f"{tag} K4 ms/launch at B=8192: {cuda_ms(lambda: fk.fk_pose(model, q4[:8192]), 20):.4f}")
+    results["kernels"]["K4"] = dict(
+        max_abs_err=k4_err, ms=cuda_ms(lambda: fk.fk_pose(model, q4), 20),
+        plain_ms=cuda_ms(lambda: fk.fk_pose_plain(model, q4), 3), batch=BK4,
+        bound=bound(nbytes(q4, xp_k, xq_k), flops["K4"] * BK4))
+    phase_done("K4 vs plain")
+
+    # ---- 9. K3-aux vs plain at the contact-rich state, 2-point planning model ---------
+    plan = model.replace(timestep=0.025, solver_iters=10, pair_points_cap=2)
+    plan_rows = sum(len(r) for r in C.contact_row_layout(plan).values())
+    aux_flops = op_counts(plan, plan_rows, iters=10)["K3-aux"]
+    fused_aux = env._fused_for(plan, emit_aux=True)
+    q, qd = s.physics.qpos, s.physics.qvel
+    kin = forward.forward_plain(plan, q, qd, *leaves)[0]
+    goal, gains = env._fused_goal_fn(robot, "right", s.ctrl, kin)
+    grip = robot.gripper_ctrl("right", s.ctrl).contiguous()
+    a_args = (q, qd, *leaves, goal, gains, grip)
+    out_k = fused_aux(*a_args)
+    out_p = substep.substep_aux_plain(env, plan, *a_args)
+    torch.cuda.synchronize()
+    print(f"planning model: {plan_rows} contact rows; pairs touching after the step: "
+          f"{int((out_p[-1] < 0).sum())} over {B} scenarios")
+    # qpos/qvel as K3's; the poses as K1's. A pair distance moves with the
+    # geoms' positions, which the qpos tolerance bounds at a ~1 m lever arm
+    # (hold_pair_dist sets aside only witnessed SAT near-ties)
+    aux_tols = {"qpos": 1e-5, "qvel": 1e-3, "site_xpos": 2e-5, "site_xmat": 2e-5, "xpos": 2e-5}
+
+    def hold_aux(label, out_k, out_p):
+        """Check every output but f; -> the largest error held."""
+        errs = []
+        for name, a, b in zip(("qpos", "qvel", "f", "site_xpos", "site_xmat", "xpos"), out_k, out_p):
+            if name in aux_tols:
+                errs.append(max_err(a, b))
+                check(f"{label} {name}", errs[-1], aux_tols[name])
+        spread(f"{label} pair_dist", out_k[-1], out_p[-1])
+        return max(errs + [hold_pair_dist(label, plan, out_k[-1], out_p[-1], out_k[0], out_p[0])])
+
+    aux_err = hold_aux("K3-aux (B=512)", out_k, out_p)
+    # the MPPI width B*K = 4096: the contact-rich states, each copy after the
+    # first with its own small arm velocity, so that every scenario differs
+    a4 = [t.repeat((B4 // B,) + (1,) * (t.dim() - 1)) for t in a_args]
+    a4[1] = a4[1].clone()
+    a4[1][B:, :7] += 0.05 * torch.randn(B4 - B, 7, generator=g4, device="cuda")
+    out4 = fused_aux(*a4)
+    out4_p = substep.substep_aux_plain(env, plan, *a4)
+    torch.cuda.synchronize()
+    aux_err = max(aux_err, hold_aux(f"K3-aux (B={B4})", out4, out4_p))
+    results["kernels"]["K3-aux"] = dict(
+        max_abs_err=aux_err, ms=cuda_ms(lambda: fused_aux(*a4), 10),
+        plain_ms=cuda_ms(lambda: substep.substep_aux_plain(env, plan, *a4), 3), batch=B4,
+        bound=bound(nbytes(*a4, *out4), aux_flops * B4))
+    phase_done("K3-aux vs plain")
+
+    # ---- 10. the planning hooks: kernel path vs plain path on a subset ---------------
+    env_m = R.make("Lift", robots="Panda", cube_size=[0.021, 0.021, 0.021], reward_shaping=True)
+    mpc_cfg = dict(horizon=64, n_samples=32, noise_sigma=0.4, temperature=0.2, n_knots=8, n_ilqr_iters=1,
+                   plan_timestep=0.025, relin_every=4, fd_timestep=0.05, plan_pair_points=2)
+    sub = receding.RecedingMPC(env_m, receding.MPCConfig(**dict(mpc_cfg, horizon=8)))
+    g10 = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    st8 = env_m.reset_batch(8, g10)[0]
+    for _ in range(3):  # let the cubes land
+        st8, _ = env_m.rollout_batch(st8, torch.zeros(8, env_m.action_dim, device="cuda"))
+    flat_st = map_state(lambda x: x.repeat_interleave(32, dim=0), st8)
+    seqs = torch.clamp(0.4 * torch.randn(256, 8, env_m.action_dim, generator=g10, device="cuda"), -1.0, 1.0)
+    disc = torch.ones(8, device="cuda")
+    ret_k = sub.plan_rollout_return(flat_st, seqs, disc)
+    with plain_path(env_m):
+        ret_p = env_m.make_plan_return(sub.plan_model, sub.plan_substeps)(flat_st, seqs, disc)
+    e = (ret_k - ret_p).abs()
+    print(f"planning returns (8 solves x 32 samples, H=8), kernel vs plain: median {float(e.median()):.3e} "
+          f"p99 {float(torch.quantile(e, 0.99)):.3e} max {float(e.max()):.3e}")
+    # eight planned steps; the returns sum rewards of order 1 (8.5e-7 measured)
+    check("planning returns, every rollout (kernel vs plain)", float(e.max()), 1e-5)
+
+    # the forward-difference sweep at bench.py's width, B*H*(1 + nx + nu)
+    # scenarios in one dynamics call (one K1 and one K3 launch), before the
+    # division by eps; the plain path on a strided sample of its rows
+    MB, TICKS = 128, 4
+    cfg = receding.MPCConfig(**mpc_cfg)
+    mpc = receding.RecedingMPC(env_m, cfg)
+    st = env_m.reset_batch(MB, g10)[0]
+    for _ in range(3):  # let the cubes land
+        st, _ = env_m.rollout_batch(st, torch.zeros(MB, env_m.action_dim, device="cuda"))
+    H, A, nx = cfg.horizon, env_m.action_dim, mpc.nx
+    xs = mpc._to_x(st).repeat_interleave(H, dim=0)                                  # (B*H, nx)
+    us = torch.clamp(0.4 * torch.randn(MB * H, A, generator=g10, device="cuda"), -1.0, 1.0)
+    eye = torch.eye(nx + A, device="cuda")
+    X = torch.cat([xs[:, None], xs[:, None] + 1e-3 * eye[None, :, :nx]], dim=1).reshape(-1, nx)
+    U = torch.cat([us[:, None], us[:, None] + 1e-3 * eye[None, :, nx:]], dim=1).reshape(-1, A)
+    forward.forward_products.launches = substep.make_fused_substep.launches = 0
+    F_k = mpc._ilqr_lin_dynamics(X, U)
+    torch.cuda.synchronize()
+    sweep = (forward.forward_products.launches, substep.make_fused_substep.launches)
+    N = X.shape[0]
+    rows = torch.cat([torch.arange(0, N, 131, device="cuda"), torch.tensor([N - 1], device="cuda")])
+    with plain_path(env_m):
+        F_p = mpc._ilqr_lin_dynamics(X[rows], U[rows])
+    F_k = F_k[rows]
+    torch.cuda.synchronize()
+    nq, nv = model.nq, model.nv
+    print(f"FD sweep: {N} scenarios, launches (K1, K3) {sweep}; plain path on {rows.numel()} rows; "
+          f"peak device memory so far {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    n_lin = max(1, int(round(1.0 / (env_m.control_freq * cfg.fd_timestep))))
+    if N != MB * H * (1 + nx + A) or sweep != (1, n_lin):
+        fail(f"the FD sweep ran {N} scenarios with launches {sweep}")
+    check("FD dynamics qpos (kernel vs plain)", max_err(F_k[:, :nq], F_p[:, :nq]), 1e-5)
+    check("FD dynamics qvel (kernel vs plain)", max_err(F_k[:, nq:nq + nv], F_p[:, nq:nq + nv]), 1e-3)
+    check("FD dynamics gripper ramp (kernel vs plain)", max_err(F_k[:, nq + nv:], F_p[:, nq + nv:]), 1e-6)
+    del X, U, F_k, F_p, xs, us
+    phase_done("planning hooks, kernel vs plain")
+
+    # ---- 11. the slice at full width: MPC ticks (bench.py's MPC workload) -------------
+    solve = mpc.make_solve_batch()
+    gm = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    mstates, _ = env_m.reset_batch(MB, gm)
+    ms = mpc.init_state(MB, torch.Generator(device="cuda").manual_seed(SEED + 3))
+
+    def tick(states_, ms_):
+        actions, ms2, met = solve(states_, ms_)
+        states2, rewards = env_m.rollout_batch(states_, actions)
+        return states2, ms2, met, actions, rewards
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mstates, ms, met, actions, rewards = tick(mstates, ms)  # warm-up: tick 0, a full relinearization
+    torch.cuda.synchronize()
+    print(f"{tag} MPC warm-up tick (full relinearization) s: {time.perf_counter() - t0:.3f}")
+
+    def kcounts():
+        return {"K1": forward.forward_products.launches, "K2": contact_solve.vel_update.launches,
+                "K3": substep.make_fused_substep.launches, "K3-aux": substep.make_fused_substep.aux_launches,
+                "K4": fk.fk_pose.launches}
+
+    forward.forward_products.launches = contact_solve.vel_update.launches = 0
+    substep.make_fused_substep.launches = substep.make_fused_substep.aux_launches = fk.fk_pose.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per_tick, finite, improved, fulls = [], [], [], []
+    for i in range(TICKS):
+        full = ms.tick_host % cfg.relin_every == 0
+        before = kcounts()
+        mstates, ms, met, actions, rewards = tick(mstates, ms)
+        after = kcounts()
+        per_tick.append({k: after[k] - before[k] for k in after})
+        fulls.append(full)
+        finite.append(met["ilqr_accepted"])
+        improved.append(met["ilqr_improved"])
+        if not (torch.isfinite(actions).all() and actions.abs().max() <= 1.0 and torch.isfinite(rewards).all()):
+            fail(f"MPC tick {i + 1}: non-finite or out-of-range actions, or non-finite rewards")
+    torch.cuda.synchronize()
+    mpc_dt = time.perf_counter() - t0
+    mpc_counts = kcounts()
+    for i, (got, full) in enumerate(zip(per_tick, fulls)):
+        want = tick_launches(cfg, mpc, env_m, full)
+        print(f"MPC tick {i + 1} ({'full relinearization' if full else 'frozen linearization'}) launches: {got}")
+        if got != want:
+            fail(f"MPC tick {i + 1}: launches {got}, the config implies {want}")
+    if not any(fulls) or all(fulls):
+        fail("the timed MPC ticks must contain both relinearization branches")
+    solves = MB * TICKS / mpc_dt
+    fin = [int(a.sum()) for a in finite]
+    imp = [int(a.sum()) for a in improved]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{tag} MPC solves/s (B={MB}, H={cfg.horizon}, K={cfg.n_samples}, MPPI + 1 iLQR iteration, "
+          f"relin every {cfg.relin_every}; ticks 1-{TICKS}, host clock): {solves:.1f}")
+    print(f"{tag} per tick, of {MB} solves: finite iLQR plans {fin}; iLQR line search improved on the MPPI "
+          f"plan {imp}; mean executed reward {float(rewards.mean()):.4f}; peak device memory {peak_gb:.2f} GB")
+    results.update(mpc_solves_per_s=solves, mpc_launches=mpc_counts, mpc_per_tick=per_tick, mpc_finite=fin,
+                   mpc_improved=imp, mpc_peak_gb=peak_gb)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mstates, ms, met, actions, rewards = tick(mstates, ms)  # tick 5, a frozen-linearization tick
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    dev_ms = sum(r[1] for r in rows)
+    print(f"{tag} one MPC tick under the profiler: wall {wall_ms:.2f} ms, device busy {dev_ms:.2f} ms "
+          f"({100 * dev_ms / wall_ms:.1f}%)")
+    for key, ms_, n in rows[:8]:
+        print(f"{tag}   {ms_:8.3f} ms  x{n:<5d} {key[:90]}")
+    results.update(mpc_profile_wall_ms=wall_ms, mpc_profile_device_ms=dev_ms, mpc_profile_top=rows[:8])
+    phase_done("MPC slice at full width")
 
     # ---- report ------------------------------------------------------------------
-    per_step = {"K1": 2, "K2": 0, "K3": 25}
+    per_step = {"K1": 2, "K2": 0, "K3": 25, "K3-aux": 0, "K4": 0}
     replaces = {
         "K1": ("robosuite_tpu_torch/csrc/forward.cu", "robosuite_tpu/ops/pallas_forward.py:499"),
         "K2": ("robosuite_tpu_torch/csrc/contact_solve.cu", "robosuite_tpu/ops/pallas_contact.py:311"),
         "K3": ("robosuite_tpu_torch/csrc/substep.cu", "robosuite_tpu/ops/pallas_substep.py:1091"),
+        "K3-aux": ("robosuite_tpu_torch/csrc/substep.cu", "robosuite_tpu/ops/pallas_substep.py:1091"),
+        "K4": ("robosuite_tpu_torch/csrc/fk.cu", "robosuite_tpu/ops/pallas_fk.py:51"),
     }
-    names = {"K1": "forward_products", "K2": "contact_solve", "K3": "fused_substep"}
+    names = {"K1": "forward_products", "K2": "contact_solve", "K3": "fused_substep",
+             "K3-aux": "fused_substep_aux", "K4": "fk_pose"}
     line = []
     for k, r in results["kernels"].items():
         bms, bby = r["bound"]
-        print(f"{tag} {k} {names[k]}: {r['ms']:.4f} ms/launch at B={B}, plain {r['plain_ms']:.3f} ms, "
-              f"bound {bms:.5f} ms ({bby}), launches/policy step {per_step[k]}")
+        launches = counts[k] + mpc_counts[k]  # the env-step path and the MPC path
+        print(f"{tag} {k} {names[k]}: {r['ms']:.4f} ms/launch at B={r.get('batch', B)}, plain {r['plain_ms']:.3f} ms, "
+              f"bound {bms:.5f} ms ({bby}); launches: {per_step[k]}/policy step, "
+              f"{mpc_counts[k]} over MPC ticks 1-{TICKS}")
         line.append({"name": names[k], "route": "cuda", "source": replaces[k][0], "replaces": replaces[k][1],
-                     "launches": counts[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": bby, "library_ms": None})
     if FAILED:
         fail(f"disagreements with the plain versions: {FAILED}")

@@ -17,6 +17,7 @@ import torch
 from robosuite_tpu_torch.controllers.parts.osc import OSCState
 from robosuite_tpu_torch.envs.base import EnvState
 from robosuite_tpu_torch.models.model import Model
+from robosuite_tpu_torch.mpc.receding import MPCState
 from robosuite_tpu_torch.physics.state import State
 from robosuite_tpu_torch.robots.robot import RobotCtrlState
 
@@ -41,3 +42,15 @@ def state_from_numpy(qpos, qvel, ctrl_leaves: Dict[str, np.ndarray], arm="right"
     B = qpos.shape[0]
     return EnvState(physics=State(qpos=qpos, qvel=qvel, time=torch.zeros(B, device=device)), ctrl=ctrl,
                     t=torch.zeros(B, dtype=torch.int32, device=device))
+
+
+def mpc_state_from_numpy(us, fxs=None, fus=None, tick=None, generator=None, device="cuda") -> MPCState:
+    """A batched MPCState from numpy plans us (B, H, A) and, for the RTI
+    carry, fxs (B, H, nx, nx), fus (B, H, nx, A) and tick (B,) (lock-stepped:
+    its host mirror is tick[0])."""
+    def t(x, dtype=torch.float32):
+        return None if x is None else torch.tensor(np.array(x), dtype=dtype, device=device)
+
+    tick_t = t(tick, torch.int32)
+    return MPCState(us=t(us), generator=generator, fxs=t(fxs), fus=t(fus), tick=tick_t,
+                    tick_host=0 if tick_t is None else int(tick_t[0]))

@@ -90,6 +90,7 @@ struct RsTables {
   int pair_npts[RS_MAXP], pair_row[RS_MAXP], pair_body1[RS_MAXP], pair_body2[RS_MAXP];
   float pair_friction[RS_MAXP], pair_solref[RS_MAXP][2], pair_solimp[RS_MAXP][5], pair_margin[RS_MAXP];
   int row_pair[RS_MAXK];
+  int pair_k[RS_MAXP];  // the pair's index in the model's pair list
 
   // the arm's OSC controller and the gripper actuators (fused substep)
   int na, eef_site, center_site, uncouple, ngrip;

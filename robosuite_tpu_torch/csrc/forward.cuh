@@ -24,87 +24,103 @@ struct FwdShared {
   float vang[RS_MAXB][3], vlin[RS_MAXB][3], fang[RS_MAXB][3], flin[RS_MAXB][3];
 };
 
-// Serial tree walk: body poses and motion subspaces (kinematics.fk).
-RS_DEV void fk_tree(const RsTables& T, FwdShared& s) {
-  s.xpos[0][0] = s.xpos[0][1] = s.xpos[0][2] = 0.0f;
-  s.xquat[0][0] = 1.0f;
-  s.xquat[0][1] = s.xquat[0][2] = s.xquat[0][3] = 0.0f;
+// Serial tree walk over q (kinematics.fk): body poses into (xpos, xquat)
+// and, with SUB, the per-dof motion subspace into (sa, sl). One thread.
+// fk_tree is the forward pass's walk; fk_pose the pose-only one, which K4
+// runs per scenario and K3's aux tail runs on the integrated qpos.
+template <bool SUB>
+RS_DEV void fk_walk(const RsTables& T, const float* q, float (*xpos)[3], float (*xquat)[4], float (*sa)[3],
+                    float (*sl)[3]) {
+  xpos[0][0] = xpos[0][1] = xpos[0][2] = 0.0f;
+  xquat[0][0] = 1.0f;
+  xquat[0][1] = xquat[0][2] = xquat[0][3] = 0.0f;
   for (int b = 1; b < T.nbody; ++b) {
     int p = T.body_parent[b];
     float pos[3], quat[4], tmp[3];
-    quat_rot(s.xquat[p], T.body_pos[b], tmp);
-    for (int i = 0; i < 3; ++i) pos[i] = s.xpos[p][i] + tmp[i];
-    quat_mul(s.xquat[p], T.body_quat[b], quat);
+    quat_rot(xquat[p], T.body_pos[b], tmp);
+    for (int i = 0; i < 3; ++i) pos[i] = xpos[p][i] + tmp[i];
+    quat_mul(xquat[p], T.body_quat[b], quat);
     for (int j = T.body_jntadr[b]; j < T.body_jntadr[b] + T.body_jntnum[b]; ++j) {
       int qa = T.jnt_qposadr[j], da = T.jnt_dofadr[j];
       int jt = T.jnt_type[j];
       if (jt == RS_FREE) {
-        for (int i = 0; i < 3; ++i) pos[i] = s.q[qa + i];
-        float n = sqrtf(s.q[qa + 3] * s.q[qa + 3] + s.q[qa + 4] * s.q[qa + 4] +
-                        s.q[qa + 5] * s.q[qa + 5] + s.q[qa + 6] * s.q[qa + 6]);
+        for (int i = 0; i < 3; ++i) pos[i] = q[qa + i];
+        float n = sqrtf(q[qa + 3] * q[qa + 3] + q[qa + 4] * q[qa + 4] + q[qa + 5] * q[qa + 5] +
+                        q[qa + 6] * q[qa + 6]);
         float inv = 1.0f / fmaxf(n, 1e-8f);
-        for (int i = 0; i < 4; ++i) quat[i] = s.q[qa + 3 + i] * inv;
-        float R[9];
-        quat2mat(quat, R);
-        for (int i = 0; i < 3; ++i) {
-          for (int k = 0; k < 3; ++k) {
-            s.sa[da + i][k] = 0.0f;
-            s.sl[da + i][k] = (i == k) ? 1.0f : 0.0f;
+        for (int i = 0; i < 4; ++i) quat[i] = q[qa + 3 + i] * inv;
+        if constexpr (SUB) {
+          float R[9];
+          quat2mat(quat, R);
+          for (int i = 0; i < 3; ++i) {
+            for (int k = 0; k < 3; ++k) {
+              sa[da + i][k] = 0.0f;
+              sl[da + i][k] = (i == k) ? 1.0f : 0.0f;
+            }
+            float a[3] = {R[0 * 3 + i], R[1 * 3 + i], R[2 * 3 + i]};
+            for (int k = 0; k < 3; ++k) sa[da + 3 + i][k] = a[k];
+            v3_cross(pos, a, sl[da + 3 + i]);
           }
-          float a[3] = {R[0 * 3 + i], R[1 * 3 + i], R[2 * 3 + i]};
-          for (int k = 0; k < 3; ++k) s.sa[da + 3 + i][k] = a[k];
-          v3_cross(pos, a, s.sl[da + 3 + i]);
         }
       } else if (jt == RS_BALL) {
         float anchor[3], nq[4], lq[4];
         quat_rot(quat, T.jnt_pos[j], tmp);
         for (int i = 0; i < 3; ++i) anchor[i] = pos[i] + tmp[i];
-        float n = sqrtf(s.q[qa] * s.q[qa] + s.q[qa + 1] * s.q[qa + 1] + s.q[qa + 2] * s.q[qa + 2] +
-                        s.q[qa + 3] * s.q[qa + 3]);
+        float n = sqrtf(q[qa] * q[qa] + q[qa + 1] * q[qa + 1] + q[qa + 2] * q[qa + 2] + q[qa + 3] * q[qa + 3]);
         float inv = 1.0f / fmaxf(n, 1e-8f);
-        for (int i = 0; i < 4; ++i) lq[i] = s.q[qa + i] * inv;
+        for (int i = 0; i < 4; ++i) lq[i] = q[qa + i] * inv;
         quat_mul(quat, lq, nq);
         for (int i = 0; i < 4; ++i) quat[i] = nq[i];
         quat_rot(quat, T.jnt_pos[j], tmp);
         for (int i = 0; i < 3; ++i) pos[i] = anchor[i] - tmp[i];
-        float R[9];
-        quat2mat(quat, R);
-        for (int i = 0; i < 3; ++i) {
-          float a[3] = {R[0 * 3 + i], R[1 * 3 + i], R[2 * 3 + i]};
-          for (int k = 0; k < 3; ++k) s.sa[da + i][k] = a[k];
-          v3_cross(anchor, a, s.sl[da + i]);
+        if constexpr (SUB) {
+          float R[9];
+          quat2mat(quat, R);
+          for (int i = 0; i < 3; ++i) {
+            float a[3] = {R[0 * 3 + i], R[1 * 3 + i], R[2 * 3 + i]};
+            for (int k = 0; k < 3; ++k) sa[da + i][k] = a[k];
+            v3_cross(anchor, a, sl[da + i]);
+          }
         }
       } else if (jt == RS_SLIDE) {
         float axis[3];
         quat_rot(quat, T.jnt_axis[j], axis);
-        float amt = s.q[qa] - T.qpos0[qa];
-        for (int i = 0; i < 3; ++i) {
-          pos[i] += axis[i] * amt;
-          s.sa[da][i] = 0.0f;
-          s.sl[da][i] = axis[i];
+        float amt = q[qa] - T.qpos0[qa];
+        for (int i = 0; i < 3; ++i) pos[i] += axis[i] * amt;
+        if constexpr (SUB) {
+          for (int i = 0; i < 3; ++i) {
+            sa[da][i] = 0.0f;
+            sl[da][i] = axis[i];
+          }
         }
       } else {  // hinge
         float axis[3], anchor[3], lq[4], nq[4];
         quat_rot(quat, T.jnt_axis[j], axis);
         quat_rot(quat, T.jnt_pos[j], tmp);
         for (int i = 0; i < 3; ++i) anchor[i] = pos[i] + tmp[i];
-        float half = 0.5f * (s.q[qa] - T.qpos0[qa]);
+        float half = 0.5f * (q[qa] - T.qpos0[qa]);
         float c = cosf(half), sn = sinf(half);
         lq[0] = c;
         for (int i = 0; i < 3; ++i) lq[1 + i] = sn * T.jnt_axis[j][i];
         quat_mul(quat, lq, nq);
         for (int i = 0; i < 4; ++i) quat[i] = nq[i];
         quat_rot(quat, T.jnt_pos[j], tmp);
-        for (int i = 0; i < 3; ++i) {
-          pos[i] = anchor[i] - tmp[i];
-          s.sa[da][i] = axis[i];
+        for (int i = 0; i < 3; ++i) pos[i] = anchor[i] - tmp[i];
+        if constexpr (SUB) {
+          for (int i = 0; i < 3; ++i) sa[da][i] = axis[i];
+          v3_cross(anchor, axis, sl[da]);
         }
-        v3_cross(anchor, axis, s.sl[da]);
       }
     }
-    for (int i = 0; i < 3; ++i) s.xpos[b][i] = pos[i];
-    for (int i = 0; i < 4; ++i) s.xquat[b][i] = quat[i];
+    for (int i = 0; i < 3; ++i) xpos[b][i] = pos[i];
+    for (int i = 0; i < 4; ++i) xquat[b][i] = quat[i];
   }
+}
+
+RS_DEV void fk_tree(const RsTables& T, FwdShared& s) { fk_walk<true>(T, s.q, s.xpos, s.xquat, s.sa, s.sl); }
+
+RS_DEV void fk_pose(const RsTables& T, const float* q, float (*xpos)[3], float (*xquat)[4]) {
+  fk_walk<false>(T, q, xpos, xquat, nullptr, nullptr);
 }
 
 // Pose of a frame attached to body b at (lpos, lquat): world position from
@@ -337,4 +353,16 @@ RS_DEV void forward_body(const RsTables& T, FwdShared& s, int b, const float* qp
     bias[o] = s.bias[d];
   }
   for (int i = tid; i < nv * nv; i += nt) M[(size_t)b * nv * nv + i] = s.M[i / nv][i % nv];
+}
+
+// K4: one scenario's pose-only FK, on one thread, in its own (local) arrays.
+RS_DEV void fk_pose_one(const RsTables& T, size_t b, const float* qpos, float* xpos, float* xquat) {
+  const int nq = T.nq, nb = T.nbody;
+  float q[RS_MAXQ], xp[RS_MAXB][3], xq[RS_MAXB][4];
+  for (int i = 0; i < nq; ++i) q[i] = qpos[b * nq + i];
+  fk_pose(T, q, xp, xq);
+  for (int i = 0; i < nb; ++i) {
+    for (int k = 0; k < 3; ++k) xpos[(b * nb + i) * 3 + k] = xp[i][k];
+    for (int k = 0; k < 4; ++k) xquat[(b * nb + i) * 4 + k] = xq[i][k];
+  }
 }

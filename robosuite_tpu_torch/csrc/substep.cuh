@@ -3,12 +3,15 @@
 //   ctrl (osc.cuh) -> smooth forces -> narrowphase + manifold cut
 //   (narrowphase.cuh) -> contact rows with solref/solimp -> cone QP and
 //   implicit-damping velocity solve (contact_solve.cuh) -> semi-implicit
-//   qpos integration with free-joint quaternions.
+//   qpos integration with free-joint quaternions [-> with AUX, the
+//   post-step pose-only FK, site poses, body positions and per-pair
+//   minimum distances (aux_tail)].
 // Replaces robosuite_tpu/ops/pallas_substep.py _make_substep_kernel (OSC
-// branch, no aux outputs); its plain version is ops/substep.py
-// substep_plain. Only (qpos, qvel, goal, gains, grip, the runtime inertial
-// leaves) come in and (qpos', qvel', f) go out: everything between stays in
-// shared memory (about 35 KB for the Lift world).
+// branch, with and without emit_aux); its plain versions are ops/substep.py
+// substep_plain and substep_aux_plain. Only (qpos, qvel, goal, gains, grip,
+// the runtime inertial leaves) come in and (qpos', qvel', f [, aux]) go
+// out: everything between stays in shared memory (about 35 KB for the Lift
+// world; the aux tail reuses the forward pass's pose arrays).
 #pragma once
 
 #include "contact_solve.cuh"
@@ -139,11 +142,44 @@ RS_DEV void integrate_qpos(const RsTables& T, const float* q, const float* qv, f
   }
 }
 
-// K3: one scenario's substep from global inputs to global outputs.
+// K3's aux tail (emit_aux): pose-only FK on the integrated qpos, written
+// into the forward pass's pose arrays (free once the solve has run), then
+// the post-step site poses, body positions and each pair's minimum
+// candidate distance (the narrowphase's candidate formulas; the minimum
+// over all candidates is the minimum over the rows the manifold cut keeps,
+// which are the deepest).
+RS_DEV void aux_tail(const RsTables& T, SubstepShared& sh, size_t b, float* sxpos, float* sxmat, float* bxpos,
+                     float* pdist) {
+  const int tid = rs_tid(), nt = rs_nthreads();
+  const int nb = T.nbody, ns = T.nsite, np = T.npair;
+  FwdShared& fw = sh.fw;
+  if (tid == 0) fk_pose(T, sh.qnew, fw.xpos, fw.xquat);
+  RS_SYNC();
+  for (int i = tid; i < nb; i += nt) {
+    quat2mat(fw.xquat[i], fw.xmat[i]);
+    for (int k = 0; k < 3; ++k) bxpos[(b * nb + i) * 3 + k] = fw.xpos[i][k];
+  }
+  RS_SYNC();
+  for (int i = tid; i < ns; i += nt) {
+    size_t o = b * ns + i;
+    frame_pose(fw, T.site_bodyid[i], T.site_pos[i], T.site_quat[i], sxpos + o * 3, sxmat + o * 9);
+  }
+  for (int p = tid; p < np; p += nt) {
+    Cands c;
+    pair_candidates(T, fw, p, c);
+    float d = c.d[0];
+    for (int i = 1; i < c.n; ++i) d = fminf(d, c.d[i]);
+    pdist[b * np + T.pair_k[p]] = d;
+  }
+}
+
+// K3: one scenario's substep from global inputs to global outputs; with
+// AUX, also the post-step aux outputs (aux_tail).
+template <bool AUX>
 RS_DEV void substep_body(const RsTables& T, SubstepShared& sh, int b, const float* qpos, const float* qvel,
                          const float* mass, const float* inertia, const float* gravity, const float* armature,
                          const float* goal, const float* gains, const float* grip, float* qpos_out,
-                         float* qvel_out, float* f_out) {
+                         float* qvel_out, float* f_out, float* sxpos, float* sxmat, float* bxpos, float* pdist) {
   const int tid = rs_tid(), nt = rs_nthreads();
   const int nq = T.nq, nv = T.nv, nb = T.nbody, K = T.nrows, ntot = 3 * T.nrows;
   FwdShared& fw = sh.fw;
@@ -176,4 +212,5 @@ RS_DEV void substep_body(const RsTables& T, SubstepShared& sh, int b, const floa
   for (int i = tid; i < nq; i += nt) qpos_out[(size_t)b * nq + i] = sh.qnew[i];
   for (int i = tid; i < nv; i += nt) qvel_out[(size_t)b * nv + i] = sh.qvnew[i];
   for (int c = tid; c < ntot; c += nt) f_out[(size_t)b * ntot + c] = sv.f[c];
+  if constexpr (AUX) aux_tail(T, sh, (size_t)b, sxpos, sxmat, bxpos, pdist);
 }

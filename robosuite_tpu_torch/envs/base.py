@@ -8,7 +8,8 @@ forward products (K1), the policy-rate controller goals, 25 substeps of
 end-of-step forward products (K1) and the reward. With `_disable_fused`
 set, each substep instead runs forward products (K1), the controllers,
 the contact rows and the contact-solve kernel (K2), as the JAX package's
-unfused path does.
+unfused path does. The MPC's planning hooks (`make_plan_return`,
+`make_plan_dynamics`) run the same step on a planning model.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from robosuite_tpu_torch.ops.forward import runtime_leaves
 from robosuite_tpu_torch.ops.substep import UnsupportedFused, make_fused_substep
 from robosuite_tpu_torch.physics import contact as C
 from robosuite_tpu_torch.physics import engine
-from robosuite_tpu_torch.physics.state import State
+from robosuite_tpu_torch.physics.state import KinData, State
 from robosuite_tpu_torch.robots.robot import FixedBaseRobot, RobotCtrlState
 
 REGISTERED_ENVS: Dict[str, type] = {}
@@ -54,6 +55,19 @@ class EnvState:
     physics: State
     ctrl: RobotCtrlState
     t: torch.Tensor  # (B,) int
+
+
+def map_state(fn, state):
+    """`fn` applied to every tensor of a nesting of dataclasses and dicts
+    (an EnvState, a KinData); None stays None."""
+    if isinstance(state, torch.Tensor):
+        return fn(state)
+    if isinstance(state, dict):
+        return {k: map_state(fn, v) for k, v in state.items()}
+    if dataclasses.is_dataclass(state):
+        return dataclasses.replace(state, **{f.name: map_state(fn, getattr(state, f.name))
+                                             for f in dataclasses.fields(state)})
+    return state
 
 
 class RobotEnv:
@@ -125,6 +139,8 @@ class RobotEnv:
 
     def _any_contact(self, kin, pairs):
         """(B,) True where any point of the given pairs is touching."""
+        if kin.pair_dist is not None:
+            return torch.any(kin.pair_dist[:, list(pairs)] < 0.0, dim=-1)
         con = C.narrowphase(self.model, kin, pairs=set(pairs))
         return torch.any(con["dist"] < 0.0, dim=-1)
 
@@ -184,15 +200,18 @@ class RobotEnv:
         return EnvState(physics=physics, ctrl=ctrl,
                         t=torch.zeros(flat.shape[0], dtype=torch.int32, device=self.device))
 
-    def _fused_for(self, model):
-        """The fused-substep wrapper for `model`, or None when unsupported."""
-        if id(model) not in self._fused_cache:
+    def _fused_for(self, model, emit_aux=False):
+        """The fused-substep wrapper for `model`, or None when unsupported.
+        Keyed by model identity; the cache holds the model, so an id is
+        never reused while its entry lives."""
+        key = (id(model), emit_aux)
+        if key not in self._fused_cache:
             try:
-                fn = make_fused_substep(self, model)
+                fn = make_fused_substep(self, model, emit_aux=emit_aux)
             except UnsupportedFused:
                 fn = None
-            self._fused_cache[id(model)] = (model, fn)
-        return self._fused_cache[id(model)][1]
+            self._fused_cache[key] = (model, fn)
+        return self._fused_cache[key][1]
 
     def _fused_goal_fn(self, robot, arm, ctrl_state, kin):
         """(goal (B, 12), gains (B, 12)) rows for the fused kernel: the OSC
@@ -225,19 +244,29 @@ class RobotEnv:
 
         return substep
 
+    def _substep_fn(self, model, ctrl_state, kin):
+        """substep(physics) -> physics: the fused kernel, or (unsupported or
+        `_disable_fused`) forward products + controllers + contact solve."""
+        substep = self._fused_substep_fn(model, ctrl_state, kin)
+        if substep is not None:
+            return substep
+        robot = self.robots[0]
+
+        def substep(phys):
+            k, Mk, bk = engine.forward_products(model, phys.qpos, phys.qvel)
+            c = robot.run_controllers(k, Mk, bk, phys.qpos, phys.qvel, ctrl_state,
+                                      torch.zeros(phys.qpos.shape[0], model.nu, device=phys.qpos.device))
+            return engine.integrate(model, phys, c, k, Mk, bk)[0]
+
+        return substep
+
     def _rollout_with_products(self, state: EnvState, action, model, n_substeps, kin, M, bias):
         """One policy step given the start-of-step forward products; returns
         (state', reward, end-of-step products)."""
         physics = state.physics
         robot = self.robots[0]
         ctrl = robot.set_goals(kin, M, bias, physics.qpos, physics.qvel, state.ctrl, action)
-        substep = self._fused_substep_fn(model, ctrl, kin)
-        if substep is None:
-            def substep(phys):
-                k, Mk, bk = engine.forward_products(model, phys.qpos, phys.qvel)
-                c = robot.run_controllers(k, Mk, bk, phys.qpos, phys.qvel, ctrl,
-                                          torch.zeros(phys.qpos.shape[0], model.nu, device=phys.qpos.device))
-                return engine.integrate(model, phys, c, k, Mk, bk)[0]
+        substep = self._substep_fn(model, ctrl, kin)
         for _ in range(n_substeps):
             physics = substep(physics)
         kin2, M2, bias2 = engine.forward_products(model, physics.qpos, physics.qvel)
@@ -246,9 +275,96 @@ class RobotEnv:
 
     def rollout_batch(self, states: EnvState, actions):
         """Batched policy step (the JAX _rollout_impl): -> (states', rewards)."""
-        actions = torch.clamp(torch.as_tensor(actions, dtype=torch.float32, device=self.device),
-                              self._action_lo, self._action_hi)
+        actions = self._clip(torch.as_tensor(actions, dtype=torch.float32, device=self.device))
         kin, M, bias = engine.forward_products(self.model, states.physics.qpos, states.physics.qvel)
         new, reward, _ = self._rollout_with_products(states, actions, self.model, self.n_substeps, kin, M, bias)
         return new, reward
+
+    # -- MPC planning hooks (the JAX envs/base.py make_plan_return / make_plan_dynamics)
+    def _clip(self, actions):
+        return torch.clamp(actions, self._action_lo, self._action_hi)
+
+    def _kin_lite(self, model, site_xpos, site_xmat, xpos, pair_dist):
+        """KinData carrying what the planning rollout's goals and reward
+        read (site poses, body positions, per-pair distances); the motion
+        subspace is zero and the geom poses NaN, so a consumer it does not
+        track shows at once."""
+        B, dt, dev = xpos.shape[0], xpos.dtype, xpos.device
+
+        def const(v, *shape):
+            return torch.full((1,) * (len(shape) + 1), v, dtype=dt, device=dev).expand(B, *shape)
+
+        nb, nv, ng = model.nbody, model.nv, model.ngeom
+        return KinData(xpos=xpos, xquat=const(0.0, nb, 4), xmat=const(0.0, nb, 3, 3), xipos=const(0.0, nb, 3),
+                       ximat=const(0.0, nb, 3, 3), sdof_ang=const(0.0, nv, 3), sdof_lin=const(0.0, nv, 3),
+                       geom_xpos=const(float("nan"), ng, 3), geom_xmat=const(float("nan"), ng, 3, 3),
+                       site_xpos=site_xpos, site_xmat=site_xmat, pair_dist=pair_dist)
+
+    def make_plan_return(self, model, n_substeps):
+        """rollout_return(states, seqs, discounts) -> (N,) discounted
+        return of each action sequence seqs (N, H, A) from each state, on
+        the planning `model` with `n_substeps` substeps per planned step.
+
+        Fused form (the kernel covers the world): one forward-products
+        launch (K1) for the start poses, then per planned step the
+        policy-rate goals and n_substeps launches of the emit_aux fused
+        substep, whose post-step site poses, body positions and pair
+        distances feed the reward and the next step's goals. Otherwise (or
+        with `_disable_fused`) the product-carrying policy steps."""
+        fused = None if getattr(self, "_disable_fused", False) else self._fused_for(model, emit_aux=True)
+        robot = self.robots[0]
+        arm = robot.arms[0]
+
+        def rollout_unfused(state, seqs, discounts):
+            kin, M, bias = engine.forward_products(model, state.physics.qpos, state.physics.qvel)
+            rewards = []
+            for h in range(seqs.shape[1]):
+                state, r, (kin, M, bias) = self._rollout_with_products(
+                    state, self._clip(seqs[:, h]), model, n_substeps, kin, M, bias)
+                rewards.append(r)
+            return (torch.stack(rewards, dim=-1) * discounts).sum(dim=-1)
+
+        def rollout_fused(state, seqs, discounts):
+            physics, ctrl = state.physics, state.ctrl
+            N = seqs.shape[0]
+            kin0 = engine.forward_products(model, physics.qpos, physics.qvel)[0]
+            aux = (kin0.site_xpos, kin0.site_xmat, kin0.xpos,
+                   torch.zeros(N, model.npair, dtype=physics.qpos.dtype, device=physics.qpos.device))
+            leaves = runtime_leaves(model, N)
+            M0 = torch.zeros((1, 1, 1), dtype=physics.qpos.dtype, device=physics.qpos.device).expand(
+                N, model.nv, model.nv)
+            b0 = M0[:, 0]
+            qpos, qvel, time = physics.qpos.contiguous(), physics.qvel.contiguous(), physics.time
+            rewards = []
+            for h in range(seqs.shape[1]):
+                kl = self._kin_lite(model, *aux)
+                ctrl = robot.set_goals(kl, M0, b0, qpos, qvel, ctrl, self._clip(seqs[:, h]))
+                goal, gains = self._fused_goal_fn(robot, arm, ctrl, kl)
+                grip = robot.gripper_ctrl(arm, ctrl).contiguous()
+                for _ in range(n_substeps):
+                    qpos, qvel, _f, *aux = fused(qpos, qvel, *leaves, goal, gains, grip)
+                    time = time + model.timestep
+                rewards.append(self.reward(State(qpos=qpos, qvel=qvel, time=time), self._kin_lite(model, *aux)))
+            return (torch.stack(rewards, dim=-1) * discounts).sum(dim=-1)
+
+        return rollout_unfused if fused is None else rollout_fused
+
+    def make_plan_dynamics(self, model, n_substeps):
+        """dyn(states, actions) -> states' for the MPC's linearization and
+        line search: the policy-rate goals and n_substeps substeps on
+        `model`, with no reward and no end-of-step forward products (the
+        linearizer reads only the next state). Fused: one K1 launch, then
+        n_substeps fused-substep launches."""
+        robot = self.robots[0]
+
+        def dyn(state, action):
+            physics = state.physics
+            kin, M, bias = engine.forward_products(model, physics.qpos, physics.qvel)
+            ctrl = robot.set_goals(kin, M, bias, physics.qpos, physics.qvel, state.ctrl, self._clip(action))
+            substep = self._substep_fn(model, ctrl, kin)
+            for _ in range(n_substeps):
+                physics = substep(physics)
+            return EnvState(physics=physics, ctrl=ctrl, t=state.t + 1)
+
+        return dyn
 

@@ -43,6 +43,10 @@ STATIC = (
     "actuator_kind", "actuator_jntid", "pair_geom1", "pair_geom2",
     "body_names", "jnt_names", "geom_names", "site_names", "actuator_names",
     "timestep", "impratio",
+    # planning-model overrides, None = the execution defaults: contact
+    # solver iterations (contact.APGD_ITERS), its power iterations
+    # (contact.POWER_ITERS), points per pair (contact.MANIFOLD_CAP)
+    "solver_iters", "solver_power_iters", "pair_points_cap",
 )
 
 
@@ -61,6 +65,23 @@ class Model(nn.Module):
     @property
     def device(self):
         return self.qpos0.device
+
+    def replace(self, **static) -> "Model":
+        """A model with some static fields changed (a planning model: its
+        timestep, solver iterations, manifold cap) that shares this model's
+        buffers. It starts with no cached kernel tables: they pack dt, the
+        iteration counts and the row layout, so the two models must never
+        share them."""
+        unknown = set(static) - set(STATIC)
+        if unknown:
+            raise ValueError(f"Model.replace takes static fields only, not {sorted(unknown)}")
+        new = Model.__new__(Model)
+        nn.Module.__init__(new)
+        for name in STATIC:
+            setattr(new, name, static.get(name, getattr(self, name)))
+        for name, buf in self.named_buffers():
+            new.register_buffer(name, buf)
+        return new
 
     # ---- name lookup -------------------------------------------------------
     def body_name2id(self, name: str) -> int:
@@ -441,6 +462,7 @@ def compile_spec(ms: S.ModelSpec, dtype=np.float32) -> Model:
         body_names=names_of(bodies), jnt_names=names_of(joints), geom_names=names_of(geoms),
         site_names=names_of(sites), actuator_names=tuple(a.name for a in ms.actuators),
         timestep=float(ms.option.timestep), impratio=float(ms.option.impratio),
+        solver_iters=None, solver_power_iters=None, pair_points_cap=None,
     )
     leaves = dict(
         body_pos=np.stack([b.pos for b in bodies]), body_quat=np.stack([b.quat for b in bodies]),

@@ -1,0 +1,35 @@
+"""Planning residuals (the JAX package's mpc/residuals.py and
+receding.lift_residual), for Lift.
+
+A residual r(env, plan_model, qpos, qvel, u, poses) -> (N, m) defines the
+stage cost 0.5 ||r||^2 of the iLQR refinement: a smooth least-squares
+stand-in for the env reward (same targets). `poses(model, qpos) -> (xpos,
+xquat)` is the pose-only FK it reads the bodies from: the K4 wrapper where
+only the value is needed, the plain kinematics.body_poses under torch.func.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from robosuite_tpu_torch.physics import kinematics
+
+
+def lift_residual(env, plan_model, qpos, qvel, u, poses=kinematics.body_poses):
+    """Reach the cube, lift it above the success height (robosuite
+    lift.py:224-273 reward terms as residuals)."""
+    xpos, xquat = poses(plan_model, qpos)
+    eef = kinematics.site_pos(plan_model, xpos, xquat, env.eef_site)
+    cube = xpos[:, env.cube_body_id]
+    z_target = env.table_top_z + 0.10
+    r_reach = 2.0 * (eef - cube)
+    r_lift = 6.0 * torch.clamp_max(cube[:, 2:3] - z_target, 0.0)
+    return torch.cat([r_reach, r_lift, 0.02 * qvel], dim=-1)
+
+
+_RESIDUALS = {"Lift": lift_residual}
+
+
+def residual_for(env):
+    """The planning residual of env's class, or None when not ported."""
+    return _RESIDUALS.get(type(env).__name__)

@@ -23,7 +23,7 @@ import torch
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
-_SOURCES = ("forward.cu", "contact_solve.cu", "substep.cu")
+_SOURCES = ("forward.cu", "contact_solve.cu", "substep.cu", "fk.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
           "-Xptxas", "-v")
 
@@ -33,6 +33,8 @@ _SIGNATURES = {
     "rs_forward": [P] * 20 + [ctypes.c_int, P],
     "rs_contact_solve": [P] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, P],
     "rs_substep": [P] * 13 + [ctypes.c_int, P],
+    "rs_substep_aux": [P] * 17 + [ctypes.c_int, P],
+    "rs_fk": [P] * 4 + [ctypes.c_int, P],
 }
 
 

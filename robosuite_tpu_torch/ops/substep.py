@@ -1,15 +1,18 @@
 """K3, the fused substep kernel: one whole physics substep per launch.
 
 Counterpart of robosuite_tpu/ops/pallas_substep.py (make_fused_substep,
-OSC branch without aux outputs): forward products -> OSC torque law +
-torque clip + gripper ctrl -> smooth forces -> narrowphase with the
+OSC branch, with and without emit_aux): forward products -> OSC torque
+law + torque clip + gripper ctrl -> smooth forces -> narrowphase with the
 manifold cut -> contact rows -> cone QP + implicit-damping velocity solve
--> semi-implicit qpos integration.
+-> semi-implicit qpos integration [-> with emit_aux, the post-step site
+poses, body positions and per-pair minimum distances, which the planning
+rollouts read instead of running the forward products].
 
-`substep_plain` is the plain version, the composition of the port's
-modules (the JAX make_fused_substep._xla); `make_fused_substep` returns the
-wrapper, which runs the plain version on CPU tensors and launches
-csrc/substep.cu on CUDA tensors (counted in `make_fused_substep.launches`).
+`substep_plain` / `substep_aux_plain` are the plain versions, the
+composition of the port's modules (the JAX make_fused_substep._xla);
+`make_fused_substep` returns the wrapper, which runs the plain version on
+CPU tensors and launches csrc/substep.cu on CUDA tensors (counted in
+`make_fused_substep.launches`, or `.aux_launches` for emit_aux).
 
 Goal encoding (OSC): goal (B, 12) = [desired_pos (3), desired_ori (3x3,
 row-major)] in the world frame, gains (B, 12) = [kp (6), kd (6)],
@@ -25,7 +28,7 @@ from robosuite_tpu_torch.ops import build as _b
 from robosuite_tpu_torch.ops import contact_solve
 from robosuite_tpu_torch.ops.forward import forward_plain, model_tables
 from robosuite_tpu_torch.physics import contact as C
-from robosuite_tpu_torch.physics import engine
+from robosuite_tpu_torch.physics import engine, kinematics
 from robosuite_tpu_torch.physics.state import State
 from robosuite_tpu_torch.robots.robot import FixedBaseRobot
 
@@ -81,19 +84,29 @@ def substep_plain(env, model, qpos, qvel, mass, inertia, gravity, armature, goal
     return new.qpos, new.qvel, f
 
 
+def substep_aux_plain(env, model, qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip):
+    """The plain emit_aux substep (the JAX _xla with emit_aux): ->
+    (qpos', qvel', f, site_xpos', site_xmat', xpos', pair_dist'), the poses
+    and per-pair minimum distances at the integrated qpos."""
+    qpos2, qvel2, f = substep_plain(env, model, qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip)
+    kin2 = kinematics.fk(model, qpos2)
+    return qpos2, qvel2, f, kin2.site_xpos, kin2.site_xmat, kin2.xpos, C.pair_min_dists(model, kin2)
+
+
 def make_fused_substep(env, model, emit_aux=False):
     """fused(qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip)
-    -> (qpos', qvel', f). Raises UnsupportedFused when not covered. Kernel
-    launches of every returned wrapper count in make_fused_substep.launches."""
+    -> (qpos', qvel', f), with emit_aux -> (qpos', qvel', f, site_xpos',
+    site_xmat', xpos', pair_dist'). Raises UnsupportedFused when not
+    covered. Kernel launches of every returned wrapper count in
+    make_fused_substep.launches (emit_aux: make_fused_substep.aux_launches)."""
     spec = extract_spec(env, model)
-    if emit_aux:
-        raise NotImplementedError("the emit_aux variant of the fused substep is not ported yet")
     ntot = 3 * sum(len(r) for r in C.contact_row_layout(model).values())
     ng = len(spec["grip_actuators"])
+    plain = substep_aux_plain if emit_aux else substep_plain
 
     def fused(qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip):
         if qpos.device.type == "cpu":
-            return substep_plain(env, model, qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip)
+            return plain(env, model, qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip)
         lib = _b.library()
         B = qpos.shape[0]
         for t, shape, name in ((qpos, (B, model.nq), "qpos"), (qvel, (B, model.nv), "qvel"),
@@ -104,16 +117,21 @@ def make_fused_substep(env, model, emit_aux=False):
         T = model_tables(model, arm=spec, key="fused")
         qpos_out, qvel_out = torch.empty_like(qpos), torch.empty_like(qvel)
         f = torch.empty(B, ntot, dtype=qpos.dtype, device=qpos.device)
-        err = lib.rs_substep(
-            _b.ptr(T), *(_b.ptr(t) for t in (qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip,
-                                             qpos_out, qvel_out, f)),
-            B, _b.stream(),
-        )
-        _b.check(err, "rs_substep")
-        make_fused_substep.launches += 1
-        return qpos_out, qvel_out, f
+        ins = (qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip, qpos_out, qvel_out, f)
+        if not emit_aux:
+            err = lib.rs_substep(_b.ptr(T), *(_b.ptr(t) for t in ins), B, _b.stream())
+            _b.check(err, "rs_substep")
+            make_fused_substep.launches += 1
+            return qpos_out, qvel_out, f
+        aux = tuple(torch.empty(shape, dtype=qpos.dtype, device=qpos.device) for shape in (
+            (B, model.nsite, 3), (B, model.nsite, 3, 3), (B, model.nbody, 3), (B, model.npair)))
+        err = lib.rs_substep_aux(_b.ptr(T), *(_b.ptr(t) for t in ins + aux), B, _b.stream())
+        _b.check(err, "rs_substep_aux")
+        make_fused_substep.aux_launches += 1
+        return (qpos_out, qvel_out, f) + aux
 
     return fused
 
 
 make_fused_substep.launches = 0
+make_fused_substep.aux_launches = 0

@@ -55,7 +55,7 @@ class RsTables(ctypes.Structure):
         ("pair_flip", _a(_i, MAXP)), ("pair_npts", _a(_i, MAXP)), ("pair_row", _a(_i, MAXP)),
         ("pair_body1", _a(_i, MAXP)), ("pair_body2", _a(_i, MAXP)),
         ("pair_friction", _a(_f, MAXP)), ("pair_solref", _a(_f, MAXP, 2)), ("pair_solimp", _a(_f, MAXP, 5)),
-        ("pair_margin", _a(_f, MAXP)), ("row_pair", _a(_i, MAXK)),
+        ("pair_margin", _a(_f, MAXP)), ("row_pair", _a(_i, MAXK)), ("pair_k", _a(_i, MAXP)),
         *[(n, _i) for n in ("na", "eef_site", "center_site", "uncouple", "ngrip")],
         ("arm_qv", _a(_i, MAXA)), ("arm_qp", _a(_i, MAXA)), ("arm_act", _a(_i, MAXA)),
         ("torque_lo", _a(_f, MAXA)), ("torque_hi", _a(_f, MAXA)), ("initial_joint", _a(_f, MAXA)),
@@ -102,7 +102,7 @@ def pack(model, arm=None, device=None) -> torch.Tensor:
     for n in ("nq", "nv", "nbody", "njnt", "ngeom", "nsite", "nu", "npair"):
         setattr(t, n, getattr(model, n))
     t.nrows = nrows
-    t.solver_iters, t.power_iters = C.APGD_ITERS, C.POWER_ITERS
+    t.solver_iters, t.power_iters = C.solver_iterations(model)
     t.dt, t.impratio = model.timestep, model.impratio
 
     _set(t.body_parent, model.body_parentid)
@@ -155,6 +155,7 @@ def pack(model, arm=None, device=None) -> torch.Tensor:
             _set(t.pair_solref[i], cpu["pair_solref"][k])
             _set(t.pair_solimp[i], cpu["pair_solimp"][k])
             t.pair_margin[i] = cpu["pair_margin"][k]
+            t.pair_k[i] = k
             row_pair[rows] = i
             i += 1
     _set(t.row_pair, row_pair)

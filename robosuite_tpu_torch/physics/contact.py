@@ -39,6 +39,25 @@ def pair_points(t1: int, t2: int) -> int:
     return min(_PAIR_POINTS[key], MANIFOLD_CAP)
 
 
+def model_pair_points(model, t1: int, t2: int) -> int:
+    """Points per pair for this model: Model.pair_points_cap (a planning
+    model's reduced manifolds) tightens MANIFOLD_CAP."""
+    n = pair_points(t1, t2)
+    cap = model.pair_points_cap
+    if cap is None:
+        return n
+    if cap < 1:
+        raise ValueError(f"pair_points_cap must be >= 1 (got {cap})")
+    return min(n, cap)
+
+
+def solver_iterations(model):
+    """(APGD iterations, power iterations) of the model's contact solve."""
+    iters = APGD_ITERS if model.solver_iters is None else model.solver_iters
+    piters = POWER_ITERS if model.solver_power_iters is None else model.solver_power_iters
+    return iters, piters
+
+
 def pair_groups(model, pairs=None):
     """{(t1, t2): [(g1, g2, pair, flip), ...]} with t1 <= t2, pairs in
     model order; `pairs` restricts to a subset of pair indices."""
@@ -59,7 +78,7 @@ def contact_row_layout(model):
     """{pair index: [row, ...]}: THE row order of the contact buffer."""
     rows, row = {}, 0
     for key, items in sorted(pair_groups(model).items()):
-        npts = pair_points(*key)
+        npts = model_pair_points(model, *key)
         for _, _, k, _ in items:
             rows[k] = list(range(row, row + npts))
             row += npts
@@ -172,6 +191,20 @@ def _np_box_box_edges(p1, R1, s1, p2, R2, s2):
     """9 SAT edge-cross rows (MuJoCo mjc_BoxBox edge case), masked to +BIG
     unless the global separating axis is that edge pair's cross axis and
     it beats every face axis."""
+    max_face, best_e, cands = box_box_sat(p1, R1, s1, p2, R2, s2)
+    out = []
+    for sep, pos, axis, valid in cands:
+        emit = valid & (sep >= best_e - 1e-9) & (sep > max_face)
+        out.append((torch.where(emit, sep, torch.full_like(sep, _BIG)), pos, axis))
+    return out
+
+
+def box_box_sat(p1, R1, s1, p2, R2, s2):
+    """The separating-axis test of two boxes: (max_face, the largest face
+    separation; best_e, the largest edge-cross separation; the 9 edge-cross
+    candidates (sep, pos, axis, valid), sep unmasked). An edge candidate is
+    emitted only where best_e beats max_face, so a near-tie of the two
+    decides whether the pair's minimum distance includes an edge point."""
     dp = _sub(p2, p1)
     a_axes = [_matcol(R1, i) for i in range(3)]
     b_axes = [_matcol(R2, j) for j in range(3)]
@@ -225,11 +258,7 @@ def _np_box_box_edges(p1, R1, s1, p2, R2, s2):
     best_e = seps_e[0]
     for s in seps_e[1:]:
         best_e = torch.maximum(best_e, s)
-    out = []
-    for sep, pos, axis, valid in cands:
-        emit = valid & (sep >= best_e - 1e-9) & (sep > max_face)
-        out.append((torch.where(emit, sep, torch.full_like(sep, _BIG)), pos, axis))
-    return out
+    return max_face, best_e, cands
 
 
 _LANE_DISPATCH = {
@@ -270,7 +299,7 @@ def narrowphase(model, kin, pairs=None):
         n = torch.stack([torch.stack([bc(x) for x in c[2]], dim=-1) for c in cands], dim=-2)
         flip = torch.tensor([-1.0 if it[3] else 1.0 for it in items], dtype=d.dtype, device=d.device)
         n = n * flip[:, None, None]
-        npts = pair_points(t1, t2)
+        npts = model_pair_points(model, t1, t2)
         if d.shape[-1] > npts:
             idx = select_deepest(d, npts)
             d = torch.gather(d, -1, idx)
@@ -316,7 +345,8 @@ def impedance(solimp, x):
 
 
 def pair_min_dists(model, kin):
-    """(B, npair) min narrowphase distance per candidate pair."""
+    """(B, npair) min narrowphase distance per candidate pair (after the
+    model's manifold cut, which keeps each pair's deepest points)."""
     con = narrowphase(model, kin)
     layout = contact_row_layout(model)
     return torch.stack([con["dist"][:, layout[k]].min(dim=-1).values for k in range(model.npair)], dim=-1)

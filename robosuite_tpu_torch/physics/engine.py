@@ -72,7 +72,7 @@ def integrate(model, state: State, ctrl, kin, M, bias, solve=contact_solve.vel_u
     JfT, aref, reg3, mu, active = C.solver_inputs(model, kin, con, state.qvel, dt)
     damping = (model.dof_damping + extra_damp).contiguous()
     qvel_new, f = solve(M.contiguous(), JfT, aref.contiguous(), qfrc_smooth.contiguous(), state.qvel.contiguous(),
-                        damping, reg3.contiguous(), mu, active.contiguous(), C.APGD_ITERS, C.POWER_ITERS, dt)
+                        damping, reg3.contiguous(), mu, active.contiguous(), *C.solver_iterations(model), dt)
     qpos_new = integrate_qpos(model, state.qpos, qvel_new, dt)
     return State(qpos=qpos_new, qvel=qvel_new, time=state.time + dt), f
 

@@ -18,6 +18,42 @@ from robosuite_tpu_torch.utils import transforms as T
 def fk(model, qpos) -> KinData:
     """Body/geom/site poses + per-dof motion subspace for qpos (B, nq)."""
     B = qpos.shape[0]
+    xpos, xquat, sdof_ang, sdof_lin = _tree(model, qpos, subspace=True)
+    xmat = T.quat2mat_wxyz(xquat)
+    xipos = xpos + torch.einsum("bnij,nj->bni", xmat, model.body_ipos)
+    ximat = T.quat2mat_wxyz(T.quat_mul_wxyz(xquat, model.body_iquat.expand(xquat.shape)))
+
+    gb = list(model.geom_bodyid)
+    geom_xpos = xpos[:, gb] + torch.einsum("bgij,gj->bgi", xmat[:, gb], model.geom_pos)
+    geom_xmat = T.quat2mat_wxyz(T.quat_mul_wxyz(xquat[:, gb], model.geom_quat.expand(B, -1, 4)))
+    sb = list(model.site_bodyid)
+    site_xpos = xpos[:, sb] + torch.einsum("bsij,sj->bsi", xmat[:, sb], model.site_pos)
+    site_xmat = T.quat2mat_wxyz(T.quat_mul_wxyz(xquat[:, sb], model.site_quat.expand(B, -1, 4)))
+
+    return KinData(
+        xpos=xpos, xquat=xquat, xmat=xmat, xipos=xipos, ximat=ximat, sdof_ang=sdof_ang, sdof_lin=sdof_lin,
+        geom_xpos=geom_xpos, geom_xmat=geom_xmat, site_xpos=site_xpos, site_xmat=site_xmat,
+    )
+
+
+def body_poses(model, qpos):
+    """(xpos (B, nbody, 3), xquat (B, nbody, 4)): the pose-only FK (the
+    plain version of the K4 kernel). Free of in-place writes, so
+    torch.func transforms (the MPC's residual Jacobians) go through it."""
+    xpos, xquat, _, _ = _tree(model, qpos, subspace=False)
+    return xpos, xquat
+
+
+def site_pos(model, xpos, xquat, siteid: int):
+    """(B, 3) world position of a site from its body's pose."""
+    b = model.site_bodyid[siteid]
+    return xpos[:, b] + T.quat_rot_wxyz(xquat[:, b], model.site_pos[siteid])
+
+
+def _tree(model, qpos, subspace):
+    """The tree walk: body poses and, with `subspace`, the per-dof motion
+    subspace (else None)."""
+    B = qpos.shape[0]
     dtype, dev = qpos.dtype, qpos.device
     nb = model.nbody
     xpos = [None] * nb
@@ -74,24 +110,10 @@ def fk(model, qpos) -> KinData:
                 sdof_lin[dadr] = torch.linalg.cross(anchor, axis_w)
         xpos[b], xquat[b] = pos, quat
 
-    xpos = torch.stack(xpos, dim=1)
-    xquat = torch.stack(xquat, dim=1)
-    xmat = T.quat2mat_wxyz(xquat)
-    xipos = xpos + torch.einsum("bnij,nj->bni", xmat, model.body_ipos)
-    ximat = T.quat2mat_wxyz(T.quat_mul_wxyz(xquat, model.body_iquat.expand(xquat.shape)))
-
-    gb = list(model.geom_bodyid)
-    geom_xpos = xpos[:, gb] + torch.einsum("bgij,gj->bgi", xmat[:, gb], model.geom_pos)
-    geom_xmat = T.quat2mat_wxyz(T.quat_mul_wxyz(xquat[:, gb], model.geom_quat.expand(B, -1, 4)))
-    sb = list(model.site_bodyid)
-    site_xpos = xpos[:, sb] + torch.einsum("bsij,sj->bsi", xmat[:, sb], model.site_pos)
-    site_xmat = T.quat2mat_wxyz(T.quat_mul_wxyz(xquat[:, sb], model.site_quat.expand(B, -1, 4)))
-
-    return KinData(
-        xpos=xpos, xquat=xquat, xmat=xmat, xipos=xipos, ximat=ximat,
-        sdof_ang=torch.stack(sdof_ang, dim=1), sdof_lin=torch.stack(sdof_lin, dim=1),
-        geom_xpos=geom_xpos, geom_xmat=geom_xmat, site_xpos=site_xpos, site_xmat=site_xmat,
-    )
+    if not subspace:
+        return torch.stack(xpos, dim=1), torch.stack(xquat, dim=1), None, None
+    return (torch.stack(xpos, dim=1), torch.stack(xquat, dim=1),
+            torch.stack(sdof_ang, dim=1), torch.stack(sdof_lin, dim=1))
 
 
 def point_jacobian(model, kin: KinData, bodyid: int, point):

@@ -8,6 +8,7 @@ MjSimState.from_flattened/flatten).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -46,3 +47,7 @@ class KinData:
     geom_xmat: torch.Tensor  # (B, ngeom, 3, 3)
     site_xpos: torch.Tensor  # (B, nsite, 3)
     site_xmat: torch.Tensor  # (B, nsite, 3, 3)
+    # (B, npair) min distance per candidate pair; set only on the planning
+    # rollout's pose-only KinData (the fused substep's aux output), whose
+    # contact queries read it instead of running the narrowphase
+    pair_dist: Optional[torch.Tensor] = None

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import robosuite_tpu_torch
-from robosuite_tpu_torch.ops import build, contact_solve, forward, substep, tables
+from robosuite_tpu_torch.ops import build, contact_solve, fk, forward, substep, tables
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "robosuite_tpu_torch")
@@ -98,6 +98,8 @@ def test_non_cpu_tensors_never_reach_a_plain_version(monkeypatch):
     monkeypatch.setattr(forward, "forward_plain", forbidden)
     monkeypatch.setattr(contact_solve, "vel_update_plain", forbidden)
     monkeypatch.setattr(substep, "substep_plain", forbidden)
+    monkeypatch.setattr(substep, "substep_aux_plain", forbidden)
+    monkeypatch.setattr(fk, "fk_pose_plain", forbidden)
     monkeypatch.setattr(build, "library", lambda: _FakeLib())
     env = robosuite_tpu_torch.make("Lift", robots="Panda", device="cpu")
     m = env.model
@@ -113,15 +115,18 @@ def test_non_cpu_tensors_never_reach_a_plain_version(monkeypatch):
         contact_solve.vel_update(torch.empty(B, m.nv, m.nv, device=meta), torch.empty(B, m.nv, 3 * K, device=meta),
                                  torch.empty(B, 3 * K, device=meta), qd, qd, qd, torch.empty(B, 3 * K, device=meta),
                                  torch.empty(B, K, device=meta), torch.empty(B, K, device=meta), 30, 8, 0.002)
-    fused = substep.make_fused_substep(env, m)
+    for emit_aux in (False, True):
+        fused = substep.make_fused_substep(env, m, emit_aux=emit_aux)
+        with pytest.raises(ValueError, match="CUDA"):
+            fused(q, qd, torch.empty(B, m.nbody, device=meta), torch.empty(B, m.nbody, 3, device=meta),
+                  torch.empty(B, 3, device=meta), torch.empty(B, m.nv, device=meta),
+                  torch.empty(B, 12, device=meta), torch.empty(B, 12, device=meta), torch.empty(B, 2, device=meta))
     with pytest.raises(ValueError, match="CUDA"):
-        fused(q, qd, torch.empty(B, m.nbody, device=meta), torch.empty(B, m.nbody, 3, device=meta),
-              torch.empty(B, 3, device=meta), torch.empty(B, m.nv, device=meta), torch.empty(B, 12, device=meta),
-              torch.empty(B, 12, device=meta), torch.empty(B, 2, device=meta))
+        fk.fk_pose(m, q)
 
 
-@pytest.mark.parametrize("fn", [forward.forward_products, contact_solve.vel_update, substep.make_fused_substep],
-                         ids=["forward", "contact_solve", "substep"])
+@pytest.mark.parametrize("fn", [forward.forward_products, contact_solve.vel_update, substep.make_fused_substep,
+                                fk.fk_pose], ids=["forward", "contact_solve", "substep", "fk"])
 def test_wrappers_have_no_fallback(fn):
     """No try/except in a wrapper: a kernel that fails raises."""
     src = inspect.getsource(fn)

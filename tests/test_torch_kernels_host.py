@@ -1,10 +1,11 @@
 """The CUDA kernels' arithmetic, checked without a GPU: the device code in
 robosuite_tpu_torch/csrc/*.cuh is written as block functions that also
 compile as plain C++ (one thread per block, csrc/common.cuh), so this test
-builds it with the host C++ compiler, runs K1, K2 and K3 block by block on
-CPU tensors and holds each against its plain PyTorch version with the
-tolerances chip_smoke.py uses on the card. Launch configuration, warp
-shuffles and shared memory are exercised only on the card."""
+builds it with the host C++ compiler, runs K1, K2, K3, K3's emit_aux
+variant and K4 block by block on CPU tensors and holds each against its
+plain PyTorch version with the tolerances chip_smoke.py uses on the card.
+Launch configuration, warp shuffles and shared memory are exercised only on
+the card."""
 
 import ctypes
 import os
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 import robosuite_tpu_torch
-from robosuite_tpu_torch.ops import build, contact_solve, forward, substep, tables
+from robosuite_tpu_torch.ops import build, contact_solve, fk, forward, substep, tables
 from robosuite_tpu_torch.physics import contact as C
 from robosuite_tpu_torch.physics import engine
 
@@ -48,14 +49,29 @@ extern "C" int rs_contact_solve(const float* M, const float* JfT, const float* a
   delete s;
   return 0;
 }
+extern "C" int rs_substep_aux(const void* T, const float* qpos, const float* qvel, const float* mass,
+    const float* inertia, const float* gravity, const float* armature, const float* goal, const float* gains,
+    const float* grip, float* qpos_out, float* qvel_out, float* f_out, float* sxpos, float* sxmat, float* bxpos,
+    float* pdist, int B, void*) {
+  SubstepShared* s = new SubstepShared();
+  for (int b = 0; b < B; ++b)
+    substep_body<true>(*(const RsTables*)T, *s, b, qpos, qvel, mass, inertia, gravity, armature, goal, gains,
+                       grip, qpos_out, qvel_out, f_out, sxpos, sxmat, bxpos, pdist);
+  delete s;
+  return 0;
+}
 extern "C" int rs_substep(const void* T, const float* qpos, const float* qvel, const float* mass,
     const float* inertia, const float* gravity, const float* armature, const float* goal, const float* gains,
     const float* grip, float* qpos_out, float* qvel_out, float* f_out, int B, void*) {
   SubstepShared* s = new SubstepShared();
   for (int b = 0; b < B; ++b)
-    substep_body(*(const RsTables*)T, *s, b, qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip,
-                 qpos_out, qvel_out, f_out);
+    substep_body<false>(*(const RsTables*)T, *s, b, qpos, qvel, mass, inertia, gravity, armature, goal, gains,
+                        grip, qpos_out, qvel_out, f_out, nullptr, nullptr, nullptr, nullptr);
   delete s;
+  return 0;
+}
+extern "C" int rs_fk(const void* T, const float* qpos, float* xpos, float* xquat, int B, void*) {
+  for (int b = 0; b < B; ++b) fk_pose_one(*(const RsTables*)T, (size_t)b, qpos, xpos, xquat);
   return 0;
 }
 """
@@ -150,3 +166,43 @@ def test_substep_kernel_matches_plain(lib, contact_state):
     assert float((qp_k - qp_p).abs().max()) <= 1e-5
     assert float((qv_k - qv_p).abs().max()) <= 1e-3
     np.testing.assert_allclose(f_k.numpy(), f_p.numpy(), rtol=0, atol=1e-4 * max(1.0, float(f_p.abs().max())))
+
+
+def test_fk_kernel_matches_plain(lib, contact_state):
+    """K4 at an odd batch (the kernel masks the ragged last block)."""
+    env, s = contact_state
+    m = env.model
+    rng = np.random.default_rng(0)
+    q = s.physics.qpos.repeat(5, 1)[:7].contiguous()
+    q[:, :9] += torch.as_tensor(rng.uniform(-0.3, 0.3, (7, 9)), dtype=torch.float32)
+    xpos_p, xquat_p = fk.fk_pose_plain(m, q)
+    xpos_k, xquat_k = torch.empty_like(xpos_p), torch.empty_like(xquat_p)
+    T = tables.pack(m)
+    lib.rs_fk(_p(T), _p(q), _p(xpos_k), _p(xquat_k), 7, None)
+    assert float((xpos_k - xpos_p).abs().max()) <= 2e-5
+    assert float((xquat_k - xquat_p).abs().max()) <= 2e-5
+
+
+def test_substep_aux_kernel_matches_plain(lib, contact_state):
+    """K3's emit_aux variant on the 2-point planning model (dt 25 ms, 10
+    solver iterations): the substep, the post-step poses and the per-pair
+    minimum distances."""
+    env, s = contact_state
+    m = env.model.replace(timestep=0.025, solver_iters=10, pair_points_cap=2)
+    B = 4
+    q, qd = s.physics.qpos.contiguous(), s.physics.qvel.contiguous()
+    leaves = forward.runtime_leaves(m, B)
+    kin = forward.forward_plain(m, q, qd, *leaves)[0]
+    robot = env.robots[0]
+    goal, gains = env._fused_goal_fn(robot, "right", s.ctrl, kin)
+    grip = robot.gripper_ctrl("right", s.ctrl).contiguous()
+    ref = substep.substep_aux_plain(env, m, q, qd, *leaves, goal, gains, grip)
+    out = [torch.empty_like(r) for r in ref]
+    T = tables.pack(m, arm=substep.extract_spec(env, m))
+    lib.rs_substep_aux(_p(T), *(_p(t) for t in (q, qd, *leaves, goal, gains, grip, *out)), B, None)
+    names = ("qpos", "qvel", "f", "site_xpos", "site_xmat", "xpos", "pair_dist")
+    tols = dict(qpos=1e-5, qvel=1e-3, site_xpos=2e-5, site_xmat=2e-5, xpos=2e-5, pair_dist=1e-5)
+    for name, k, p in zip(names, out, ref):
+        if name in tols:
+            assert float((k - p).abs().max()) <= tols[name], name
+    assert float(ref[-1].min()) < 0.0  # some pair touches

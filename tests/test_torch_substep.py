@@ -74,7 +74,17 @@ def test_substep_matches_jax(envs):
         assert f_p.shape[1] == np.asarray(f_j).shape[0]
 
 
-def test_unsupported_variants_raise(envs):
+def test_unsupported_variants_raise(envs, monkeypatch):
+    """The JOINT_POSITION controller is not ported: the env refuses its
+    config, and an arm controller other than OSC makes the fused substep
+    (with or without emit_aux) raise UnsupportedFused."""
+    import robosuite_tpu_torch
+
     _, penv, _ = envs
-    with pytest.raises(NotImplementedError):
-        substep.make_fused_substep(penv, penv.model, emit_aux=True)
+    with pytest.raises((substep.UnsupportedFused, NotImplementedError)):
+        robosuite_tpu_torch.make("Lift", robots="Panda", cube_size=CUBE, controller_configs="JOINT_POSITION",
+                                 device="cpu")
+    monkeypatch.setitem(penv.robots[0].arm_cfg, "right", object())
+    for emit_aux in (False, True):
+        with pytest.raises(substep.UnsupportedFused):
+            substep.make_fused_substep(penv, penv.model, emit_aux=emit_aux)
