@@ -35,13 +35,34 @@ Phases (any failure exits non-zero):
      iteration, relinearized every 4th tick): a warm-up tick, then ticks
      1-4 timed on the host clock, with the launches per tick the config
      implies, finite actions in [-1, 1], the peak device memory and a
-     profiler pass over one more tick.
+     profiler pass over one more tick;
+ 12. make("Stack", robots="Panda", controller_configs="JOINT_POSITION") on
+     CUDA, reset_batch(512): K1 against its plain version at B=512 and 32;
+     a contact-rich state (cubeA dropped onto cubeB in every other
+     scenario, four steps to land);
+ 13. K2 against its plain version at Stack's width (nv 21, 96 rows);
+ 14. K3's JOINT_POSITION branch (K3-JP) at B=512 and 32, and its emit_aux
+     variant (K3-aux-JP) at B*K=512 on the planning model, against their
+     plain versions: the robot in every scenario, the cubes in every
+     scenario but those with a float64 witness of a contact near-tie
+     (hold_cubes), the aux poses and pair distances at the kernel's own
+     post-step qpos;
+ 15. the Stack env-step slice: counts zeroed, reset + 10 policy steps
+     (K1 = 21, K3-JP = 250 launches), host-clock rates with and without a
+     profiled step; every substep of the 10 steps against the plain
+     substep from the same input; one step with the fused path disabled
+     (K1 + K2), substep by substep against the fused one;
+ 16. the Stack MPC at tools/bench_configs.py's width (B=32, H=128, K=16,
+     MPPI only, 2 substeps per planned step): a warm-up tick, ticks 1-3
+     timed with their launch counts, finite actions in [-1, 1], peak
+     memory and a profiled tick.
 Timings use CUDA events (profiler passes show one policy step's and one
 MPC tick's device time); every number is printed beside the card's name
 and power limit, which the first line gives. TF32 is off, so the plain
 versions are float32 references. Each phase prints its seconds. The line
 before the last is one JSON object listing the kernels (launches: the
-env-step path's plus the MPC ticks'); the last line is
+sum over the paths that run each, every path counted from zero); the last
+line is
 {"ok": true, "device": {...}}. A JSON copy of the results goes to
 chiprun_out/chip_smoke.json.
 """
@@ -195,11 +216,15 @@ def hold_pair_dist(label, model, pd_k, pd_p, qpos_k, qpos_p, tol=2e-5, tie=1e-5)
     return float(err.max())
 
 
-def op_counts(model, nrows, iters=30, power_iters=8):
+def op_counts(model, nrows, iters=30, power_iters=8, ctrl="osc"):
     """Float operations per scenario of each kernel, counted from the
     kernels' arithmetic stage by stage (multiply and add count one each),
-    for `nrows` contact rows and the contact solve's iteration counts:
-    returns {"K1", "K2", "K3", "K3-aux", "K4": flops}."""
+    for `nrows` contact rows, the contact solve's iteration counts and the
+    arm's torque law (`ctrl`, "osc" or "joint_pos"): returns {"K1", "K2",
+    "K3", "K3-aux", "K4": flops}."""
+    from robosuite_tpu_torch.models import spec as S
+    from robosuite_tpu_torch.physics import contact as C
+
     nb, nv, ng, ns = model.nbody, model.nv, model.ngeom, model.nsite
     anc = model.ancestor_mask.cpu()
     pairs_db = int(anc.sum())                                    # (body, dof) pairs in a subtree
@@ -214,13 +239,19 @@ def op_counts(model, nrows, iters=30, power_iters=8):
     k2 = (2 * chol + ntot * nv * (nv + 4)
           + (power_iters + 1) * (matvec + 3 * ntot) + iters * (matvec + 20 * nrows) + 2 * nv * ntot)
     na = 7
-    osc = 2 * na ** 3 + 3 * 6 * na * na + 6 * 6 * na + 2 * 6 ** 3 + nv * 24
-    cands = 12 * (16 * 90 + 9 * 110) + 3 * 8 * 30 + 3 * 2 * 90  # 12 box-box, 3 plane-box, 3 capsule-box
+    if ctrl == "osc":
+        law = 2 * na ** 3 + 3 * 6 * na * na + 6 * 6 * na + 2 * 6 ** 3 + nv * 24
+    else:                                                        # kp e - kd qdot, M_arm times it, + bias, clip
+        law = na * 4 + 2 * na * na + 2 * na
+    groups = {key: len(items) for key, items in C.pair_groups(model).items()}
+    n_bb, n_pb = groups.get((S.BOX, S.BOX), 0), groups.get((S.PLANE, S.BOX), 0)
+    n_cb = groups.get((S.CYLINDER, S.BOX), 0)
+    cands = n_bb * (16 * 90 + 9 * 110) + n_pb * 8 * 30 + n_cb * 2 * 90  # box-box, plane-box, capsule-box
     narrow = cands + nrows * 40
     rows = nrows * (nv * (6 + 3 * 6) + 60)
-    k3 = k1 - (ng + ns) * 72 + osc + narrow + rows + k2 + nv * 20
+    k3 = k1 - (ng + ns) * 72 + law + narrow + rows + k2 + nv * 20
     k4 = nb * (27 + 28) + nv * (3 * 27 + 28 + 26)               # pose-only walk: rotate, compose, hinge
-    aux = k4 + nb * 30 + ns * (18 + 24 + 30) + 18 * 2 * 72 + cands  # walk, matrices, sites, pair poses, candidates
+    aux = k4 + nb * 30 + ns * (18 + 24 + 30) + model.npair * 2 * 72 + cands  # walk, matrices, sites, pair poses
     return {"K1": k1, "K2": k2, "K3": k3, "K3-aux": k3 + aux, "K4": k4}
 
 
@@ -270,6 +301,104 @@ def plain_path(env):
         del env._fused_for
 
 
+_CPU64 = {}
+
+
+def cube_tie_witness(model, qpos, bodies, tie=1e-5, touch=1e-3):
+    """Float64 witnesses that the contacts of free box bodies[n] at qpos[n]
+    (N, nq) hold a decision float32 rounding can take either way: some
+    box-box pair of the body's geoms within `touch` of contact whose SAT
+    tie margin best_e - max_face is within `tie` (the edge candidate
+    emitted or not), or whose manifold cut ties (the last kept and the first
+    dropped candidate distances within `tie`). Computed on the CPU for all N
+    at once. -> one description, or None, per n."""
+    import torch
+
+    from robosuite_tpu_torch.models import spec as S
+    from robosuite_tpu_torch.physics import contact as C
+    from robosuite_tpu_torch.physics import kinematics
+
+    if id(model) not in _CPU64:  # the entry holds the model, so its id is not reused
+        _CPU64[id(model)] = (model, model.replace().double().to("cpu"))
+    m64 = _CPU64[id(model)][1]
+    kin = kinematics.fk(m64, qpos.detach().to("cpu", m64.geom_size.dtype))
+
+    def operand(g):
+        return (tuple(kin.geom_xpos[:, g, i] for i in range(3)),
+                [[kin.geom_xmat[:, g, i, j] for j in range(3)] for i in range(3)],
+                tuple(m64.geom_size[g, i] for i in range(3)))
+
+    npts = C.model_pair_points(model, S.BOX, S.BOX)
+    out = [None] * len(bodies)
+    for k in range(model.npair):
+        g1, g2 = model.pair_geom1[k], model.pair_geom2[k]
+        owners = (model.geom_bodyid[g1], model.geom_bodyid[g2])
+        rows = [n for n, body in enumerate(bodies) if out[n] is None and body in owners]
+        if not rows or model.geom_type[g1] != S.BOX or model.geom_type[g2] != S.BOX:
+            continue
+        args = operand(g1) + operand(g2)
+        d = torch.sort(torch.stack([c[0] for c in C._np_box_box(*args)], dim=-1), dim=-1).values
+        max_face, best_e, _ = C.box_box_sat(*args)
+        margin = best_e - max_face
+        for n in rows:
+            if float(d[n, 0]) > touch:
+                continue
+            if abs(float(margin[n])) <= tie:
+                out[n] = f"pair {k}: SAT tie margin {float(margin[n]):.3e} (deepest {float(d[n, 0]):.6e})"
+            elif abs(float(d[n, npts] - d[n, npts - 1])) <= tie and float(d[n, npts - 1]) <= touch:
+                out[n] = (f"pair {k}: manifold cut tie, kept {float(d[n, npts - 1]):.6e} "
+                          f"dropped {float(d[n, npts]):.6e}")
+    return out
+
+
+def hold_cubes(label, model, bodies, qpos_in, out_k, out_p, tol_q=1e-5, tol_v=1e-3):
+    """Hold the free boxes `bodies` after one substep from the same input
+    qpos_in (B, nq), kernel out_k vs plain out_p ((qpos, qvel) each), in
+    every scenario. A (scenario, box) beyond the tolerances is set aside
+    only with cube_tie_witness at qpos_in; every case is printed. -> (the
+    largest qpos and qvel errors left, the number set aside); the caller
+    checks them."""
+    import torch
+
+    (qk, vk), (qp, vp) = out_k, out_p
+    errs, bad = [], []
+    for body in bodies:
+        j = model.body_jntadr[body]
+        qa, da = model.jnt_qposadr[j], model.jnt_dofadr[j]
+        eq = (qk[:, qa:qa + 7] - qp[:, qa:qa + 7]).abs().amax(dim=1)
+        ev = (vk[:, da:da + 6] - vp[:, da:da + 6]).abs().amax(dim=1)
+        errs.append((eq, ev))
+        bad += [(b, body, len(errs) - 1) for b in torch.nonzero((eq > tol_q) | (ev > tol_v)).flatten().tolist()]
+    witnessed = 0
+    if len(bad) > 64:
+        FAILED.append(f"{label}: {len(bad)} (scenario, cube) cases beyond tolerance")
+        print(f"{label}: {len(bad)} (scenario, cube) cases beyond tolerance  <-- FAILED")
+    elif bad:
+        whys = cube_tie_witness(model, qpos_in[[b for b, _, _ in bad]], [body for _, body, _ in bad])
+        for (b, body, i), why in zip(bad, whys):
+            eq, ev = errs[i]
+            print(f"{label} scenario {b} body {body}: qpos err {float(eq[b]):.3e} qvel err {float(ev[b]):.3e}; "
+                  f"{why or 'NO near-tie witness'}")
+            if why:
+                eq[b] = ev[b] = 0.0
+                witnessed += 1
+    return (max(float(eq.max()) for eq, _ in errs), max(float(ev.max()) for _, ev in errs), witnessed)
+
+
+def hold_substep(label, model, bodies, qpos_in, out_k, out_p, tol_q=1e-5, tol_v=1e-3):
+    """Check one substep from the same input, kernel vs plain: the robot
+    (arm + fingers, the first 9 coordinates) in every scenario, the free
+    boxes with hold_cubes. -> the largest error held."""
+    nr = 9
+    eq, ev = max_err(out_k[0][:, :nr], out_p[0][:, :nr]), max_err(out_k[1][:, :nr], out_p[1][:, :nr])
+    check(f"{label} robot qpos", eq, tol_q)
+    check(f"{label} robot qvel", ev, tol_v)
+    cq, cv, n = hold_cubes(label, model, bodies, qpos_in, out_k, out_p, tol_q, tol_v)
+    check(f"{label} cubes qpos, every scenario ({n} witnessed near-ties set aside)", cq, tol_q)
+    check(f"{label} cubes qvel, every scenario", cv, tol_v)
+    return max(eq, ev, cq, cv)
+
+
 def tick_launches(cfg, mpc, env, full):
     """Kernel launches of one MPC tick (solve_batch + the executed
     rollout_batch) that the config implies; `full` = a full
@@ -289,6 +418,328 @@ def tick_launches(cfg, mpc, env, full):
                 k["K1"] += 1
                 k["K3"] += n_lin
     return k
+
+
+# tools/bench_configs.py:24,48-51: the Stack workload (MPPI only, H=128)
+STACK_MPC = dict(horizon=128, n_samples=16, noise_sigma=0.4, temperature=0.2, n_knots=8, n_ilqr_iters=0,
+                 plan_timestep=0.025)
+STACK_B, STACK_TICKS = 32, 3
+
+
+def stack_slice(tag, results):
+    """Phases 12-16, Panda-Stack with the JOINT_POSITION arm. -> the launch
+    counts of the env step (reset + STEPS policy steps), of the MPC ticks
+    and of the unfused policy step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import robosuite_tpu_torch as R
+    from robosuite_tpu_torch.mpc import receding
+    from robosuite_tpu_torch.ops import contact_solve, fk, forward, substep
+    from robosuite_tpu_torch.physics import contact as C
+    from robosuite_tpu_torch.physics import engine
+
+    def kcounts():
+        return {"K1": forward.forward_products.launches, "K2": contact_solve.vel_update.launches,
+                "K3": substep.make_fused_substep.launches, "K3-aux": substep.make_fused_substep.aux_launches,
+                "K4": fk.fk_pose.launches}
+
+    def zero_counts():
+        forward.forward_products.launches = contact_solve.vel_update.launches = 0
+        substep.make_fused_substep.launches = substep.make_fused_substep.aux_launches = fk.fk_pose.launches = 0
+
+    env = R.make("Stack", robots="Panda", controller_configs="JOINT_POSITION", reward_shaping=True)
+    model, robot = env.model, env.robots[0]
+    cubes = (env.cubeA_body_id, env.cubeB_body_id)
+    nrows = sum(len(r) for r in C.contact_row_layout(model).values())
+    plan = model.replace(timestep=STACK_MPC["plan_timestep"], solver_iters=10)  # MPCConfig's planning model
+    print(f"Stack world: nq={model.nq} nv={model.nv} nbody={model.nbody} ngeom={model.ngeom} "
+          f"npair={model.npair} rows={nrows}; action_dim={env.action_dim}; arm controller "
+          f"{type(robot.arm_cfg['right']).__name__}")
+    flops = op_counts(model, nrows, ctrl="joint_pos")
+    aux_flops = op_counts(plan, nrows, iters=10, ctrl="joint_pos")["K3-aux"]
+    stack_k = results.setdefault("stack_kernels", {})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+
+    # ---- 12. K1 at Stack's widths (B=512: env step, MPPI start; 32: the executed MPC step)
+    states, obs = env.reset_batch(B, gen)
+    if not all(torch.isfinite(v.float()).all() for v in obs.values()) or not bool(obs["placement_valid"].all()):
+        fail("Stack reset: non-finite observations or an invalid placement")
+    k1_err = 0.0
+    for n in (B, STACK_B):
+        q, qd = states.physics.qpos[:n], states.physics.qvel[:n]
+        leaves = forward.runtime_leaves(model, n)
+        kin_k, M_k, bias_k = forward.forward_products(model, q, qd, *leaves)
+        kin_p, M_p, bias_p = forward.forward_plain(model, q, qd, *leaves)
+        torch.cuda.synchronize()
+        fields = [f for f, v in kin_p.__dict__.items() if v is not None]
+        pose_err = max(max_err(getattr(kin_k, f), getattr(kin_p, f)) for f in fields)
+        check(f"Stack K1 poses (B={n})", pose_err, 2e-5)
+        check(f"Stack K1 M (relative, B={n})", max_err(M_k, M_p) / max(1.0, float(M_p.abs().max())), 1e-5)
+        check(f"Stack K1 bias (relative, B={n})", max_err(bias_k, bias_p) / max(1.0, float(bias_p.abs().max())), 1e-4)
+        k1_err = max(k1_err, pose_err, max_err(M_k, M_p), max_err(bias_k, bias_p))
+    q, qd = states.physics.qpos, states.physics.qvel
+    leaves = forward.runtime_leaves(model, B)
+    kin_k, M_k, bias_k = forward.forward_products(model, q, qd, *leaves)
+    stack_k["K1"] = dict(max_abs_err=k1_err, ms=cuda_ms(lambda: forward.forward_products(model, q, qd, *leaves), 20),
+                         plain_ms=cuda_ms(lambda: forward.forward_plain(model, q, qd, *leaves), 3),
+                         bound=bound(nbytes(q, qd, *leaves, M_k, bias_k, *(getattr(kin_k, f) for f in fields)),
+                                     flops["K1"] * B))
+
+    # a contact-rich state: cubeA dropped onto cubeB in every other scenario
+    # (stacked boxes with parallel faces, the structural SAT tie), the other
+    # scenarios' cubes on the table; four zero-action steps to land
+    qa_A = model.jnt_qposadr[model.body_jntadr[cubes[0]]]
+    qa_B = model.jnt_qposadr[model.body_jntadr[cubes[1]]]
+    qpos = states.physics.qpos.clone()
+    off = torch.zeros(B // 2, 3, device="cuda")
+    off[:, :2] = 0.005 * (2 * torch.rand(B // 2, 2, generator=gen, device="cuda") - 1)
+    off[:, 2] = 0.025 + 0.02 + 0.002
+    qpos[::2, qa_A:qa_A + 3] = qpos[::2, qa_B:qa_B + 3] + off
+    s = env.state_from_flattened(torch.cat([states.physics.time[:, None], qpos, states.physics.qvel], 1).cpu())
+    zero = torch.zeros(B, env.action_dim, device="cuda")
+    for _ in range(4):
+        s, _ = env.rollout_batch(s, zero)
+    torch.cuda.synchronize()
+    stacked = int((s.physics.qpos[:, qa_A + 2] > s.physics.qpos[:, qa_B + 2] + 0.03).sum())
+    print(f"Stack contact state: cubeA resting on cubeB in {stacked}/{B} scenarios")
+    if stacked < B // 4:
+        fail("the Stack contact state has too few stacked scenarios")
+    q, qd = s.physics.qpos, s.physics.qvel
+
+    # ---- 13. K2 at Stack's width, on the plain path's operands at that state
+    kin, M, bias = forward.forward_plain(model, q, qd, *leaves)
+    ctrl = robot.run_controllers(kin, M, bias, q, qd, s.ctrl, torch.zeros(B, model.nu, device="cuda"))
+    qfrc, extra = engine.total_smooth_force(model, q, qd, ctrl, M, bias)
+    JfT, aref, reg3, mu, act = C.solver_inputs(model, kin, C.narrowphase(model, kin), qd, model.timestep)
+    args = (M.contiguous(), JfT, aref.contiguous(), qfrc.contiguous(), qd.contiguous(),
+            (model.dof_damping + extra).contiguous(), reg3.contiguous(), mu, act.contiguous())
+    n_act = act.sum(1)
+    print(f"Stack active contact rows per scenario: min {int(n_act.min())} median {int(n_act.median())} "
+          f"max {int(n_act.max())} (of {nrows})")
+    if int(n_act.max()) < 8:
+        fail("fewer than 8 active contact rows at the Stack contact state")
+    solve_args = (C.APGD_ITERS, C.POWER_ITERS, model.timestep)
+    qv_k, f_k = contact_solve.vel_update(*args, *solve_args)
+    qv_p, f_p = contact_solve.vel_update_plain(*args, *solve_args)
+    torch.cuda.synchronize()
+    check("Stack K2 qvel", max_err(qv_k, qv_p), 1e-4)
+    check("Stack K2 f (relative)", max_err(f_k, f_p) / max(1.0, float(f_p.abs().max())), 1e-4)
+    stack_k["K2"] = dict(max_abs_err=max(max_err(qv_k, qv_p), max_err(f_k, f_p)),
+                         ms=cuda_ms(lambda: contact_solve.vel_update(*args, *solve_args), 20),
+                         plain_ms=cuda_ms(lambda: contact_solve.vel_update_plain(*args, *solve_args), 3),
+                         bound=bound(nbytes(*args, qv_k, f_k), flops["K2"] * B))
+
+    # ---- 14. K3-JP (B=512, 32) and K3-aux-JP (B*K=512, planning model) at that state,
+    # the arm driven by random joint deltas
+    a = torch.clamp(0.5 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
+    ctrl_s = robot.set_goals(kin, M, bias, q, qd, s.ctrl, a)
+    goal, gains = env._fused_goal_fn(robot, "right", ctrl_s, kin)
+    grip = robot.gripper_ctrl("right", ctrl_s).contiguous()
+    k3_args = (q, qd, *leaves, goal, gains, grip)
+    fused = env._fused_for(model)
+    k3_err = 0.0
+    for n in (B, STACK_B):
+        sub = tuple(t[:n].contiguous() for t in k3_args)
+        out_k, out_p = fused(*sub), substep.substep_plain(env, model, *sub)
+        torch.cuda.synchronize()
+        k3_err = max(k3_err, hold_substep(f"K3-JP (B={n})", model, cubes, sub[0], out_k[:2], out_p[:2]))
+    print(f"{tag} K3-JP ms/launch at B={STACK_B}: {cuda_ms(lambda: fused(*(t[:STACK_B].contiguous() for t in k3_args)), 20):.4f}")
+    out_k = fused(*k3_args)
+    results["kernels"]["K3-JP"] = dict(
+        max_abs_err=k3_err, ms=cuda_ms(lambda: fused(*k3_args), 20),
+        plain_ms=cuda_ms(lambda: substep.substep_plain(env, model, *k3_args), 3),
+        bound=bound(nbytes(*k3_args, *out_k), flops["K3"] * B))
+
+    fused_aux = env._fused_for(plan, emit_aux=True)
+    kin_plan = forward.forward_plain(plan, q, qd, *leaves)[0]
+    goal_a, gains_a = env._fused_goal_fn(robot, "right", ctrl_s, kin_plan)
+    a_args = (q, qd, *leaves, goal_a, gains_a, grip)
+    out_k = fused_aux(*a_args)
+    out_p = substep.substep_aux_plain(env, plan, *a_args)
+    torch.cuda.synchronize()
+    aux_err = hold_substep(f"K3-aux-JP (B={B})", plan, cubes, q, out_k[:2], out_p[:2])
+    # the aux tail against its plain version at the kernel's own post-step qpos
+    kin2 = forward.forward_plain(plan, out_k[0], out_k[1], *leaves)[0]
+    for name, got, want in (("site_xpos", out_k[3], kin2.site_xpos), ("site_xmat", out_k[4], kin2.site_xmat),
+                            ("xpos", out_k[5], kin2.xpos)):
+        check(f"K3-aux-JP (B={B}) {name}", max_err(got, want), 2e-5)
+        aux_err = max(aux_err, max_err(got, want))
+    pd_p = C.pair_min_dists(plan, kin2)
+    spread(f"K3-aux-JP (B={B}) pair_dist", out_k[6], pd_p)
+    aux_err = max(aux_err, hold_pair_dist(f"K3-aux-JP (B={B})", plan, out_k[6], pd_p, out_k[0], out_k[0]))
+    results["kernels"]["K3-aux-JP"] = dict(
+        max_abs_err=aux_err, ms=cuda_ms(lambda: fused_aux(*a_args), 10),
+        plain_ms=cuda_ms(lambda: substep.substep_aux_plain(env, plan, *a_args), 3),
+        bound=bound(nbytes(*a_args, *out_k), aux_flops * B))
+    phase_done("Stack K1, K2, K3-JP, K3-aux-JP vs plain")
+
+    # ---- 15. the Stack env-step slice: reset + 10 policy steps on the fused path
+    actions = torch.clamp(0.3 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, _ = env.reset_batch(B, gen)
+    trail, rewards = [states], []
+    for _ in range(STEPS):
+        states, r = env.rollout_batch(states, actions)
+        trail.append(states)
+        rewards.append(r)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kcounts()
+    print(f"Stack main path launches over reset + {STEPS} policy steps: {counts}")
+    if counts != {"K1": 2 * STEPS + 1, "K2": 0, "K3": 25 * STEPS, "K3-aux": 0, "K4": 0}:
+        fail(f"unexpected Stack launch counts {counts}")
+    rew = torch.stack(rewards)
+    if not (torch.isfinite(states.physics.qpos).all() and torch.isfinite(states.physics.qvel).all()
+            and torch.isfinite(rew).all()):
+        fail("non-finite states or rewards on the Stack path")
+    print(f"{tag} Stack env policy-steps/s (B={B}, reset + {STEPS} steps, host clock): {B * STEPS / dt:.1f}")
+    t0 = time.perf_counter()
+    s_ss = states
+    for _ in range(STEPS):
+        s_ss, _ = env.rollout_batch(s_ss, actions)
+    torch.cuda.synchronize()
+    steady = B * STEPS / (time.perf_counter() - t0)
+    print(f"{tag} Stack env policy-steps/s (B={B}, {STEPS} steps after the above, host clock): {steady:.1f}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        env.rollout_batch(states, actions)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.self_device_time_total > 0), key=lambda r: -r[1])
+    dev_ms = sum(r[1] for r in rows)
+    print(f"{tag} one Stack policy step under the profiler: wall {wall_ms:.2f} ms, device busy {dev_ms:.2f} ms "
+          f"({100 * dev_ms / wall_ms:.1f}%)")
+    for key, ms_, n in rows[:6]:
+        print(f"{tag}   {ms_:8.3f} ms  x{n:<4d} {key[:90]}")
+    results.update(stack_policy_steps_per_s=B * STEPS / dt, stack_steady_policy_steps_per_s=steady,
+                   stack_launches=counts, stack_profile_wall_ms=wall_ms, stack_profile_device_ms=dev_ms,
+                   stack_profile_top=rows[:6])
+
+    # each policy step of that run, substep by substep: the kernel and the
+    # plain substep from the same input, then on from the kernel's output;
+    # the last substep's output is the rollout's next state, bit for bit
+    worst, worst_r = 0.0, 0.0
+    for i in range(STEPS):
+        st = trail[i]
+        kin, M, bias = engine.forward_products(model, st.physics.qpos, st.physics.qvel)
+        ctrl_i = robot.set_goals(kin, M, bias, st.physics.qpos, st.physics.qvel, st.ctrl, actions)
+        goal, gains = env._fused_goal_fn(robot, "right", ctrl_i, kin)
+        grip = robot.gripper_ctrl("right", ctrl_i).contiguous()
+        qp, qv = st.physics.qpos, st.physics.qvel
+        for j in range(env.n_substeps):
+            sub = (qp, qv, *leaves, goal, gains, grip)
+            out_k, out_p = fused(*sub), substep.substep_plain(env, model, *sub)
+            (eq, ev), (cq, cv, _) = ((max_err(out_k[0][:, :9], out_p[0][:, :9]), max_err(out_k[1][:, :9], out_p[1][:, :9])),
+                                     hold_cubes(f"Stack step {i + 1} substep {j + 1}", model, cubes, qp,
+                                                out_k[:2], out_p[:2]))
+            worst = max(worst, eq / 1e-5, ev / 1e-3, cq / 1e-5, cv / 1e-3)
+            qp, qv = out_k[0], out_k[1]
+        nxt = trail[i + 1]
+        if not (torch.equal(qp, nxt.physics.qpos) and torch.equal(qv, nxt.physics.qvel)):
+            fail(f"Stack policy step {i + 1}: rollout_batch differs from its substep-by-substep kernel run")
+        kin_p = forward.forward_plain(model, qp, qv, *leaves)[0]
+        worst_r = max(worst_r, max_err(rewards[i], env.reward(nxt.physics, kin_p)))
+    torch.cuda.synchronize()
+    check(f"Stack {STEPS} policy steps x {env.n_substeps} substeps, kernel vs plain from the same input: the "
+          f"largest error over its tolerance (robot every scenario; cubes every scenario but witnessed near-ties)",
+          worst, 1.0)
+    check(f"Stack {STEPS} policy steps: reward (K1 vs plain poses of the same state)", worst_r, 1e-4)
+
+    # one step with the fused path disabled: K1 every substep + K2 at nv 21 / ntot 288
+    start, after = trail[STEPS // 2], trail[STEPS // 2 + 1]
+    env._disable_fused = True
+    zero_counts()
+    s_u, _ = env.rollout_batch(start, actions)
+    torch.cuda.synchronize()
+    counts_u = kcounts()
+    print(f"Stack unfused policy step launches: {counts_u}")
+    if counts_u != {"K1": env.n_substeps + 2, "K2": env.n_substeps, "K3": 0, "K3-aux": 0, "K4": 0}:
+        fail(f"unexpected Stack unfused launch counts {counts_u}")
+    check("Stack unfused vs fused policy step robot qpos", max_err(s_u.physics.qpos[:, :9], after.physics.qpos[:, :9]), 1e-4)
+    check("Stack unfused vs fused policy step robot qvel", max_err(s_u.physics.qvel[:, :9], after.physics.qvel[:, :9]), 1e-3)
+    # the same step substep by substep, unfused vs fused from the same input
+    kin, M, bias = engine.forward_products(model, start.physics.qpos, start.physics.qvel)
+    ctrl_u = robot.set_goals(kin, M, bias, start.physics.qpos, start.physics.qvel, start.ctrl, actions)
+    sub_u = env._substep_fn(model, ctrl_u, kin)
+    env._disable_fused = False
+    sub_f = env._substep_fn(model, ctrl_u, kin)
+    ph, worst = start.physics, 0.0
+    for j in range(env.n_substeps):
+        pf, pu = sub_f(ph), sub_u(ph)
+        eq, ev = max_err(pf.qpos[:, :9], pu.qpos[:, :9]), max_err(pf.qvel[:, :9], pu.qvel[:, :9])
+        cq, cv, _ = hold_cubes(f"Stack unfused vs fused substep {j + 1}", model, cubes, ph.qpos,
+                               (pf.qpos, pf.qvel), (pu.qpos, pu.qvel))
+        worst = max(worst, eq / 1e-5, ev / 1e-3, cq / 1e-5, cv / 1e-3)
+        ph = pf
+    torch.cuda.synchronize()
+    check(f"Stack unfused vs fused, {env.n_substeps} substeps from the same input: the largest error over its "
+          f"tolerance (robot every scenario; cubes every scenario but witnessed near-ties)", worst, 1.0)
+    phase_done("Stack env-step slice (reset + policy steps, profile, kernel vs plain, unfused)")
+
+    # ---- 16. the Stack MPC at tools/bench_configs.py's width: B=32, H=128, K=16, MPPI only
+    cfg = receding.MPCConfig(**STACK_MPC)
+    mpc = receding.RecedingMPC(env, cfg)
+    solve = mpc.make_solve_batch()
+    gm = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    mstates, _ = env.reset_batch(STACK_B, gm)
+    ms = mpc.init_state(STACK_B, torch.Generator(device="cuda").manual_seed(SEED + 22))
+
+    def tick(states_, ms_):
+        acts, ms2, met = solve(states_, ms_)
+        states2, rewards_ = env.rollout_batch(states_, acts)
+        return states2, ms2, met, acts, rewards_
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mstates, ms, met, acts, rew = tick(mstates, ms)
+    torch.cuda.synchronize()
+    print(f"{tag} Stack MPC warm-up tick s: {time.perf_counter() - t0:.3f}")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = tick_launches(cfg, mpc, env, False)
+    for i in range(STACK_TICKS):
+        before = kcounts()
+        mstates, ms, met, acts, rew = tick(mstates, ms)
+        after = kcounts()
+        got = {k: after[k] - before[k] for k in after}
+        print(f"Stack MPC tick {i + 1} launches: {got}")
+        if got != want:
+            fail(f"Stack MPC tick {i + 1}: launches {got}, the config implies {want}")
+        if not (torch.isfinite(acts).all() and acts.abs().max() <= 1.0 and torch.isfinite(rew).all()):
+            fail(f"Stack MPC tick {i + 1}: non-finite or out-of-range actions, or non-finite rewards")
+    torch.cuda.synchronize()
+    mpc_dt = time.perf_counter() - t0
+    mpc_counts = kcounts()
+    solves = STACK_B * STACK_TICKS / mpc_dt
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{tag} Stack MPC solves/s (B={STACK_B}, H={cfg.horizon}, K={cfg.n_samples}, MPPI only; ticks "
+          f"1-{STACK_TICKS}, host clock): {solves:.1f}; mean executed reward {float(rew.mean()):.4f}; "
+          f"masked rollouts {int(met['n_masked'].sum())}; peak device memory {peak_gb:.2f} GB")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tick(mstates, ms)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.self_device_time_total > 0), key=lambda r: -r[1])
+    dev_ms = sum(r[1] for r in rows)
+    print(f"{tag} one Stack MPC tick under the profiler: wall {wall_ms:.2f} ms, device busy {dev_ms:.2f} ms "
+          f"({100 * dev_ms / wall_ms:.1f}%)")
+    for key, ms_, n in rows[:8]:
+        print(f"{tag}   {ms_:8.3f} ms  x{n:<5d} {key[:90]}")
+    results.update(stack_mpc_solves_per_s=solves, stack_mpc_launches=mpc_counts, stack_mpc_peak_gb=peak_gb,
+                   stack_mpc_profile_wall_ms=wall_ms, stack_mpc_profile_device_ms=dev_ms,
+                   stack_mpc_profile_top=rows[:8])
+    for k, r in stack_k.items():
+        print(f"{tag} Stack {k}: {r['ms']:.4f} ms/launch at B={B}, plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    phase_done("Stack MPC at full width")
+    return counts, mpc_counts, counts_u
 
 
 def main():
@@ -727,26 +1178,38 @@ def main():
     results.update(mpc_profile_wall_ms=wall_ms, mpc_profile_device_ms=dev_ms, mpc_profile_top=rows[:8])
     phase_done("MPC slice at full width")
 
+    stack_counts, stack_mpc_counts, stack_counts_u = stack_slice(tag, results)
+
     # ---- report ------------------------------------------------------------------
-    per_step = {"K1": 2, "K2": 0, "K3": 25, "K3-aux": 0, "K4": 0}
+    # launches on each path, counted from zero just before it: Lift's env step
+    # and MPC ticks run K3 / K3-aux with the OSC law, Stack's with JOINT_POSITION
+    every = (counts, counts_u, mpc_counts, stack_counts, stack_counts_u, stack_mpc_counts)
+    paths = {"K1": every, "K2": every, "K3": (counts, mpc_counts), "K3-aux": (counts, mpc_counts), "K4": every}
+    launches = {k: sum(c.get(k, 0) for c in cs) for k, cs in paths.items()}
+    launches["K3-JP"] = stack_counts["K3"] + stack_mpc_counts["K3"]
+    launches["K3-aux-JP"] = stack_counts["K3-aux"] + stack_mpc_counts["K3-aux"]
     replaces = {
         "K1": ("robosuite_tpu_torch/csrc/forward.cu", "robosuite_tpu/ops/pallas_forward.py:499"),
         "K2": ("robosuite_tpu_torch/csrc/contact_solve.cu", "robosuite_tpu/ops/pallas_contact.py:311"),
         "K3": ("robosuite_tpu_torch/csrc/substep.cu", "robosuite_tpu/ops/pallas_substep.py:1091"),
         "K3-aux": ("robosuite_tpu_torch/csrc/substep.cu", "robosuite_tpu/ops/pallas_substep.py:1091"),
         "K4": ("robosuite_tpu_torch/csrc/fk.cu", "robosuite_tpu/ops/pallas_fk.py:51"),
+        "K3-JP": ("robosuite_tpu_torch/csrc/substep.cu", "robosuite_tpu/ops/pallas_substep.py:1091"),
+        "K3-aux-JP": ("robosuite_tpu_torch/csrc/substep.cu", "robosuite_tpu/ops/pallas_substep.py:1091"),
     }
     names = {"K1": "forward_products", "K2": "contact_solve", "K3": "fused_substep",
-             "K3-aux": "fused_substep_aux", "K4": "fk_pose"}
+             "K3-aux": "fused_substep_aux", "K4": "fk_pose", "K3-JP": "fused_substep_joint_pos",
+             "K3-aux-JP": "fused_substep_aux_joint_pos"}
+    print(f"launches over Lift reset + {STEPS} policy steps {counts}, one unfused step {counts_u}, MPC ticks "
+          f"1-{TICKS} {mpc_counts}; over Stack reset + {STEPS} policy steps {stack_counts}, one unfused step "
+          f"{stack_counts_u}, MPC ticks 1-{STACK_TICKS} {stack_mpc_counts}")
     line = []
     for k, r in results["kernels"].items():
         bms, bby = r["bound"]
-        launches = counts[k] + mpc_counts[k]  # the env-step path and the MPC path
         print(f"{tag} {k} {names[k]}: {r['ms']:.4f} ms/launch at B={r.get('batch', B)}, plain {r['plain_ms']:.3f} ms, "
-              f"bound {bms:.5f} ms ({bby}); launches: {per_step[k]}/policy step, "
-              f"{mpc_counts[k]} over MPC ticks 1-{TICKS}")
+              f"bound {bms:.5f} ms ({bby}); launches on the main paths {launches[k]}")
         line.append({"name": names[k], "route": "cuda", "source": replaces[k][0], "replaces": replaces[k][1],
-                     "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": bby, "library_ms": None})
     if FAILED:
         fail(f"disagreements with the plain versions: {FAILED}")

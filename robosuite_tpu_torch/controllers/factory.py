@@ -1,6 +1,6 @@
 """Controller config resolution (the JAX package's controllers/factory.py;
 robosuite controller_factory.py and composite_controller_factory.py),
-for the BASIC composite with OSC_POSE arms.
+for the BASIC composite with OSC_POSE or JOINT_POSITION arms.
 
 Search order as in robosuite: an explicit dict, a composite name
 (config/default/composite/<name>.json), the per-robot default
@@ -14,19 +14,28 @@ import json
 import os
 from typing import Optional, Union
 
+from robosuite_tpu_torch.controllers.parts import joint_pos as jp_mod
 from robosuite_tpu_torch.controllers.parts import osc as osc_mod
 
 _CFG_ROOT = os.path.join(os.path.dirname(__file__), "config")
 
 
-def arm_controller_config(ctrl_type: str, **overrides):
+def arm_controller_config(ctrl_type: str, dim: int = 7, **overrides):
     """A part-controller config dataclass (robosuite controller_factory.py
-    arm_controller_factory); only OSC_POSE is ported."""
-    if ctrl_type.upper() != "OSC_POSE":
-        raise NotImplementedError(f"controller type {ctrl_type!r} is not ported (OSC_POSE only)")
-    fields = {f.name for f in dataclasses.fields(osc_mod.OSCConfig)}
-    kw = {k: tuple(v) if isinstance(v, list) else v for k, v in overrides.items() if k in fields}
-    return osc_mod.OSCConfig(**kw)
+    arm_controller_factory); OSC_POSE and JOINT_POSITION are ported. Keys
+    the dataclass has no field for (kd/velocity_limits of the reference
+    JSON) are dropped."""
+    t = ctrl_type.upper()
+    if t == "OSC_POSE":
+        cls, kw = osc_mod.OSCConfig, {}
+    elif t == "JOINT_POSITION":
+        cls, kw = jp_mod.JointPosConfig, dict(dim=dim, input_max=1.0, input_min=-1.0, output_max=0.05,
+                                              output_min=-0.05, kp=50.0)
+    else:
+        raise NotImplementedError(f"controller type {ctrl_type!r} is not ported (OSC_POSE, JOINT_POSITION)")
+    fields = {f.name for f in dataclasses.fields(cls)}
+    kw.update({k: tuple(v) if isinstance(v, list) else v for k, v in overrides.items() if k in fields})
+    return cls(**kw)
 
 
 def resolve_controller_json(controller: Union[None, str, dict], robot: Optional[str]) -> Optional[dict]:
@@ -44,7 +53,7 @@ def resolve_controller_json(controller: Union[None, str, dict], robot: Optional[
 
 
 def load_composite_controller_config(controller=None, robot: Optional[str] = None, arms=("right",)):
-    """Resolve to {arm: OSCConfig}."""
+    """Resolve to {arm: OSCConfig or JointPosConfig}."""
     resolved = resolve_controller_json(controller, robot)
     if resolved is None:
         if isinstance(controller, str):

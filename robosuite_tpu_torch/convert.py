@@ -4,16 +4,21 @@ port's tests use this; nothing here imports JAX).
 
     leaves = {name: np.asarray(getattr(jax_model, name)) for name in model.LEAVES}
     meta = {name: getattr(jax_model, name) for name in model.STATIC}
-    port_model = model_from_numpy(leaves, meta)
+    port_model = model_from_numpy(leaves, meta, device="cpu")
+
+Every function allocates on CUDA unless the caller passes device="cpu"
+(or another device).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
 import torch
 
+from robosuite_tpu_torch.controllers.parts.joint_pos import JointPosState
 from robosuite_tpu_torch.controllers.parts.osc import OSCState
 from robosuite_tpu_torch.envs.base import EnvState
 from robosuite_tpu_torch.models.model import Model
@@ -22,23 +27,25 @@ from robosuite_tpu_torch.physics.state import State
 from robosuite_tpu_torch.robots.robot import RobotCtrlState
 
 
-def model_from_numpy(leaves: Dict[str, np.ndarray], meta: dict, device="cpu") -> Model:
+def model_from_numpy(leaves: Dict[str, np.ndarray], meta: dict, device="cuda") -> Model:
     """The port's Model from the JAX Model's leaves (numpy) and static
     fields (models.model.LEAVES / STATIC name them)."""
     return Model(leaves, meta).to(device)
 
 
-def state_from_numpy(qpos, qvel, ctrl_leaves: Dict[str, np.ndarray], arm="right", device="cpu") -> EnvState:
+def state_from_numpy(qpos, qvel, ctrl_leaves: Dict[str, np.ndarray], arm="right", device="cuda") -> EnvState:
     """A batched EnvState from numpy qpos (B, nq), qvel (B, nv) and the
-    controller leaves: goal_pos (B, 3), goal_ori (B, 3, 3), kp (B, 6),
-    kd (B, 6), gripper_action (B, n)."""
+    controller leaves, keyed by the arm controller they belong to: OSC
+    goal_pos (B, 3), goal_ori (B, 3, 3), kp (B, 6), kd (B, 6), or
+    JOINT_POSITION goal_qpos (B, na), kp (B, na), kd (B, na); and
+    gripper_action (B, n)."""
     def t(x):
         return torch.tensor(np.array(x, dtype=np.float32), device=device)
 
     qpos, qvel = t(qpos), t(qvel)
-    osc = OSCState(goal_pos=t(ctrl_leaves["goal_pos"]), goal_ori=t(ctrl_leaves["goal_ori"]),
-                   kp=t(ctrl_leaves["kp"]), kd=t(ctrl_leaves["kd"]))
-    ctrl = RobotCtrlState(arm={arm: osc}, gripper_action={arm: t(ctrl_leaves["gripper_action"])})
+    cls = JointPosState if "goal_qpos" in ctrl_leaves else OSCState
+    arm_state = cls(**{f.name: t(ctrl_leaves[f.name]) for f in dataclasses.fields(cls)})
+    ctrl = RobotCtrlState(arm={arm: arm_state}, gripper_action={arm: t(ctrl_leaves["gripper_action"])})
     B = qpos.shape[0]
     return EnvState(physics=State(qpos=qpos, qvel=qvel, time=torch.zeros(B, device=device)), ctrl=ctrl,
                     t=torch.zeros(B, dtype=torch.int32, device=device))

@@ -32,12 +32,12 @@ inline float rs_warp_sum(float v) { return v; }
 #define RS_MAXB 32     // bodies
 #define RS_MAXJ 16     // joints
 #define RS_MAXQ 24     // qpos
-#define RS_MAXV 16     // dofs
+#define RS_MAXV 24     // dofs
 #define RS_MAXG 96     // geoms
 #define RS_MAXS 16     // sites
 #define RS_MAXU 16     // actuators
-#define RS_MAXP 24     // candidate pairs
-#define RS_MAXK 72     // contact rows (points)
+#define RS_MAXP 32     // candidate pairs
+#define RS_MAXK 96     // contact rows (points)
 #define RS_MAXNTOT (3 * RS_MAXK)
 #define RS_MAXA 8      // arm dofs
 #define RS_MAXGR 4     // gripper actuators
@@ -55,6 +55,8 @@ inline float rs_warp_sum(float v) { return v; }
 #define RS_ACT_MOTOR 0
 #define RS_ACT_POSITION 1
 #define RS_ACT_VELOCITY 2
+#define RS_CTRL_OSC 0        // arm torque laws of the fused substep
+#define RS_CTRL_JOINT_POS 1
 
 // The static model, packed once per env (ops/tables.py builds the same
 // layout with ctypes; every field is 4 bytes wide, so there is no padding).
@@ -92,8 +94,10 @@ struct RsTables {
   int row_pair[RS_MAXK];
   int pair_k[RS_MAXP];  // the pair's index in the model's pair list
 
-  // the arm's OSC controller and the gripper actuators (fused substep)
+  // the arm's controller and the gripper actuators (fused substep): the
+  // torque law, its flags, and the row strides of its goal / gains inputs
   int na, eef_site, center_site, uncouple, ngrip;
+  int ctrl_type, torque_comp, raw_pd, goal_stride, gains_stride;
   int arm_qv[RS_MAXA], arm_qp[RS_MAXA], arm_act[RS_MAXA];
   float torque_lo[RS_MAXA], torque_hi[RS_MAXA], initial_joint[RS_MAXA];
   int grip_act[RS_MAXGR];

@@ -1,20 +1,23 @@
 // One whole physics substep of one scenario (the fused substep, K3):
-//   forward products (forward.cuh) -> OSC torques, torque clip, gripper
-//   ctrl (osc.cuh) -> smooth forces -> narrowphase + manifold cut
+//   forward products (forward.cuh) -> the arm's torque law, OSC (osc.cuh)
+//   or JOINT_POSITION (joint_pos.cuh), with its torque clip, and the
+//   gripper ctrl -> smooth forces -> narrowphase + manifold cut
 //   (narrowphase.cuh) -> contact rows with solref/solimp -> cone QP and
 //   implicit-damping velocity solve (contact_solve.cuh) -> semi-implicit
 //   qpos integration with free-joint quaternions [-> with AUX, the
 //   post-step pose-only FK, site poses, body positions and per-pair
 //   minimum distances (aux_tail)].
 // Replaces robosuite_tpu/ops/pallas_substep.py _make_substep_kernel (OSC
-// branch, with and without emit_aux); its plain versions are ops/substep.py
-// substep_plain and substep_aux_plain. Only (qpos, qvel, goal, gains, grip,
-// the runtime inertial leaves) come in and (qpos', qvel', f [, aux]) go
-// out: everything between stays in shared memory (about 35 KB for the Lift
-// world; the aux tail reuses the forward pass's pose arrays).
+// and JOINT_POSITION branches, with and without emit_aux); its plain
+// versions are ops/substep.py substep_plain and substep_aux_plain. Only
+// (qpos, qvel, goal, gains, grip, the runtime inertial leaves) come in and
+// (qpos', qvel', f [, aux]) go out: everything between stays in shared
+// memory (SubstepShared, sized by the compile-time maxima; the aux tail
+// reuses the forward pass's pose arrays).
 #pragma once
 
 #include "contact_solve.cuh"
+#include "joint_pos.cuh"
 #include "narrowphase.cuh"
 #include "osc.cuh"
 
@@ -199,7 +202,10 @@ RS_DEV void substep_body(const RsTables& T, SubstepShared& sh, int b, const floa
   if (tid == 0) {
     float ctrl[RS_MAXU];
     for (int a = 0; a < T.nu; ++a) ctrl[a] = 0.0f;
-    osc_torques(T, fw, goal + (size_t)b * 12, gains + (size_t)b * 12, sh.tau);
+    const float* g = goal + (size_t)b * T.goal_stride;
+    const float* k = gains + (size_t)b * T.gains_stride;
+    if (T.ctrl_type == RS_CTRL_JOINT_POS) joint_pos_torques(T, fw, g, k, sh.tau);
+    else osc_torques(T, fw, g, k, sh.tau);
     for (int i = 0; i < T.na; ++i) ctrl[T.arm_act[i]] = sh.tau[i];
     for (int i = 0; i < T.ngrip; ++i) ctrl[T.grip_act[i]] = grip[(size_t)b * T.ngrip + i];
     smooth_forces(T, fw, ctrl, sv.qfrc, sv.damp);

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from robosuite_tpu_torch import macros
+from robosuite_tpu_torch.controllers.parts import joint_pos as jp_mod
 from robosuite_tpu_torch.controllers.parts import osc as osc_mod
 from robosuite_tpu_torch.models.bases import robot_base_factory
 from robosuite_tpu_torch.models.grippers import gripper_factory
@@ -119,7 +120,7 @@ class RobotEnv:
         raise NotImplementedError
 
     def _sample_placements(self, generator, n):
-        """-> (qpos indices, values (n, len)) or None."""
+        """-> (qpos indices, values (n, len)[, valid (n,) bool]) or None."""
         return None
 
     def _get_observations(self, physics, kin):
@@ -176,18 +177,25 @@ class RobotEnv:
         return qpos
 
     def reset_batch(self, n: int, generator: torch.Generator):
-        """n fresh episodes: -> (EnvState, raw observation dict)."""
+        """n fresh episodes: -> (EnvState, raw observation dict). Where the
+        env's placement sampler reports validity, the dict carries it as
+        "placement_valid" (n,): False where an object found no free spot
+        (robosuite raises RandomizationError there)."""
         qpos = self._initial_qpos(n, generator)
         placement = self._sample_placements(generator, n)
+        valid = None
         if placement is not None:
-            idx, vals = placement
+            idx, vals, *valid = placement
             qpos[:, idx] = vals.to(self.device)
         zeros = torch.zeros(n, dtype=qpos.dtype, device=self.device)
         physics = State(qpos=qpos, qvel=torch.zeros(n, self.model.nv, device=self.device), time=zeros)
         kin, M, bias = engine.forward_products(self.model, physics.qpos, physics.qvel)
         ctrl = self.robots[0].init_ctrl_state(kin, M, bias, physics.qpos, physics.qvel)
         state = EnvState(physics=physics, ctrl=ctrl, t=torch.zeros(n, dtype=torch.int32, device=self.device))
-        return state, self._get_observations(physics, kin)
+        obs = self._get_observations(physics, kin)
+        if valid:
+            obs["placement_valid"] = valid[0].to(self.device)
+        return state, obs
 
     def state_from_flattened(self, flat):
         """EnvState from flattened (time, qpos, qvel) rows (B, 1 + nq + nv)
@@ -214,16 +222,18 @@ class RobotEnv:
         return self._fused_cache[key][1]
 
     def _fused_goal_fn(self, robot, arm, ctrl_state, kin):
-        """(goal (B, 12), gains (B, 12)) rows for the fused kernel: the OSC
-        goal in the world frame, resolved at policy rate."""
+        """(goal, gains) rows for the fused kernel, resolved at policy rate:
+        OSC, the goal in the world frame (B, 12) and [kp, kd] (B, 12);
+        JOINT_POSITION, goal_qpos (B, na) and [kp, kd] (B, 2 na)."""
         cfg = robot.arm_cfg[arm]
-        ostate = ctrl_state.arm[arm]
+        st = ctrl_state.arm[arm]
+        gains = torch.cat([st.kp, st.kd], dim=-1).contiguous()
+        if isinstance(cfg, jp_mod.JointPosConfig):
+            return st.goal_qpos.contiguous(), gains
         cen = robot.center_site_id[arm]
-        despos, desori = osc_mod.desired_world_pose(cfg, ostate, kin.site_xpos[:, cen], kin.site_xmat[:, cen])
+        despos, desori = osc_mod.desired_world_pose(cfg, st, kin.site_xpos[:, cen], kin.site_xmat[:, cen])
         B = despos.shape[0]
-        goal = torch.cat([despos, desori.reshape(B, 9)], dim=-1).contiguous()
-        gains = torch.cat([ostate.kp, ostate.kd], dim=-1).contiguous()
-        return goal, gains
+        return torch.cat([despos, desori.reshape(B, 9)], dim=-1).contiguous(), gains
 
     def _fused_substep_fn(self, model, ctrl_state, kin):
         """substep(physics) -> physics using the fused kernel, or None."""

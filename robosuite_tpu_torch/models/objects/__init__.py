@@ -97,3 +97,7 @@ class BoxObject(MujocoObject):
     @property
     def top_offset(self):
         return np.array([0, 0, self.size[2]])
+
+    @property
+    def horizontal_radius(self):
+        return float(np.linalg.norm(self.size[0:2], 2))

@@ -29,8 +29,7 @@ from typing import Callable, Optional
 
 import torch
 
-from robosuite_tpu_torch.controllers.parts.osc import OSCState
-from robosuite_tpu_torch.envs.base import EnvState
+from robosuite_tpu_torch.envs.base import EnvState, map_state
 from robosuite_tpu_torch.mpc import ilqr as ilqr_mod
 from robosuite_tpu_torch.mpc import mppi as mppi_mod
 from robosuite_tpu_torch.mpc.residuals import residual_for
@@ -92,7 +91,8 @@ def init_state(cfg: MPCConfig, act_dim: int, batch: int, generator, nx: Optional
 
 
 class RecedingMPC:
-    """Binds a single-robot env (Lift) to the batched MPPI + iLQR solve.
+    """Binds a single-robot env with a ported residual (Lift, Stack) to the
+    batched MPPI + iLQR solve.
 
     residual: optional planning residual r(env, plan_model, qpos, qvel, u,
     poses) -> (N, m) (mpc/residuals.py); defaults to the env's."""
@@ -119,8 +119,9 @@ class RecedingMPC:
         if self._residual is None:
             raise NotImplementedError(f"no planning residual is ported for {type(env).__name__}: pass `residual`")
 
-        # template state for x <-> EnvState: the OSC goals are rewritten by
-        # set_goals every tick; kp/kd are constants (fixed impedance)
+        # template state for x <-> EnvState: the arm controller's goals are
+        # rewritten by set_goals every tick; kp/kd are constants (fixed
+        # impedance)
         self._template = env.reset_batch(1, torch.Generator().manual_seed(0))[0]
         robot = env.robots[0]
         self._arm = robot.arms[0]
@@ -138,13 +139,10 @@ class RecedingMPC:
 
     def _to_env_state(self, x) -> EnvState:
         N, nq, nv = x.shape[0], self._nq, self._nv
-        t = self._template
-        osc = t.ctrl.arm[self._arm]
-        osc = OSCState(**{f.name: getattr(osc, f.name).expand((N,) + getattr(osc, f.name).shape[1:])
-                          for f in dataclasses.fields(OSCState)})
+        arm_state = map_state(lambda v: v.expand((N,) + v.shape[1:]), self._template.ctrl.arm[self._arm])
         zeros = torch.zeros(N, dtype=x.dtype, device=x.device)
         return EnvState(physics=State(qpos=x[:, :nq].contiguous(), qvel=x[:, nq:nq + nv].contiguous(), time=zeros),
-                        ctrl=RobotCtrlState(arm={self._arm: osc}, gripper_action={self._arm: x[:, nq + nv:]}),
+                        ctrl=RobotCtrlState(arm={self._arm: arm_state}, gripper_action={self._arm: x[:, nq + nv:]}),
                         t=torch.zeros(N, dtype=torch.int32, device=x.device))
 
     # -- the iLQR problem --------------------------------------------------------

@@ -1,5 +1,5 @@
 """Planning residuals (the JAX package's mpc/residuals.py and
-receding.lift_residual), for Lift.
+receding.lift_residual), for Lift and Stack.
 
 A residual r(env, plan_model, qpos, qvel, u, poses) -> (N, m) defines the
 stage cost 0.5 ||r||^2 of the iLQR refinement: a smooth least-squares
@@ -27,7 +27,20 @@ def lift_residual(env, plan_model, qpos, qvel, u, poses=kinematics.body_poses):
     return torch.cat([r_reach, r_lift, 0.02 * qvel], dim=-1)
 
 
-_RESIDUALS = {"Lift": lift_residual}
+def stack_residual(env, plan_model, qpos, qvel, u, poses=kinematics.body_poses):
+    """Reach cubeA, lift it above cubeB, align it horizontally over cubeB
+    (robosuite stack.py:268-283 staged rewards as residuals)."""
+    xpos, xquat = poses(plan_model, qpos)
+    eef = kinematics.site_pos(plan_model, xpos, xquat, env.eef_site)
+    a = xpos[:, env.cubeA_body_id]
+    b = xpos[:, env.cubeB_body_id]
+    r_reach = 2.0 * (eef - a)
+    r_lift = 6.0 * torch.clamp_max(a[:, 2:3] - (b[:, 2:3] + 0.06), 0.0)
+    r_align = 3.0 * (a[:, :2] - b[:, :2])
+    return torch.cat([r_reach, r_lift, r_align, 0.02 * qvel], dim=-1)
+
+
+_RESIDUALS = {"Lift": lift_residual, "Stack": stack_residual}
 
 
 def residual_for(env):

@@ -1,8 +1,9 @@
 """K3, the fused substep kernel: one whole physics substep per launch.
 
 Counterpart of robosuite_tpu/ops/pallas_substep.py (make_fused_substep,
-OSC branch, with and without emit_aux): forward products -> OSC torque
-law + torque clip + gripper ctrl -> smooth forces -> narrowphase with the
+OSC and JOINT_POSITION branches, with and without emit_aux): forward
+products -> arm torque law (OSC or JOINT_POSITION) + torque clip +
+gripper ctrl -> smooth forces -> narrowphase with the
 manifold cut -> contact rows -> cone QP + implicit-damping velocity solve
 -> semi-implicit qpos integration [-> with emit_aux, the post-step site
 poses, body positions and per-pair minimum distances, which the planning
@@ -14,8 +15,9 @@ composition of the port's modules (the JAX make_fused_substep._xla);
 CPU tensors and launches csrc/substep.cu on CUDA tensors (counted in
 `make_fused_substep.launches`, or `.aux_launches` for emit_aux).
 
-Goal encoding (OSC): goal (B, 12) = [desired_pos (3), desired_ori (3x3,
-row-major)] in the world frame, gains (B, 12) = [kp (6), kd (6)],
+Goal encoding. OSC: goal (B, 12) = [desired_pos (3), desired_ori (3x3,
+row-major)] in the world frame, gains (B, 12) = [kp (6), kd (6)].
+JOINT_POSITION: goal (B, na) = goal_qpos, gains (B, 2 na) = [kp, kd].
 grip (B, ng) = gripper actuator ctrl.
 """
 
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from robosuite_tpu_torch.controllers.parts import joint_pos as jp_mod
 from robosuite_tpu_torch.controllers.parts import osc as osc_mod
 from robosuite_tpu_torch.ops import build as _b
 from robosuite_tpu_torch.ops import contact_solve
@@ -47,7 +50,11 @@ def extract_spec(env, model) -> dict:
         raise UnsupportedFused("single-arm robots only")
     arm = robot.arms[0]
     cfg = robot.arm_cfg[arm]
-    if not isinstance(cfg, osc_mod.OSCConfig):
+    if isinstance(cfg, osc_mod.OSCConfig):
+        ctrl_type = "osc"
+    elif isinstance(cfg, jp_mod.JointPosConfig):
+        ctrl_type = "joint_pos"
+    else:
         raise UnsupportedFused(f"arm controller {type(cfg).__name__}")
     for key in C.pair_groups(model):
         C.pair_points(*key)  # raises NotImplementedError on pair types not ported
@@ -61,8 +68,14 @@ def extract_spec(env, model) -> dict:
         torque_lo=[float(x) for x in lo],
         torque_hi=[float(x) for x in hi],
         initial_joint=[float(x) for x in robot.initial_joint[arm].cpu()],
-        uncouple=bool(cfg.uncouple_pos_ori),
+        uncouple=bool(getattr(cfg, "uncouple_pos_ori", True)),
         grip_actuators=[int(a) for a in robot.gripper_actuator_ids[arm]],
+        ctrl_type=ctrl_type,
+        use_torque_compensation=bool(getattr(cfg, "use_torque_compensation", True)),
+        raw_pd=bool(getattr(cfg, "raw_pd", False)),
+        # the row widths of the goal and gains inputs (module docstring)
+        goal_width=12 if ctrl_type == "osc" else len(robot.arm_qvel_idx[arm]),
+        gains_width=12 if ctrl_type == "osc" else 2 * len(robot.arm_qvel_idx[arm]),
     )
 
 
@@ -73,8 +86,12 @@ def substep_plain(env, model, qpos, qvel, mass, inertia, gravity, armature, goal
     B = qpos.shape[0]
     kin, M, bias = forward_plain(model, qpos, qvel, mass, inertia, gravity, armature)
     view = robot.arm_view(kin, M, bias, qpos, qvel, arm)
-    tau = osc_mod.run_world(robot.arm_cfg[arm], view, goal[:, :3], goal[:, 3:].reshape(B, 3, 3),
-                            gains[:, :6], gains[:, 6:])
+    cfg = robot.arm_cfg[arm]
+    if isinstance(cfg, jp_mod.JointPosConfig):
+        na = goal.shape[1]
+        tau = jp_mod.run(cfg, jp_mod.JointPosState(goal_qpos=goal, kp=gains[:, :na], kd=gains[:, na:]), view)
+    else:
+        tau = osc_mod.run_world(cfg, view, goal[:, :3], goal[:, 3:].reshape(B, 3, 3), gains[:, :6], gains[:, 6:])
     lo, hi = (torch.as_tensor(x, device=tau.device) for x in robot.torque_limits[arm])
     ctrl = torch.zeros(B, model.nu, dtype=qpos.dtype, device=qpos.device)
     ctrl[:, robot.arm_actuator_ids[arm]] = torch.clamp(tau, lo, hi)
@@ -101,7 +118,7 @@ def make_fused_substep(env, model, emit_aux=False):
     make_fused_substep.launches (emit_aux: make_fused_substep.aux_launches)."""
     spec = extract_spec(env, model)
     ntot = 3 * sum(len(r) for r in C.contact_row_layout(model).values())
-    ng = len(spec["grip_actuators"])
+    ng, n_goal, n_gains = len(spec["grip_actuators"]), spec["goal_width"], spec["gains_width"]
     plain = substep_aux_plain if emit_aux else substep_plain
 
     def fused(qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip):
@@ -112,7 +129,7 @@ def make_fused_substep(env, model, emit_aux=False):
         for t, shape, name in ((qpos, (B, model.nq), "qpos"), (qvel, (B, model.nv), "qvel"),
                                (mass, (B, model.nbody), "mass"), (inertia, (B, model.nbody, 3), "inertia"),
                                (gravity, (B, 3), "gravity"), (armature, (B, model.nv), "armature"),
-                               (goal, (B, 12), "goal"), (gains, (B, 12), "gains"), (grip, (B, ng), "grip")):
+                               (goal, (B, n_goal), "goal"), (gains, (B, n_gains), "gains"), (grip, (B, ng), "grip")):
             _b.require(t, shape, name)
         T = model_tables(model, arm=spec, key="fused")
         qpos_out, qvel_out = torch.empty_like(qpos), torch.empty_like(qvel)

@@ -17,7 +17,7 @@ import torch
 
 from robosuite_tpu_torch.models import spec as S
 
-MAXB, MAXJ, MAXQ, MAXV, MAXG, MAXS, MAXU, MAXP, MAXK, MAXA, MAXGR = 32, 16, 24, 16, 96, 16, 16, 24, 72, 8, 4
+MAXB, MAXJ, MAXQ, MAXV, MAXG, MAXS, MAXU, MAXP, MAXK, MAXA, MAXGR = 32, 16, 24, 24, 96, 16, 16, 32, 96, 8, 4
 
 _i, _f, _u = ctypes.c_int32, ctypes.c_float, ctypes.c_uint32
 
@@ -57,6 +57,7 @@ class RsTables(ctypes.Structure):
         ("pair_friction", _a(_f, MAXP)), ("pair_solref", _a(_f, MAXP, 2)), ("pair_solimp", _a(_f, MAXP, 5)),
         ("pair_margin", _a(_f, MAXP)), ("row_pair", _a(_i, MAXK)), ("pair_k", _a(_i, MAXP)),
         *[(n, _i) for n in ("na", "eef_site", "center_site", "uncouple", "ngrip")],
+        *[(n, _i) for n in ("ctrl_type", "torque_comp", "raw_pd", "goal_stride", "gains_stride")],
         ("arm_qv", _a(_i, MAXA)), ("arm_qp", _a(_i, MAXA)), ("arm_act", _a(_i, MAXA)),
         ("torque_lo", _a(_f, MAXA)), ("torque_hi", _a(_f, MAXA)), ("initial_joint", _a(_f, MAXA)),
         ("grip_act", _a(_i, MAXGR)),
@@ -65,6 +66,7 @@ class RsTables(ctypes.Structure):
 
 _PAIR_KIND = {(S.PLANE, S.BOX): 0, (S.CYLINDER, S.BOX): 1, (S.BOX, S.BOX): 2}
 _ACT_KIND = {"motor": 0, "position": 1, "velocity": 2}
+_CTRL_TYPE = {"osc": 0, "joint_pos": 1}
 
 
 def _set(field, values):
@@ -166,6 +168,9 @@ def pack(model, arm=None, device=None) -> torch.Tensor:
             raise ValueError("arm or gripper exceeds the kernels' maxima")
         t.na, t.ngrip = na, len(arm["grip_actuators"])
         t.eef_site, t.center_site, t.uncouple = arm["eef_site"], arm["center_site"], int(arm["uncouple"])
+        t.ctrl_type = _CTRL_TYPE[arm["ctrl_type"]]
+        t.torque_comp, t.raw_pd = int(arm["use_torque_compensation"]), int(arm["raw_pd"])
+        t.goal_stride, t.gains_stride = arm["goal_width"], arm["gains_width"]
         for n in ("arm_qv", "arm_qp", "arm_act", "torque_lo", "torque_hi", "initial_joint", "grip_act"):
             src = {"arm_qv": "qv_idx", "arm_qp": "qp_idx", "arm_act": "actuator_ids",
                    "grip_act": "grip_actuators"}.get(n, n)

@@ -10,7 +10,7 @@ batched physics state and the explicit controller state.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -18,15 +18,27 @@ import torch
 from robosuite_tpu_torch.controllers.base import ArmView
 from robosuite_tpu_torch.controllers.factory import load_composite_controller_config
 from robosuite_tpu_torch.controllers.parts import gripper as grip_mod
+from robosuite_tpu_torch.controllers.parts import joint_pos as jp_mod
 from robosuite_tpu_torch.controllers.parts import osc as osc_mod
 from robosuite_tpu_torch.physics import kinematics
+
+# config class -> controller module (init_state / set_goal / run)
+_CTRL_DISPATCH = {osc_mod.OSCConfig: osc_mod, jp_mod.JointPosConfig: jp_mod}
+
+
+def ctrl_module(cfg):
+    """The part-controller module of an arm controller config."""
+    for klass, mod in _CTRL_DISPATCH.items():
+        if isinstance(cfg, klass):
+            return mod
+    raise TypeError(f"no controller module for config {type(cfg).__name__}")
 
 
 @dataclasses.dataclass
 class RobotCtrlState:
     """Per-robot controller state: arm goal states + gripper ramp."""
 
-    arm: Dict[str, osc_mod.OSCState]
+    arm: Dict[str, Any]  # arm -> OSCState / JointPosState
     gripper_action: Dict[str, torch.Tensor]  # arm -> (B, n_gripper_actuators) in [-1, 1]
 
 
@@ -110,7 +122,8 @@ class FixedBaseRobot:
         B = qpos.shape[0]
         arm_states, grip_actions = {}, {}
         for arm in self.arms:
-            arm_states[arm] = osc_mod.init_state(self.arm_cfg[arm], self.arm_view(kin, M, bias, qpos, qvel, arm))
+            cfg = self.arm_cfg[arm]
+            arm_states[arm] = ctrl_module(cfg).init_state(cfg, self.arm_view(kin, M, bias, qpos, qvel, arm))
             n_act = max(len(self.gripper_actuator_ids[arm]), 1)
             grip_actions[arm] = torch.zeros(B, n_act, dtype=qpos.dtype, device=qpos.device)
         return RobotCtrlState(arm=arm_states, gripper_action=grip_actions)
@@ -122,7 +135,8 @@ class FixedBaseRobot:
         for arm in self.arms:
             s, e = idx[arm]
             view = self.arm_view(kin, M, bias, qpos, qvel, arm)
-            new_arm[arm] = osc_mod.set_goal(self.arm_cfg[arm], ctrl_state.arm[arm], view, action[:, s:e])
+            cfg = self.arm_cfg[arm]
+            new_arm[arm] = ctrl_module(cfg).set_goal(cfg, ctrl_state.arm[arm], view, action[:, s:e])
             gs, ge = idx[f"{arm}_gripper"]
             new_grip[arm] = self._gripper_goal(arm, ctrl_state.gripper_action[arm], action[:, gs:ge])
         return RobotCtrlState(arm=new_arm, gripper_action=new_grip)
@@ -146,7 +160,8 @@ class FixedBaseRobot:
         ctrl = ctrl.clone()
         for arm in self.arms:
             view = self.arm_view(kin, M, bias, qpos, qvel, arm)
-            tau = osc_mod.run(self.arm_cfg[arm], ctrl_state.arm[arm], view)
+            cfg = self.arm_cfg[arm]
+            tau = ctrl_module(cfg).run(cfg, ctrl_state.arm[arm], view)
             lo, hi = self.torque_limits[arm]
             ctrl[:, self.arm_actuator_ids[arm]] = torch.clamp(
                 tau, torch.as_tensor(lo, device=tau.device), torch.as_tensor(hi, device=tau.device))

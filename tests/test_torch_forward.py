@@ -41,7 +41,7 @@ def setup():
 
     jm = robosuite_tpu.make("Lift", robots="Panda", cube_size=CUBE, reward_shaping=True).model
     pm = convert.model_from_numpy({n: np.asarray(getattr(jm, n)) for n in PM.LEAVES},
-                                  {n: getattr(jm, n) for n in PM.STATIC})
+                                  {n: getattr(jm, n) for n in PM.STATIC}, device="cpu")
     fp = jax.jit(make_forward_solver(jm))
     return jm, pm, fp
 

@@ -123,6 +123,16 @@ def test_non_cpu_tensors_never_reach_a_plain_version(monkeypatch):
                   torch.empty(B, 12, device=meta), torch.empty(B, 12, device=meta), torch.empty(B, 2, device=meta))
     with pytest.raises(ValueError, match="CUDA"):
         fk.fk_pose(m, q)
+    # the JOINT_POSITION branch (Stack): goal (B, na), gains (B, 2 na)
+    env = robosuite_tpu_torch.make("Stack", robots="Panda", controller_configs="JOINT_POSITION", device="cpu")
+    m = env.model
+    for emit_aux in (False, True):
+        fused = substep.make_fused_substep(env, m, emit_aux=emit_aux)
+        with pytest.raises(ValueError, match="CUDA"):
+            fused(torch.empty(B, m.nq, device=meta), torch.empty(B, m.nv, device=meta),
+                  torch.empty(B, m.nbody, device=meta), torch.empty(B, m.nbody, 3, device=meta),
+                  torch.empty(B, 3, device=meta), torch.empty(B, m.nv, device=meta),
+                  torch.empty(B, 7, device=meta), torch.empty(B, 14, device=meta), torch.empty(B, 2, device=meta))
 
 
 @pytest.mark.parametrize("fn", [forward.forward_products, contact_solve.vel_update, substep.make_fused_substep,

@@ -3,7 +3,10 @@ robosuite_tpu_torch/csrc/*.cuh is written as block functions that also
 compile as plain C++ (one thread per block, csrc/common.cuh), so this test
 builds it with the host C++ compiler, runs K1, K2, K3, K3's emit_aux
 variant and K4 block by block on CPU tensors and holds each against its
-plain PyTorch version with the tolerances chip_smoke.py uses on the card.
+plain PyTorch version with the tolerances chip_smoke.py uses on the card;
+on the Lift world (OSC) and on the Stack world (JOINT_POSITION: K2, K3-JP
+and K3-aux-JP at nv 21, 96 rows, which also exercises the kernels'
+compile-time maxima and sizeof(RsTables)).
 Launch configuration, warp shuffles and shared memory are exercised only on
 the card."""
 
@@ -206,3 +209,79 @@ def test_substep_aux_kernel_matches_plain(lib, contact_state):
         if name in tols:
             assert float((k - p).abs().max()) <= tols[name], name
     assert float(ref[-1].min()) < 0.0  # some pair touches
+
+
+@pytest.fixture(scope="module")
+def stack_state():
+    """The port's Stack env with the JOINT_POSITION arm (CPU) after a reset
+    and 4 policy steps (the cubes have landed), the arm moving."""
+    env = robosuite_tpu_torch.make("Stack", robots="Panda", controller_configs="JOINT_POSITION",
+                                   reward_shaping=True, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    s, _ = env.reset_batch(3, gen)
+    a = 0.5 * torch.randn(3, env.action_dim, generator=gen)
+    for _ in range(4):
+        s, _ = env.rollout_batch(s, a)
+    return env, s
+
+
+def _jp_inputs(env, m, s):
+    q, qd = s.physics.qpos.contiguous(), s.physics.qvel.contiguous()
+    leaves = forward.runtime_leaves(m, q.shape[0])
+    kin = forward.forward_plain(m, q, qd, *leaves)[0]
+    robot = env.robots[0]
+    goal, gains = env._fused_goal_fn(robot, "right", s.ctrl, kin)
+    assert goal.shape == (q.shape[0], 7) and gains.shape == (q.shape[0], 14)
+    return (q, qd, *leaves, goal, gains, robot.gripper_ctrl("right", s.ctrl).contiguous())
+
+
+@pytest.mark.parametrize("emit_aux", [False, True], ids=["K3-JP", "K3-aux-JP"])
+def test_joint_position_substep_kernel_matches_plain(lib, stack_state, emit_aux):
+    """K3's JOINT_POSITION branch on the Stack world, without emit_aux on
+    the execution model and with it on the planning model (dt 25 ms, 10
+    solver iterations, all 96 rows). The pair distances are held as
+    chip_smoke.py holds them: a box-box pair whose SAT edge test ties within
+    float rounding (the cubes' faces parallel to the pedestal's and each
+    other's) may keep its edge candidate in one version only, and is set
+    aside only with chip_smoke.hold_pair_dist's float64 witness of the tie."""
+    env, s = stack_state
+    m = env.model.replace(timestep=0.025, solver_iters=10) if emit_aux else env.model
+    args = _jp_inputs(env, m, s)
+    ref = (substep.substep_aux_plain if emit_aux else substep.substep_plain)(env, m, *args)
+    assert ref[2].shape == (3, 288)
+    out = [torch.empty_like(r) for r in ref]
+    T = tables.pack(m, arm=substep.extract_spec(env, m))
+    if emit_aux:
+        lib.rs_substep_aux(_p(T), *(_p(t) for t in (*args, *out)), 3, None)
+    else:
+        lib.rs_substep(_p(T), *(_p(t) for t in (*args, *out)), 3, None)
+    names = ("qpos", "qvel", "f", "site_xpos", "site_xmat", "xpos")
+    tols = dict(qpos=1e-5, qvel=1e-3, site_xpos=2e-5, site_xmat=2e-5, xpos=2e-5)
+    for name, k, p in zip(names, out, ref):
+        if name in tols:
+            assert float((k - p).abs().max()) <= tols[name], name
+    if emit_aux:  # pair distances in every scenario, witnessed box-box SAT near-ties set aside
+        import chip_smoke
+
+        assert chip_smoke.hold_pair_dist("K3-aux-JP", m, out[-1], ref[-1], out[0], ref[0], tol=1e-5) <= 1e-5
+    f_scale = max(1.0, float(ref[2].abs().max()))
+    assert float((out[2] - ref[2]).abs().max()) <= 1e-4 * f_scale
+
+
+def test_contact_solve_kernel_matches_plain_on_stack(lib, stack_state):
+    """K2 at Stack's width (nv 21, 96 rows) on the plain path's operands."""
+    env, s = stack_state
+    m, B = env.model, 3
+    q, qd = s.physics.qpos, s.physics.qvel
+    kin, M, bias = forward.forward_plain(m, q, qd, *forward.runtime_leaves(m, B))
+    ctrl = env.robots[0].run_controllers(kin, M, bias, q, qd, s.ctrl, torch.zeros(B, m.nu))
+    qfrc, extra = engine.total_smooth_force(m, q, qd, ctrl, M, bias)
+    JfT, aref, reg3, mu, act = C.solver_inputs(m, kin, C.narrowphase(m, kin), qd, m.timestep)
+    assert act.shape[1] == 96 and int(act.sum(1).min()) >= 4  # both cubes on the table
+    args = [t.contiguous() for t in (M, JfT, aref, qfrc, qd, m.dof_damping + extra, reg3, mu, act)]
+    qv_p, f_p = contact_solve.vel_update_plain(*args, C.APGD_ITERS, C.POWER_ITERS, m.timestep)
+    qv_k, f_k = torch.empty_like(qv_p), torch.empty_like(f_p)
+    lib.rs_contact_solve(*(_p(t) for t in args), _p(qv_k), _p(f_k), B, m.nv, 96, C.APGD_ITERS, C.POWER_ITERS,
+                         m.timestep, None)
+    assert float((qv_k - qv_p).abs().max()) <= 1e-4
+    assert float((f_k - f_p).abs().max()) <= 1e-4 * max(1.0, float(f_p.abs().max()))

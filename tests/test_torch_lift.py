@@ -136,7 +136,7 @@ def test_state_from_numpy_carries_controller_state(setup):
         np.asarray(js.physics.qpos)[None], np.asarray(js.physics.qvel)[None],
         {"goal_pos": np.asarray(osc_j.goal_pos)[None], "goal_ori": np.asarray(osc_j.goal_ori)[None],
          "kp": np.asarray(osc_j.kp)[None], "kd": np.asarray(osc_j.kd)[None],
-         "gripper_action": np.asarray(js.ctrl.gripper_action["right"])[None]})
+         "gripper_action": np.asarray(js.ctrl.gripper_action["right"])[None]}, device="cpu")
     js2, jr2 = jstep(js, jnp.asarray(a2))
     ps2, pr2 = penv.rollout_batch(ps, torch.as_tensor(a2)[None])
     np.testing.assert_allclose(ps2.physics.qpos[0, :9].numpy(), np.asarray(js2.physics.qpos)[:9], rtol=0, atol=1e-4)

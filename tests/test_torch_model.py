@@ -48,7 +48,7 @@ def test_model_from_numpy_roundtrip(worlds):
     jm, pm = worlds
     leaves = {n: np.asarray(getattr(jm, n)) for n in PM.LEAVES}
     meta = {n: getattr(jm, n) for n in PM.STATIC}
-    m2 = convert.model_from_numpy(leaves, meta)
+    m2 = convert.model_from_numpy(leaves, meta, device="cpu")
     for n in PM.LEAVES:
         np.testing.assert_allclose(getattr(m2, n).numpy(), getattr(pm, n).numpy(), rtol=0, atol=1e-6)
     assert m2.body_names == pm.body_names and m2.pair_geom1 == pm.pair_geom1

@@ -1,9 +1,10 @@
 """The port's batched MPC (robosuite_tpu_torch.mpc) on the CPU against the
 JAX package, on the same inputs: MPPI with the JAX draw injected, the
 Riccati pass, the Gauss-Newton quadratics of the Lift residual, iLQR on a
-pendulum, and the Lift solve_batch (MPPI only, and MPPI + 1 iLQR
-iteration over both real-time-iteration branches). The Lift states are
-tests/test_torch_plan.py's resting-cube states."""
+pendulum, the Lift solve_batch (MPPI only, and MPPI + 1 iLQR iteration
+over both real-time-iteration branches) and the Stack (JOINT_POSITION)
+MPPI-only solve_batch. The Lift states are tests/test_torch_plan.py's
+resting-cube states, the Stack ones tests/test_torch_stack.py's."""
 
 import inspect
 
@@ -254,6 +255,29 @@ def test_solve_batch_mppi_only_matches_jax(setup):
     assert int(met["n_masked"].sum()) == 0
 
 
+def test_solve_batch_mppi_only_stack_matches_jax():
+    """An MPPI-only Stack solve_batch with the JOINT_POSITION arm and 8-wide
+    actions (B=2, K=4, H=3, 2 knots, the full planning manifolds of the
+    Stack MPC config) with the JAX draw injected: actions and shifted plans
+    within 1e-4."""
+    from robosuite_tpu.mpc import receding as jreceding
+
+    from tests.test_torch_stack import resting_states as stack_resting_states
+
+    jenv, penv, flat, jstates = stack_resting_states()
+    jmpc = jreceding.RecedingMPC(jenv, _cfg(jreceding, plan_pair_points=None))
+    pmpc = receding.RecedingMPC(penv, _cfg(receding, plan_pair_points=None))
+    js, mss = _jax_states(jmpc, jstates, 2)
+    knots = _jax_knots(mss, (4, 2, penv.action_dim))
+    assert knots.shape[-1] == 8
+    a_j, mss2, _ = jax.jit(jmpc.make_solve_batch())(js, mss)
+    a_p, ms2, met = pmpc.make_solve_batch()(penv.state_from_flattened(flat), pmpc.init_state(2, None),
+                                            knots=torch.as_tensor(knots))
+    np.testing.assert_allclose(a_p.numpy(), np.asarray(a_j), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(ms2.us.numpy(), np.asarray(mss2.us), rtol=0, atol=1e-4)
+    assert int(met["n_masked"].sum()) == 0
+
+
 def test_mpc_entry_points_need_a_residual_and_default_to_cuda(setup, monkeypatch):
     """RecedingMPC refuses an env with no ported residual unless one is
     passed; the MPC state is allocated on CUDA unless the caller asks for
@@ -266,7 +290,8 @@ def test_mpc_entry_points_need_a_residual_and_default_to_cuda(setup, monkeypatch
         receding.RecedingMPC(penv, _cfg(receding))
     mpc = receding.RecedingMPC(penv, _cfg(receding), residual=residuals.lift_residual)
     assert mpc.init_state(2, None).us.device.type == "cpu"  # the env's device
-    for fn in (receding.init_state, convert.mpc_state_from_numpy):
+    for fn in (receding.init_state, convert.mpc_state_from_numpy, convert.model_from_numpy,
+               convert.state_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 

@@ -75,15 +75,21 @@ def test_substep_matches_jax(envs):
 
 
 def test_unsupported_variants_raise(envs, monkeypatch):
-    """The JOINT_POSITION controller is not ported: the env refuses its
-    config, and an arm controller other than OSC makes the fused substep
-    (with or without emit_aux) raise UnsupportedFused."""
+    """JOINT_POSITION is ported: a Lift env with that arm controller builds
+    the fused substep with and without emit_aux, with its goal/gains
+    widths (na, 2 na). An arm controller other than OSC or JOINT_POSITION
+    still makes the fused substep (with or without emit_aux) raise
+    UnsupportedFused."""
     import robosuite_tpu_torch
 
     _, penv, _ = envs
-    with pytest.raises((substep.UnsupportedFused, NotImplementedError)):
-        robosuite_tpu_torch.make("Lift", robots="Panda", cube_size=CUBE, controller_configs="JOINT_POSITION",
-                                 device="cpu")
+    jp_env = robosuite_tpu_torch.make("Lift", robots="Panda", cube_size=CUBE, controller_configs="JOINT_POSITION",
+                                      device="cpu")
+    spec = substep.extract_spec(jp_env, jp_env.model)
+    assert spec["ctrl_type"] == "joint_pos" and len(spec["qv_idx"]) == 7
+    for emit_aux in (False, True):
+        assert callable(substep.make_fused_substep(jp_env, jp_env.model, emit_aux=emit_aux))
+        assert jp_env._fused_for(jp_env.model, emit_aux=emit_aux) is not None
     monkeypatch.setitem(penv.robots[0].arm_cfg, "right", object())
     for emit_aux in (False, True):
         with pytest.raises(substep.UnsupportedFused):
