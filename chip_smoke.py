@@ -81,9 +81,11 @@ B = 512
 STEPS = 10
 SEED = 0
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 non-tensor rate
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 and float64
+# non-tensor rates
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_FP64_FLOP_PER_S = 34e12
 
 
 def fail(msg):
@@ -216,12 +218,17 @@ def hold_pair_dist(label, model, pd_k, pd_p, qpos_k, qpos_p, tol=2e-5, tie=1e-5)
     return float(err.max())
 
 
-def op_counts(model, nrows, iters=30, power_iters=8, ctrl="osc"):
+def op_counts(model, nrows, nact=0.0, iters=30, power_iters=8, ctrl="osc"):
     """Float operations per scenario of each kernel, counted from the
     kernels' arithmetic stage by stage (multiply and add count one each),
-    for `nrows` contact rows, the contact solve's iteration counts and the
-    arm's torque law (`ctrl`, "osc" or "joint_pos"): returns {"K1", "K2",
-    "K3", "K3-aux", "K4": flops}."""
+    for `nrows` contact rows of which `nact` are active (the mean over this
+    run's scenarios: the solve whitens, multiplies and projects only the
+    active rows' columns), the contact solve's iteration counts and the
+    arm's torque law (`ctrl`, "osc" or "joint_pos"), split by type: the
+    CRBA/RNEA sums, the Cholesky factorisations and solves, the whitening,
+    the solve's products and the OSC law run in float64, the rest in
+    float32. Returns {"K1", "K2", "K3", "K3-aux", "K4": (float32 flops,
+    float64 flops)}."""
     from robosuite_tpu_torch.models import spec as S
     from robosuite_tpu_torch.physics import contact as C
 
@@ -233,34 +240,66 @@ def op_counts(model, nrows, iters=30, power_iters=8, ctrl="osc"):
     poses = nb * (30 + 18 + 24 + 30) + (ng + ns) * (18 + 24 + 30)
     crba = pairs_db * (6 + 15 + 6 + 15 + 6 + 6) + nv * nv * 12
     rnea = pairs_db * 24 + nv * 30 + nb * (4 * 30 + 40) + nv * nb * 6 + 30
-    k1 = fk + poses + crba + rnea
+    k1 = (fk + poses, crba + rnea)
     chol = nv ** 3 // 3 + 2 * nv * nv
-    matvec = 4 * nv * ntot + ntot
-    k2 = (2 * chol + ntot * nv * (nv + 4)
-          + (power_iters + 1) * (matvec + 3 * ntot) + iters * (matvec + 20 * nrows) + 2 * nv * ntot)
+    nac = 3 * nact                                               # the active columns
+    yx, ytx = 2 * nv * nac, 2 * nv * nac + 2 * nac               # Y x; R x + Y^T (Y x)
+    k2_64 = (2 * chol + 2 * nv * nv + nv * ntot + nv * nv       # factorisations and solves, the inactive sum
+             + nac * nv * (nv + 4)                               # whitening of the active columns
+             + (power_iters + iters + 2) * yx + (power_iters + iters + 1) * ytx)
+    k2 = (2 * ntot + power_iters * 3 * nac + iters * 20 * nact, k2_64)  # norms, the cone projection
     na = 7
     if ctrl == "osc":
-        law = 2 * na ** 3 + 3 * 6 * na * na + 6 * 6 * na + 2 * 6 ** 3 + nv * 24
+        law = (0, 2 * na ** 3 + 3 * 6 * na * na + 6 * 6 * na + 2 * 6 ** 3 + nv * 24)
     else:                                                        # kp e - kd qdot, M_arm times it, + bias, clip
-        law = na * 4 + 2 * na * na + 2 * na
+        law = (na * 4 + 2 * na * na + 2 * na, 0)
     groups = {key: len(items) for key, items in C.pair_groups(model).items()}
     n_bb, n_pb = groups.get((S.BOX, S.BOX), 0), groups.get((S.PLANE, S.BOX), 0)
     n_cb = groups.get((S.CYLINDER, S.BOX), 0)
     cands = n_bb * (16 * 90 + 9 * 110) + n_pb * 8 * 30 + n_cb * 2 * 90  # box-box, plane-box, capsule-box
     narrow = cands + nrows * 40
     rows = nrows * (nv * (6 + 3 * 6) + 60)
-    k3 = k1 - (ng + ns) * 72 + law + narrow + rows + k2 + nv * 20
+    k3 = (k1[0] - (ng + ns) * 72 + law[0] + narrow + rows + k2[0] + nv * 20, k1[1] + law[1] + k2[1])
     k4 = nb * (27 + 28) + nv * (3 * 27 + 28 + 26)               # pose-only walk: rotate, compose, hinge
     aux = k4 + nb * 30 + ns * (18 + 24 + 30) + model.npair * 2 * 72 + cands  # walk, matrices, sites, pair poses
-    return {"K1": k1, "K2": k2, "K3": k3, "K3-aux": k3 + aux, "K4": k4}
+    return {"K1": k1, "K2": k2, "K3": k3, "K3-aux": (k3[0] + aux, k3[1]), "K4": (k4, 0)}
 
 
-def bound(bytes_, flops):
-    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    float operations over the float32 peak."""
+def bound(bytes_, flops, n):
+    """(bound_ms, bound_by) of n scenarios: the larger of bytes over HBM
+    bandwidth and the float operations at the peak rate of their type
+    (flops = (float32, float64) per scenario)."""
     t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    t_ops = (flops[0] / PEAK_FP32_FLOP_PER_S + flops[1] / PEAK_FP64_FLOP_PER_S) * n * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# The compiled kernel of each variant (K3 and K3-JP share one instantiation,
+# K3-aux and K3-aux-JP the other; the law is chosen by the table).
+VARIANT_KERNEL = {"K1": "rs_forward_kernel", "K2": "rs_contact_solve_kernel", "K3": "rs_substep_kernelILb0",
+                  "K3-JP": "rs_substep_kernelILb0", "K3-aux": "rs_substep_kernelILb1",
+                  "K3-aux-JP": "rs_substep_kernelILb1", "K4": "rs_fk_kernel"}
+
+
+def ptxas_report(log_path):
+    """{variant: {registers, spill_stores, spill_loads, stack_frame}} from
+    the kernels' build.log (nvcc -Xptxas -v)."""
+    import re
+
+    per_fn, cur = {}, None
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                cur = per_fn.setdefault(m.group(1), {})
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and cur is not None:
+                cur.update(stack_frame=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m[1])
+    return {v: next(r for fn, r in per_fn.items() if k in fn) for v, k in VARIANT_KERNEL.items()}
 
 
 def nbytes(*tensors):
@@ -457,7 +496,6 @@ def stack_slice(tag, results):
           f"npair={model.npair} rows={nrows}; action_dim={env.action_dim}; arm controller "
           f"{type(robot.arm_cfg['right']).__name__}")
     flops = op_counts(model, nrows, ctrl="joint_pos")
-    aux_flops = op_counts(plan, nrows, iters=10, ctrl="joint_pos")["K3-aux"]
     stack_k = results.setdefault("stack_kernels", {})
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
 
@@ -484,7 +522,7 @@ def stack_slice(tag, results):
     stack_k["K1"] = dict(max_abs_err=k1_err, ms=cuda_ms(lambda: forward.forward_products(model, q, qd, *leaves), 20),
                          plain_ms=cuda_ms(lambda: forward.forward_plain(model, q, qd, *leaves), 3),
                          bound=bound(nbytes(q, qd, *leaves, M_k, bias_k, *(getattr(kin_k, f) for f in fields)),
-                                     flops["K1"] * B))
+                                     flops["K1"], B))
 
     # a contact-rich state: cubeA dropped onto cubeB in every other scenario
     # (stacked boxes with parallel faces, the structural SAT tie), the other
@@ -519,6 +557,9 @@ def stack_slice(tag, results):
           f"max {int(n_act.max())} (of {nrows})")
     if int(n_act.max()) < 8:
         fail("fewer than 8 active contact rows at the Stack contact state")
+    nact = float(n_act.float().mean())  # K3-JP and K3-aux-JP run at this state too
+    flops = op_counts(model, nrows, nact, ctrl="joint_pos")
+    aux_flops = op_counts(plan, nrows, nact, iters=10, ctrl="joint_pos")["K3-aux"]
     solve_args = (C.APGD_ITERS, C.POWER_ITERS, model.timestep)
     qv_k, f_k = contact_solve.vel_update(*args, *solve_args)
     qv_p, f_p = contact_solve.vel_update_plain(*args, *solve_args)
@@ -528,7 +569,7 @@ def stack_slice(tag, results):
     stack_k["K2"] = dict(max_abs_err=max(max_err(qv_k, qv_p), max_err(f_k, f_p)),
                          ms=cuda_ms(lambda: contact_solve.vel_update(*args, *solve_args), 20),
                          plain_ms=cuda_ms(lambda: contact_solve.vel_update_plain(*args, *solve_args), 3),
-                         bound=bound(nbytes(*args, qv_k, f_k), flops["K2"] * B))
+                         bound=bound(nbytes(*args, qv_k, f_k), flops["K2"], B))
 
     # ---- 14. K3-JP (B=512, 32) and K3-aux-JP (B*K=512, planning model) at that state,
     # the arm driven by random joint deltas
@@ -544,12 +585,16 @@ def stack_slice(tag, results):
         out_k, out_p = fused(*sub), substep.substep_plain(env, model, *sub)
         torch.cuda.synchronize()
         k3_err = max(k3_err, hold_substep(f"K3-JP (B={n})", model, cubes, sub[0], out_k[:2], out_p[:2]))
-    print(f"{tag} K3-JP ms/launch at B={STACK_B}: {cuda_ms(lambda: fused(*(t[:STACK_B].contiguous() for t in k3_args)), 20):.4f}")
+    one = tuple(t[:STACK_B].contiguous() for t in k3_args)
+    results["K3-JP_ms_B32"] = cuda_ms(lambda: fused(*one), 20)
+    results["resident_per_sm"]["K3-JP"] = substep.resident_per_sm(fused)
+    print(f"{tag} K3-JP ms/launch at B={STACK_B} (every scenario on an SM of its own: one scenario's latency): "
+          f"{results['K3-JP_ms_B32']:.4f}; resident scenarios per SM (Stack): {results['resident_per_sm']['K3-JP']}")
     out_k = fused(*k3_args)
     results["kernels"]["K3-JP"] = dict(
         max_abs_err=k3_err, ms=cuda_ms(lambda: fused(*k3_args), 20),
         plain_ms=cuda_ms(lambda: substep.substep_plain(env, model, *k3_args), 3),
-        bound=bound(nbytes(*k3_args, *out_k), flops["K3"] * B))
+        bound=bound(nbytes(*k3_args, *out_k), flops["K3"], B))
 
     fused_aux = env._fused_for(plan, emit_aux=True)
     kin_plan = forward.forward_plain(plan, q, qd, *leaves)[0]
@@ -568,10 +613,12 @@ def stack_slice(tag, results):
     pd_p = C.pair_min_dists(plan, kin2)
     spread(f"K3-aux-JP (B={B}) pair_dist", out_k[6], pd_p)
     aux_err = max(aux_err, hold_pair_dist(f"K3-aux-JP (B={B})", plan, out_k[6], pd_p, out_k[0], out_k[0]))
+    results["resident_per_sm"]["K3-aux-JP"] = substep.resident_per_sm(fused_aux)
+    print(f"K3-aux-JP resident scenarios per SM (Stack planning model): {results['resident_per_sm']['K3-aux-JP']}")
     results["kernels"]["K3-aux-JP"] = dict(
         max_abs_err=aux_err, ms=cuda_ms(lambda: fused_aux(*a_args), 10),
         plain_ms=cuda_ms(lambda: substep.substep_aux_plain(env, plan, *a_args), 3),
-        bound=bound(nbytes(*a_args, *out_k), aux_flops * B))
+        bound=bound(nbytes(*a_args, *out_k), aux_flops, B))
     phase_done("Stack K1, K2, K3-JP, K3-aux-JP vs plain")
 
     # ---- 15. the Stack env-step slice: reset + 10 policy steps on the fused path
@@ -771,11 +818,11 @@ def main():
     t0 = time.perf_counter()
     build.library()
     print(f"{tag} kernel build+load s: {time.perf_counter() - t0:.1f}")
-    log = os.path.join(os.path.dirname(build.build()), "build.log")
-    with open(log) as f:
-        for line in f:
-            if "registers" in line or "spill" in line or "Function properties" in line:
-                print("ptxas:", line.strip())
+    results["ptxas"] = ptxas_report(os.path.join(os.path.dirname(build.build()), "build.log"))
+    for v, r in results["ptxas"].items():
+        print(f"ptxas {v} ({VARIANT_KERNEL[v]}): {r['registers']} registers, {r['spill_stores']} B spill stores, "
+              f"{r['spill_loads']} B spill loads, {r['stack_frame']} B stack frame")
+    results["resident_per_sm"] = {}
 
     # ---- 3. env + reset -------------------------------------------------------
     env = R.make("Lift", robots="Panda", reward_shaping=True, seed=SEED)
@@ -813,7 +860,7 @@ def main():
     k1_plain = cuda_ms(lambda: forward.forward_plain(model, q, qd, *leaves), 3)
     k1_bytes = nbytes(q, qd, *leaves, M_k, bias_k, *(getattr(kin_k, f) for f in kin_fields))
     results["kernels"]["K1"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
-                                    bound=bound(k1_bytes, flops["K1"] * B))
+                                    bound=bound(k1_bytes, flops["K1"], B))
     torch.cuda.synchronize()
 
     # ---- drive to a contact-rich state: the grip site to the cube, fingers closing
@@ -846,6 +893,7 @@ def main():
           f"{int((act[:, finger].sum(1) > 0).sum())}/{B}")
     if int(n_act.max()) < 4:
         fail("fewer than 4 active contact rows at the contact state")
+    flops = op_counts(model, nrows, float(n_act.float().mean()))  # K2 and K3 run at this state
     solve_args = (C.APGD_ITERS, C.POWER_ITERS, model.timestep)
     qv_k, f_k = contact_solve.vel_update(*args, *solve_args)
     qv_p, f_p = contact_solve.vel_update_plain(*args, *solve_args)
@@ -858,7 +906,7 @@ def main():
     k2_ms = cuda_ms(lambda: contact_solve.vel_update(*args, *solve_args), 20)
     k2_plain = cuda_ms(lambda: contact_solve.vel_update_plain(*args, *solve_args), 3)
     results["kernels"]["K2"] = dict(max_abs_err=max(max_err(qv_k, qv_p), max_err(f_k, f_p)), ms=k2_ms,
-                                    plain_ms=k2_plain, bound=bound(nbytes(*args, qv_k, f_k), flops["K2"] * B))
+                                    plain_ms=k2_plain, bound=bound(nbytes(*args, qv_k, f_k), flops["K2"], B))
 
     # ---- 6. K3 vs plain at the same state --------------------------------------
     fused = env._fused_for(model)
@@ -872,11 +920,14 @@ def main():
     # rounding of f (checked above, 1e-4 relative) into ~1e-4 of velocity
     check("K3 qpos", max_err(qp_k, qp_p), 1e-5)
     check("K3 qvel", max_err(qv_k, qv_p), 1e-3)
+    results["resident_per_sm"]["K3"] = substep.resident_per_sm(fused)
+    print(f"K3 resident scenarios per SM (Lift, {build.SCENARIOS_PER_BLOCK['substep']} a block): "
+          f"{results['resident_per_sm']['K3']}")
     k3_ms = cuda_ms(lambda: fused(*k3_args), 20)
     k3_plain = cuda_ms(lambda: substep.substep_plain(env, model, *k3_args), 3)
     results["kernels"]["K3"] = dict(
         max_abs_err=max(max_err(qp_k, qp_p), max_err(qv_k, qv_p)), ms=k3_ms, plain_ms=k3_plain,
-        bound=bound(nbytes(*k3_args, qp_k, qv_k, f_k), flops["K3"] * B))
+        bound=bound(nbytes(*k3_args, qp_k, qv_k, f_k), flops["K3"], B))
     torch.cuda.synchronize()
 
     # ---- 7. the slice ------------------------------------------------------------
@@ -995,16 +1046,17 @@ def main():
     results["kernels"]["K4"] = dict(
         max_abs_err=k4_err, ms=cuda_ms(lambda: fk.fk_pose(model, q4), 20),
         plain_ms=cuda_ms(lambda: fk.fk_pose_plain(model, q4), 3), batch=BK4,
-        bound=bound(nbytes(q4, xp_k, xq_k), flops["K4"] * BK4))
+        bound=bound(nbytes(q4, xp_k, xq_k), flops["K4"], BK4))
     phase_done("K4 vs plain")
 
     # ---- 9. K3-aux vs plain at the contact-rich state, 2-point planning model ---------
     plan = model.replace(timestep=0.025, solver_iters=10, pair_points_cap=2)
     plan_rows = sum(len(r) for r in C.contact_row_layout(plan).values())
-    aux_flops = op_counts(plan, plan_rows, iters=10)["K3-aux"]
     fused_aux = env._fused_for(plan, emit_aux=True)
     q, qd = s.physics.qpos, s.physics.qvel
     kin = forward.forward_plain(plan, q, qd, *leaves)[0]
+    plan_act = C.solver_inputs(plan, kin, C.narrowphase(plan, kin), qd, plan.timestep)[-1]
+    aux_flops = op_counts(plan, plan_rows, float(plan_act.sum(1).float().mean()), iters=10)["K3-aux"]
     goal, gains = env._fused_goal_fn(robot, "right", s.ctrl, kin)
     grip = robot.gripper_ctrl("right", s.ctrl).contiguous()
     a_args = (q, qd, *leaves, goal, gains, grip)
@@ -1038,10 +1090,12 @@ def main():
     out4_p = substep.substep_aux_plain(env, plan, *a4)
     torch.cuda.synchronize()
     aux_err = max(aux_err, hold_aux(f"K3-aux (B={B4})", out4, out4_p))
+    results["resident_per_sm"]["K3-aux"] = substep.resident_per_sm(fused_aux)
+    print(f"K3-aux resident scenarios per SM (Lift planning model): {results['resident_per_sm']['K3-aux']}")
     results["kernels"]["K3-aux"] = dict(
         max_abs_err=aux_err, ms=cuda_ms(lambda: fused_aux(*a4), 10),
         plain_ms=cuda_ms(lambda: substep.substep_aux_plain(env, plan, *a4), 3), batch=B4,
-        bound=bound(nbytes(*a4, *out4), aux_flops * B4))
+        bound=bound(nbytes(*a4, *out4), aux_flops, B4))
     phase_done("K3-aux vs plain")
 
     # ---- 10. the planning hooks: kernel path vs plain path on a subset ---------------

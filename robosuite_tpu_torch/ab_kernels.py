@@ -1,62 +1,51 @@
-"""Lift's K3, K3-aux and K1 timed on one card for two trees of this
-package: a parent tree and this one, in the order parent, this, this,
-parent, each in its own process (so each loads its own kernel build).
+"""K3's four variants and K1 timed on one card for two trees of this
+package, and the stage split of K3 for this tree.
 
     git archive <commit> robosuite_tpu_torch | tar -x -C <dir>
-    python -m robosuite_tpu_torch.ab_kernels <dir>
+    python -m robosuite_tpu_torch.ab_kernels <dir>     # A/B, then the split
+    python -m robosuite_tpu_torch.ab_kernels split     # the split alone
+    python -m robosuite_tpu_torch.ab_kernels sweep     # scenarios per block
 
-run from the repository root on a machine with a CUDA GPU and nvcc. Each
-run prints one JSON line: the tree, and ms per launch of K3 at B=512 and
-K1 at B=512 at chip_smoke.py's contact-rich Lift state, and of K3-aux at
-B=4096 on the 2-point planning model (CUDA events, after a warm-up).
+run from the repository root on a machine with a CUDA GPU and nvcc.
+
+A/B: the parent tree in <dir> and this one, in the order parent, this,
+this, parent, each in its own process (so each loads its own kernel
+build). Each run prints one JSON line: ms per launch (CUDA events, after a
+warm-up) of K3 (OSC) at B=512 and K1 at B=512 at a contact-rich Lift state
+(the arm driven onto the cube, fingers closing), K3-aux at B=4096 on Lift's
+2-point planning model, K3-JP at B=32 and 512 and K3-aux-JP at B=512 on
+Stack's planning model (dt 25 ms, 10 solver iterations) at a Stack state
+after a reset and four policy steps, and, where the tree reports it, each
+variant's resident scenarios per SM.
+
+Split: a diagnostic build of this tree's kernels (nvcc -DRS_STAGE_CLOCKS,
+its own build directory; the port never loads it) records clock64() at the
+end of each stage of block 0's first scenario (csrc/common.cuh RS_STAMP).
+One launch per case (K3 at B=512, K3-aux at B=4096, K3-JP at B=32,
+K3-aux-JP at B=512) prints the cycles of each stage and their share.
+
+Sweep: this tree's five kernels timed at 1, 2 and 4 scenarios (warps) a
+block, with each K3 variant's resident scenarios per SM, to choose
+ops/build.py SCENARIOS_PER_BLOCK.
 """
+import ctypes
 import json
 import os
 import subprocess
 import sys
 
+STAGES = ("load", "tree walk", "poses", "CRBA", "RNEA", "torque law", "smooth forces", "narrowphase", "rows",
+          "Cholesky 1 + whitening", "power iterations", "APGD", "Cholesky 2", "integration", "aux tail")
 
-def main(argv):
-    if len(argv) == 2:
-        roots = {"parent": os.path.abspath(argv[1]), "this": os.getcwd()}
-        me = os.path.abspath(__file__)
-        procs = [subprocess.Popen([sys.executable, me, "build", r], cwd=r) for r in roots.values()]
-        if any(p.wait() for p in procs):
-            sys.exit("a kernel build failed")
-        for name in ("parent", "this", "this", "parent"):
-            subprocess.run([sys.executable, me, "time", roots[name], name], cwd=roots[name], check=True)
-        return
-    mode, root = argv[1], argv[2]
-    sys.path[0] = root  # this tree's or the parent's package, not the directory of this file
-    import torch
 
-    import robosuite_tpu_torch as R
-    from robosuite_tpu_torch.ops import build, forward
-    from robosuite_tpu_torch.physics import engine
-
-    if os.path.dirname(os.path.dirname(os.path.abspath(R.__file__))) != root:
-        sys.exit(f"imported {R.__file__}, not the tree at {root}")
-    if mode == "build":
-        build.library()
-        return
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-    def ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
-
+def _cases(R, forward, engine, torch):
+    """{name: (wrapper, args, batch)} for the five timed kernels."""
+    cases = {}
     B = 512
     env = R.make("Lift", robots="Panda", reward_shaping=True, seed=0)
     model = env.model
     s, _ = env.reset_batch(B, torch.Generator(device="cuda").manual_seed(0))
-    for i in range(16):  # chip_smoke.py's contact-rich state
+    for i in range(16):  # chip_smoke.py's contact-rich Lift state
         eef = env._get_observations(s.physics, engine.forward_products(model, s.physics.qpos, s.physics.qvel)[0])
         a = torch.zeros(B, env.action_dim, device="cuda")
         a[:, :3] = torch.clamp(-eef["gripper_to_cube_pos"] * 40.0, -1.0, 1.0)
@@ -68,12 +57,121 @@ def main(argv):
     robot = env.robots[0]
     goal, gains = env._fused_goal_fn(robot, "right", s.ctrl, kin)
     args = (q, qd, *leaves, goal, gains, robot.gripper_ctrl("right", s.ctrl).contiguous())
+    cases["K3"] = (env._fused_for(model), args, B)
+    plan = model.replace(timestep=0.025, solver_iters=10, pair_points_cap=2)
+    cases["K3-aux"] = (env._fused_for(plan, emit_aux=True),
+                       tuple(t.repeat((8,) + (1,) * (t.dim() - 1)) for t in args), 8 * B)
+    cases["K1"] = (lambda *a, m=model: forward.forward_products(m, *a), (q, qd, *leaves), B)
+
+    env = R.make("Stack", robots="Panda", controller_configs="JOINT_POSITION", reward_shaping=True)
+    model, robot = env.model, env.robots[0]
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    s, _ = env.reset_batch(B, gen)
+    a = torch.clamp(0.5 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
+    for _ in range(4):
+        s, _ = env.rollout_batch(s, a)
+    q, qd = s.physics.qpos, s.physics.qvel
+    leaves = forward.runtime_leaves(model, B)
+    kin = forward.forward_plain(model, q, qd, *leaves)[0]
+    goal, gains = env._fused_goal_fn(robot, "right", s.ctrl, kin)
+    args = (q, qd, *leaves, goal, gains, robot.gripper_ctrl("right", s.ctrl).contiguous())
     fused = env._fused_for(model)
-    fused_aux = env._fused_for(model.replace(timestep=0.025, solver_iters=10, pair_points_cap=2), emit_aux=True)
-    a8 = tuple(t.repeat((8,) + (1,) * (t.dim() - 1)) for t in args)
-    print(json.dumps(dict(tree=argv[3], K3_ms_B512=ms(lambda: fused(*args), 50),
-                          K3_aux_ms_B4096=ms(lambda: fused_aux(*a8), 10),
-                          K1_ms_B512=ms(lambda: forward.forward_products(model, q, qd, *leaves), 50))), flush=True)
+    cases["K3-JP-32"] = (fused, tuple(t[:32].contiguous() for t in args), 32)
+    cases["K3-JP"] = (fused, args, B)
+    plan = model.replace(timestep=0.025, solver_iters=10)
+    cases["K3-aux-JP"] = (env._fused_for(plan, emit_aux=True), args, B)
+    return cases
+
+
+def _ms(torch, fn, args, reps):
+    fn(*args)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn(*args)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def main(argv):
+    me = os.path.abspath(__file__)
+    if len(argv) == 2 and argv[1] not in ("split", "sweep"):
+        roots = {"parent": os.path.abspath(argv[1]), "this": os.getcwd()}
+        builds = [subprocess.Popen([sys.executable, me, "build", r], cwd=r) for r in roots.values()]
+        builds.append(subprocess.Popen([sys.executable, me, "build-diag", roots["this"]], cwd=roots["this"]))
+        if any(p.wait() for p in builds):
+            sys.exit("a kernel build failed")
+        for name in ("parent", "this", "this", "parent"):
+            subprocess.run([sys.executable, me, "time", roots[name], name], cwd=roots[name], check=True)
+        argv = [argv[0], "split"]
+    if len(argv) == 2:  # split or sweep: run it in a process of its own, on this tree
+        subprocess.run([sys.executable, me, f"{argv[1]}-run", os.getcwd()], check=True)
+        return
+    mode, root = argv[1], argv[2]
+    sys.path[0] = root  # this tree's or the parent's package, not the directory of this file
+    import torch
+
+    import robosuite_tpu_torch as R
+    from robosuite_tpu_torch.ops import build, forward, substep
+    from robosuite_tpu_torch.physics import engine
+
+    if os.path.dirname(os.path.dirname(os.path.abspath(R.__file__))) != root:
+        sys.exit(f"imported {R.__file__}, not the tree at {root}")
+    diag_defines = ("-DRS_STAGE_CLOCKS",)
+    if mode == "build":
+        build.library()
+        return
+    if mode == "build-diag":
+        build.build(defines=diag_defines)
+        return
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if mode == "split-run":
+        diag = build.load(build.build(defines=diag_defines))
+        diag.rs_stage_clocks.argtypes = [ctypes.c_void_p]
+        diag.rs_stage_clocks.restype = ctypes.c_int
+        build.library = lambda: diag  # the wrappers below launch the diagnostic build
+    cases = _cases(R, forward, engine, torch)
+    resident = getattr(substep, "resident_per_sm", None)
+    if mode == "time":
+        out = {"tree": argv[3]}
+        for name, (fn, args, n) in cases.items():
+            out[f"{name}_ms_B{n}"] = _ms(torch, fn, args, 10 if n > 1024 else 50)
+        if resident is not None:
+            out["scenarios_per_block"] = build.SCENARIOS_PER_BLOCK
+            out["resident_scenarios_per_sm"] = {k: resident(fn) for k, (fn, _, _) in cases.items() if k != "K1"}
+        print(json.dumps(out), flush=True)
+        return
+    if mode == "sweep-run":  # this tree's kernels at 1, 2 and 4 scenarios a block
+        default = dict(build.SCENARIOS_PER_BLOCK)
+        for S in (1, 2, 4):
+            build.SCENARIOS_PER_BLOCK.update(dict.fromkeys(default, S))
+            out = {"scenarios_per_block": S}
+            for name, (fn, args, n) in cases.items():
+                out[f"{name}_ms_B{n}"] = _ms(torch, fn, args, 10 if n > 1024 else 50)
+            out["resident_scenarios_per_sm"] = {k: resident(fn) for k, (fn, _, _) in cases.items() if k != "K1"}
+            print(json.dumps(out), flush=True)
+        build.SCENARIOS_PER_BLOCK.update(default)
+        return
+    mhz = torch.cuda.get_device_properties(0).clock_rate / 1e3 if hasattr(
+        torch.cuda.get_device_properties(0), "clock_rate") else None
+    clocks = (ctypes.c_longlong * 16)()
+    for name in ("K3", "K3-aux", "K3-JP-32", "K3-aux-JP"):
+        fn, args, n = cases[name]
+        for _ in range(2):  # the second launch is the one read
+            diag.rs_stage_clocks(clocks)
+            fn(*args)
+            torch.cuda.synchronize()
+        if diag.rs_stage_clocks(clocks):
+            sys.exit("reading the stage clocks failed")
+        c = list(clocks)
+        last = 15 if "aux" in name else 14
+        split = {STAGES[i - 1]: c[i] - c[i - 1] for i in range(1, last + 1)}
+        total = c[last] - c[0]
+        print(json.dumps({"case": name, "B": n, "total_cycles": total,
+                          "total_us_at_max_clock": total / mhz if mhz else None, "cycles": split,
+                          "share": {k: round(v / total, 4) for k, v in split.items()}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,13 @@
 // Shared definitions of the port's CUDA kernels: compile-time maxima, the
-// packed model table, and the thread/barrier/reduction shims.
+// packed model table, the teams that run a scenario, and small algebra.
 //
-// Every kernel runs ONE thread block per scenario. Device code is written
-// as block functions over rs_tid()/rs_nthreads() with RS_SYNC() barriers,
-// so the same headers also compile as plain C++ (one thread per block),
-// which is how their arithmetic can be checked without a GPU.
+// A scenario runs on a TEAM of threads: its rank and size, `sync`, and
+// reductions. On the card the team is one warp (WarpTeam: lanes exchange
+// through shuffles and warp-wide reductions, `sync` is __syncwarp), so a
+// block holds several scenarios and no stage waits at a block barrier.
+// The same device functions also compile as plain C++ over HostTeam, one
+// lane, which is how their arithmetic is checked without a GPU
+// (tests/test_torch_kernels_host.py).
 #pragma once
 
 #include <math.h>
@@ -12,19 +15,90 @@
 
 #ifdef __CUDACC__
 #define RS_DEV __device__ __forceinline__
-#define RS_SYNC() __syncthreads()
-RS_DEV int rs_tid() { return threadIdx.x; }
-RS_DEV int rs_nthreads() { return blockDim.x; }
-RS_DEV float rs_warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
+#define RS_HD __host__ __device__ __forceinline__  // also called by the host launchers (the carves)
 #else
 #define RS_DEV inline
-#define RS_SYNC() ((void)0)
-inline int rs_tid() { return 0; }
-inline int rs_nthreads() { return 1; }
-inline float rs_warp_sum(float v) { return v; }
+#define RS_HD inline
+#endif
+
+RS_DEV int rs_popc(unsigned m) {
+#ifdef __CUDA_ARCH__
+  return __popc(m);
+#else
+  return __builtin_popcount(m);
+#endif
+}
+
+// Order-preserving unsigned key of a float (-0 taken as +0), so a
+// warp-wide unsigned minimum finds the smallest value.
+RS_DEV unsigned rs_fkey(float v) {
+  union { float f; unsigned u; } c;
+  c.f = v + 0.0f;
+  return (c.u & 0x80000000u) ? ~c.u : (c.u | 0x80000000u);
+}
+
+#ifdef __CUDACC__
+// One warp runs one scenario.
+struct WarpTeam {
+  RS_DEV int rank() const { return threadIdx.x & 31; }
+  RS_DEV int size() const { return 32; }
+  RS_DEV void sync() const { __syncwarp(); }
+  RS_DEV unsigned ballot(bool p) const { return __ballot_sync(0xffffffffu, p); }  // bit r: lane r's p
+  RS_DEV double sum(double v) const {
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+  }
+  RS_DEV float max(float v) const {
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    return v;
+  }
+  // The index of the smallest value over the lanes' (v, idx), the lowest
+  // index among equal values.
+  RS_DEV int argmin(float v, int idx) const {
+    unsigned k = rs_fkey(v);
+    unsigned m = __reduce_min_sync(0xffffffffu, k);
+    return (int)__reduce_min_sync(0xffffffffu, k == m ? (unsigned)idx : 0xffffffffu);
+  }
+};
+#endif
+
+// One lane runs one scenario: the host form of the device code.
+struct HostTeam {
+  RS_DEV int rank() const { return 0; }
+  RS_DEV int size() const { return 1; }
+  RS_DEV void sync() const {}
+  RS_DEV unsigned ballot(bool p) const { return p ? 1u : 0u; }
+  RS_DEV double sum(double v) const { return v; }
+  RS_DEV float max(float v) const { return v; }
+  RS_DEV int argmin(float, int idx) const { return idx; }
+};
+
+// The first index of the smallest of v[0..n) over the team (each lane
+// scans its strided share, keeping its earliest minimum, then the team
+// argmin keeps the lowest index): the order contact.select_deepest's
+// stable sort gives. Every lane gets the index.
+template <class Team>
+RS_DEV int team_argmin(const Team& tm, const float* v, int n) {
+  float bv = INFINITY;
+  int bi = n;
+  for (int i = tm.rank(); i < n; i += tm.size())
+    if (bi == n || v[i] < bv) { bv = v[i]; bi = i; }
+  return tm.argmin(bv, bi);
+}
+
+// Stage clocks of the fused substep (a diagnostic build only: nvcc
+// -DRS_STAGE_CLOCKS, robosuite_tpu_torch/ab_kernels.py): clock64() at the
+// end of each stage of block 0's first scenario, read back by
+// rs_stage_clocks. In every other build RS_STAMP is nothing.
+#define RS_NSTAGES 16
+#if defined(RS_STAGE_CLOCKS) && defined(__CUDACC__)
+static __device__ long long rs_stage_clock[RS_NSTAGES];
+#define RS_STAMP(i)                                                         \
+  do {                                                                      \
+    if (blockIdx.x == 0 && threadIdx.x == 0) rs_stage_clock[i] = clock64(); \
+  } while (0)
+#else
+#define RS_STAMP(i) ((void)0)
 #endif
 
 // Compile-time maxima; the Python side checks a model against them
@@ -38,11 +112,11 @@ inline float rs_warp_sum(float v) { return v; }
 #define RS_MAXU 16     // actuators
 #define RS_MAXP 32     // candidate pairs
 #define RS_MAXK 96     // contact rows (points)
-#define RS_MAXNTOT (3 * RS_MAXK)
+#define RS_MAXP1 33    // RS_MAXP + 1: a prefix table over the pairs
+#define RS_MAXCT 800   // RS_MAXP * 25: narrowphase candidates, all pairs
 #define RS_MAXA 8      // arm dofs
 #define RS_MAXGR 4     // gripper actuators
-#define RS_MAXCAND 25  // narrowphase candidates per pair (box-box)
-#define RS_THREADS 128 // threads per block (one block per scenario)
+#define RS_MAXWARPS 4  // scenarios (warps) per block
 
 // Joint types (MuJoCo enum order) and narrowphase pair kinds.
 #define RS_FREE 0
@@ -93,6 +167,8 @@ struct RsTables {
   float pair_friction[RS_MAXP], pair_solref[RS_MAXP][2], pair_solimp[RS_MAXP][5], pair_margin[RS_MAXP];
   int row_pair[RS_MAXK];
   int pair_k[RS_MAXP];  // the pair's index in the model's pair list
+  int pair_cand[RS_MAXP1], ncand;  // each pair's first candidate in the flat list, and their count
+  int cand_pi[RS_MAXCT];  // the candidates grouped by code path, each as 32 pair + its index in the pair
 
   // the arm's controller and the gripper actuators (fused substep): the
   // torque law, its flags, and the row strides of its goal / gains inputs
@@ -101,6 +177,21 @@ struct RsTables {
   int arm_qv[RS_MAXA], arm_qp[RS_MAXA], arm_act[RS_MAXA];
   float torque_lo[RS_MAXA], torque_hi[RS_MAXA], initial_joint[RS_MAXA];
   int grip_act[RS_MAXGR];
+};
+
+// Carves consecutive regions out of one scenario's shared memory, in
+// 4-byte words; with a null base it only counts them (the size a launch
+// asks for). ops/tables.py smem_words mirrors every carve.
+struct Carver {
+  float* base;
+  int w;
+  RS_HD float* take(int words, int align = 1) {
+    w = (w + align - 1) / align * align;
+    float* p = base ? base + w : nullptr;
+    w += words;
+    return p;
+  }
+  RS_HD double* take_d(int n) { return reinterpret_cast<double*>(take(2 * n, 2)); }
 };
 
 // ---- small vector algebra ------------------------------------------------
@@ -145,38 +236,64 @@ RS_DEV void quat2mat(const float* q, float* m) {
 RS_DEV float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
 RS_DEV float signf(float x) { return (float)((x > 0.0f) - (x < 0.0f)); }
 
-// Sum of v over the block, returned to every thread. `red` holds one float
-// per warp; the leading barrier guards it against the previous call.
-RS_DEV float block_sum(float v, float* red) {
-  v = rs_warp_sum(v);
-  int lane = rs_tid() & 31, warp = rs_tid() >> 5, nw = (rs_nthreads() + 31) >> 5;
-  RS_SYNC();
-  if (lane == 0) red[warp] = v;
-  RS_SYNC();
-  float s = 0.0f;
-  for (int i = 0; i < nw; ++i) s += red[i];
-  return s;
-}
+// ---- small dense factorisations over a team (double precision) ------------
 
-// ---- small dense factorisations (one thread, double precision) -----------
-
-// Lower Cholesky factor, pivots floored at 1e-12 (ops/linalg.chol_factor).
-RS_DEV void chol_d(const double* A, double* L, int n, int lda) {
+// Lower Cholesky factor in place: L holds A's lower triangle on entry (row
+// stride ld), pivots floored at 1e-12 (ops/linalg.chol_factor). Column by
+// column; each lane takes rows, its dot product as four independent sums
+// added in a fixed order. The upper triangle is neither read nor written.
+template <class Team>
+RS_DEV void chol_team(const Team& tm, double* L, int n, int ld) {
   for (int j = 0; j < n; ++j) {
-    double s = A[j * lda + j];
-    for (int k = 0; k < j; ++k) s -= L[j * lda + k] * L[j * lda + k];
-    double d = sqrt(fmax(s, 1e-12));
-    L[j * lda + j] = d;
-    for (int i = j + 1; i < n; ++i) {
-      double t = A[i * lda + j];
-      for (int k = 0; k < j; ++k) t -= L[i * lda + k] * L[j * lda + k];
-      L[i * lda + j] = t / d;
+    const double* Lj = L + j * ld;
+    for (int i = j + tm.rank(); i < n; i += tm.size()) {
+      const double* Li = L + i * ld;
+      double t[4] = {Li[j], 0.0, 0.0, 0.0};
+      int k = 0;
+      for (; k + 4 <= j; k += 4)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) t[u] -= Li[k + u] * Lj[k + u];
+      for (; k < j; ++k) t[0] -= Li[k] * Lj[k];
+      const double d = (t[0] + t[1]) + (t[2] + t[3]);
+      L[i * ld + j] = i == j ? sqrt(fmax(d, 1e-12)) : d;
     }
-    for (int i = 0; i < j; ++i) L[i * lda + j] = 0.0;
+    tm.sync();
+    const double d = L[j * ld + j];
+    for (int i = j + 1 + tm.rank(); i < n; i += tm.size()) L[i * ld + j] /= d;
+    tm.sync();
   }
 }
 
-// Solve L L^T x = b in place.
+// Solve L x = b in place (b in shared memory), column by column: each
+// step divides one entry and the lanes update the rows below. Ends
+// synchronised.
+template <class Team>
+RS_DEV void fwd_solve_team(const Team& tm, const double* L, double* b, int n, int ld) {
+  for (int k = 0; k < n; ++k) {
+    const double bk = b[k] / L[k * ld + k];
+    for (int i = k + 1 + tm.rank(); i < n; i += tm.size()) b[i] -= L[i * ld + k] * bk;
+    tm.sync();
+  }
+  for (int i = tm.rank(); i < n; i += tm.size()) b[i] /= L[i * ld + i];
+  tm.sync();
+}
+
+// Solve L L^T x = b in place: fwd_solve_team, then the back substitution
+// column by column (the lanes update the rows above). Ends synchronised.
+template <class Team>
+RS_DEV void chol_solve_team(const Team& tm, const double* L, double* b, int n, int ld) {
+  fwd_solve_team(tm, L, b, n, ld);
+  for (int k = n - 1; k >= 0; --k) {
+    const double bk = b[k] / L[k * ld + k];
+    for (int i = tm.rank(); i < k; i += tm.size()) b[i] -= L[k * ld + i] * bk;
+    tm.sync();
+  }
+  for (int i = tm.rank(); i < n; i += tm.size()) b[i] /= L[i * ld + i];
+  tm.sync();
+}
+
+// The same solve on one lane, for a right-hand side the lane owns alone
+// (the columns of an inverse, one lane each).
 RS_DEV void chol_solve_d(const double* L, double* b, int n, int lda) {
   for (int i = 0; i < n; ++i) {
     double s = b[i];

@@ -1,32 +1,57 @@
 // K2: batched constrained velocity update (smooth solve + cone QP by APGD
-// + implicit-damping solve), one thread block per scenario.
+// + implicit-damping solve), one warp per scenario.
 //
 // Replaces robosuite_tpu/ops/pallas_contact.py _pallas_solver (body
-// constrained_vel_lanes). What bounds it on this card: operations and
-// their latency, not bytes. The operands are read once (about 15 KB per
-// scenario at nv = 15, 198 rows) but 39 matvecs Y^T (Y x) re-read the
-// 12 KB whitened operator: about 0.6 MFLOP per scenario, with barriers and
-// a cross-warp reduction in every matvec. The design keeps Y and all row
-// vectors in shared memory for the whole solve (no device-memory traffic
-// between iterations) and spreads the rows over 128 threads.
+// constrained_vel_lanes). What bounds it on this card: the latency of its
+// dependent stages, not bytes or operations. The operands are read once
+// (about 15 KB per scenario at nv = 15, 198 rows), and the 41 products
+// with the whitened operator touch only the few active rows' columns. The
+// design runs each scenario on one warp (contact_solve.cuh
+// contact_solve_team, the same code K3 runs), S scenarios a block, keeps
+// M, Y and all row vectors in the scenario's dynamic shared memory, sized
+// by nv and the rows, for the whole solve (no device-memory traffic
+// between iterations).
 #include "contact_solve.cuh"
 
-__global__ void __launch_bounds__(RS_THREADS) rs_contact_solve_kernel(
-    int nv, int K, int iters, int power_iters, float dt, const float* M, const float* JfT, const float* aref,
-    const float* qfrc, const float* qvel, const float* damping, const float* reg3, const float* mu,
-    const float* active, float* qvel_out, float* f_out) {
-  __shared__ SolveShared s;
-  __shared__ float Msh[RS_MAXV * RS_MAXV];
-  contact_solve_body(s, Msh, blockIdx.x, nv, K, iters, power_iters, dt, M, JfT, aref, qfrc, qvel, damping, reg3,
+// Shared memory of one K2 scenario, in words, rounded to 4.
+static int solve_words(int nv, int K) {
+  Carver c{nullptr, 0};
+  float* M;
+  Solve s;
+  carve_k2(nv, K, c, M, s);
+  return (c.w + 3) / 4 * 4;
+}
+
+__global__ void __launch_bounds__(RS_MAXWARPS * 32) rs_contact_solve_kernel(
+    int words, int B, int nv, int K, int iters, int power_iters, float dt, const float* M, const float* JfT,
+    const float* aref, const float* qfrc, const float* qvel, const float* damping, const float* reg3,
+    const float* mu, const float* active, float* qvel_out, float* f_out) {
+  extern __shared__ __align__(16) float rs_smem[];
+  const int warp = threadIdx.x >> 5, b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;
+  Carver c{rs_smem + (size_t)warp * words, 0};
+  float* Msh;
+  Solve s;
+  carve_k2(nv, K, c, Msh, s);
+  contact_solve_body(WarpTeam(), s, Msh, b, nv, K, iters, power_iters, dt, M, JfT, aref, qfrc, qvel, damping, reg3,
                      mu, active, qvel_out, f_out);
 }
 
 extern "C" int rs_contact_solve(const float* M, const float* JfT, const float* aref, const float* qfrc,
                                 const float* qvel, const float* damping, const float* reg3, const float* mu,
                                 const float* active, float* qvel_out, float* f_out, int B, int nv, int K, int iters,
-                                int power_iters, float dt, void* stream) {
-  if (nv > RS_MAXV || K > RS_MAXK) return -1;
-  rs_contact_solve_kernel<<<B, RS_THREADS, 0, (cudaStream_t)stream>>>(
-      nv, K, iters, power_iters, dt, M, JfT, aref, qfrc, qvel, damping, reg3, mu, active, qvel_out, f_out);
+                                int power_iters, float dt, int S, void* stream) {
+  if (nv > RS_MAXV || K > RS_MAXK || S < 1 || S > RS_MAXWARPS) return (int)cudaErrorInvalidValue;
+  const int words = solve_words(nv, K);
+  const size_t bytes = (size_t)S * words * 4;
+  static size_t opted = 48 * 1024;
+  if (bytes > opted) {
+    cudaError_t err =
+        cudaFuncSetAttribute(rs_contact_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    opted = bytes;
+  }
+  rs_contact_solve_kernel<<<(B + S - 1) / S, 32 * S, bytes, (cudaStream_t)stream>>>(
+      words, B, nv, K, iters, power_iters, dt, M, JfT, aref, qfrc, qvel, damping, reg3, mu, active, qvel_out, f_out);
   return (int)cudaGetLastError();
 }

@@ -1,28 +1,49 @@
-// Forward products of one scenario, as a block function: FK poses, per-dof
+// Forward products of one scenario, as a team function: FK poses, per-dof
 // motion subspace, CRBA mass matrix (with armature) and RNEA bias.
 //
 // Replaces the forward-products body of the TPU kernels
 // (robosuite_tpu/ops/pallas_forward.py forward_lane_body), computing what
 // the plain version computes (physics/kinematics.fk, dynamics.crba,
-// dynamics.rnea_bias). The tree walk is serial (one thread); the per-body
-// and per-dof stages spread over the block. Sums over bodies accumulate in
-// double: the centroid-referenced RNEA terms cancel, and a float left fold
-// over 26 bodies loses digits the plain version's pairwise sums keep.
+// dynamics.rnea_bias). The tree walk is serial (one lane: each body needs
+// its parent's pose); the per-body and per-dof stages spread over the
+// team's lanes. Sums over bodies accumulate in double: the
+// centroid-referenced RNEA terms cancel, and a float left fold over 26
+// bodies loses digits the plain version's pairwise sums keep.
 #pragma once
 
 #include "common.cuh"
 
-struct FwdShared {
-  float q[RS_MAXQ], qd[RS_MAXV];
-  float mass[RS_MAXB], inertia[RS_MAXB][3], grav[3], arma[RS_MAXV];
-  float xpos[RS_MAXB][3], xquat[RS_MAXB][4], xmat[RS_MAXB][9], xipos[RS_MAXB][3], ximat[RS_MAXB][9];
-  float sa[RS_MAXV][3], sl[RS_MAXV][3];
-  float M[RS_MAXV][RS_MAXV], bias[RS_MAXV];
-  // CRBA / RNEA scratch
-  float Fang[RS_MAXV][3], Flin[RS_MAXV][3];
-  float o[3], sdl[RS_MAXV][3], sdota[RS_MAXV][3], sdotl[RS_MAXV][3];
-  float vang[RS_MAXB][3], vlin[RS_MAXB][3], fang[RS_MAXB][3], flin[RS_MAXB][3];
+// One scenario's forward-pass arrays in shared memory (M row-major, row
+// stride nv), and the CRBA/RNEA scratch, which is dead once the forward
+// pass ends.
+struct Fwd {
+  float *q, *qd, *arma, *mass, (*inertia)[3], *grav;
+  float (*xpos)[3], (*xquat)[4], (*xmat)[9], (*xipos)[3], (*ximat)[9];
+  float (*sa)[3], (*sl)[3], *M, *bias;
+  float (*Fang)[3], (*Flin)[3], (*sdl)[3], (*sdota)[3], (*sdotl)[3];
+  float (*vang)[3], (*vlin)[3], (*fang)[3], (*flin)[3];
 };
+
+template <int N>
+RS_HD float (*take3(Carver& c, int n))[N] {
+  return reinterpret_cast<float(*)[N]>(c.take(N * n));
+}
+
+RS_HD void carve_fwd(const RsTables& T, Carver& c, Fwd& f) {
+  const int nq = T.nq, nv = T.nv, nb = T.nbody;
+  f.q = c.take(nq); f.qd = c.take(nv); f.arma = c.take(nv); f.mass = c.take(nb);
+  f.inertia = take3<3>(c, nb); f.grav = c.take(4);
+  f.xpos = take3<3>(c, nb); f.xquat = take3<4>(c, nb); f.xmat = take3<9>(c, nb);
+  f.xipos = take3<3>(c, nb); f.ximat = take3<9>(c, nb);
+  f.sa = take3<3>(c, nv); f.sl = take3<3>(c, nv); f.M = c.take(nv * nv); f.bias = c.take(nv);
+}
+
+RS_HD void carve_rnea(const RsTables& T, Carver& c, Fwd& f) {
+  const int nv = T.nv, nb = T.nbody;
+  f.Fang = take3<3>(c, nv); f.Flin = take3<3>(c, nv); f.sdl = take3<3>(c, nv);
+  f.sdota = take3<3>(c, nv); f.sdotl = take3<3>(c, nv);
+  f.vang = take3<3>(c, nb); f.vlin = take3<3>(c, nb); f.fang = take3<3>(c, nb); f.flin = take3<3>(c, nb);
+}
 
 // Serial tree walk over q (kinematics.fk): body poses into (xpos, xquat)
 // and, with SUB, the per-dof motion subspace into (sa, sl). One thread.
@@ -117,7 +138,7 @@ RS_DEV void fk_walk(const RsTables& T, const float* q, float (*xpos)[3], float (
   }
 }
 
-RS_DEV void fk_tree(const RsTables& T, FwdShared& s) { fk_walk<true>(T, s.q, s.xpos, s.xquat, s.sa, s.sl); }
+RS_DEV void fk_tree(const RsTables& T, const Fwd& s) { fk_walk<true>(T, s.q, s.xpos, s.xquat, s.sa, s.sl); }
 
 RS_DEV void fk_pose(const RsTables& T, const float* q, float (*xpos)[3], float (*xquat)[4]) {
   fk_walk<false>(T, q, xpos, xquat, nullptr, nullptr);
@@ -125,7 +146,7 @@ RS_DEV void fk_pose(const RsTables& T, const float* q, float (*xpos)[3], float (
 
 // Pose of a frame attached to body b at (lpos, lquat): world position from
 // the body's rotation matrix, world rotation from the quaternion product.
-RS_DEV void frame_pose(const FwdShared& s, int b, const float* lpos, const float* lquat, float* pos, float* mat) {
+RS_DEV void frame_pose(const Fwd& s, int b, const float* lpos, const float* lquat, float* pos, float* mat) {
   const float* R = s.xmat[b];
   for (int i = 0; i < 3; ++i)
     pos[i] = s.xpos[b][i] + (R[i * 3 + 0] * lpos[0] + R[i * 3 + 1] * lpos[1] + R[i * 3 + 2] * lpos[2]);
@@ -135,7 +156,7 @@ RS_DEV void frame_pose(const FwdShared& s, int b, const float* lpos, const float
 }
 
 // I_C x with I_C = R diag(I) R^T (inertia about the COM, world frame)
-RS_DEV void inertia_mul(const FwdShared& s, int b, const double* x, double* out) {
+RS_DEV void inertia_mul(const Fwd& s, int b, const double* x, double* out) {
   const float* R = s.ximat[b];
   double l[3];
   for (int k = 0; k < 3; ++k)
@@ -151,12 +172,14 @@ RS_DEV void d3_cross(const double* a, const double* b, double* o) {
 }
 
 // The whole forward pass. Expects s.q, s.qd, s.mass, s.inertia, s.grav,
-// s.arma loaded and a barrier passed; ends with a barrier.
-RS_DEV void forward_block(const RsTables& T, FwdShared& s) {
-  const int tid = rs_tid(), nt = rs_nthreads();
+// s.arma loaded and the team synchronised; ends synchronised.
+template <class Team>
+RS_DEV void forward_team(const Team& tm, const RsTables& T, const Fwd& s) {
+  const int tid = tm.rank(), nt = tm.size();
   const int nb = T.nbody, nv = T.nv;
   if (tid == 0) fk_tree(T, s);
-  RS_SYNC();
+  tm.sync();
+  RS_STAMP(2);
   for (int b = tid; b < nb; b += nt) {
     quat2mat(s.xquat[b], s.xmat[b]);
     const float* R = s.xmat[b];
@@ -167,7 +190,8 @@ RS_DEV void forward_block(const RsTables& T, FwdShared& s) {
     quat_mul(s.xquat[b], T.body_iquat[b], qi);
     quat2mat(qi, s.ximat[b]);
   }
-  RS_SYNC();
+  tm.sync();
+  RS_STAMP(3);
 
   // ---- CRBA: composite momentum of every dof's subtree, column-anchored
   for (int d = tid; d < nv; d += nt) {
@@ -189,16 +213,18 @@ RS_DEV void forward_block(const RsTables& T, FwdShared& s) {
     }
     for (int i = 0; i < 3; ++i) { s.Fang[d][i] = (float)Fa[i]; s.Flin[d][i] = (float)Fl[i]; }
   }
-  // ---- RNEA (a): mass centroid
-  if (tid == 0) {
+  // ---- RNEA (a): mass centroid, on every lane (a short sum kept in registers)
+  float o[3];
+  {
     double ms = 0, mo[3] = {0, 0, 0};
     for (int b = 0; b < nb; ++b) {
       ms += s.mass[b];
       for (int i = 0; i < 3; ++i) mo[i] += (double)s.mass[b] * s.xipos[b][i];
     }
-    for (int i = 0; i < 3; ++i) s.o[i] = (float)(mo[i] / ms);
+    for (int i = 0; i < 3; ++i) o[i] = (float)(mo[i] / ms);
   }
-  RS_SYNC();
+  tm.sync();
+  RS_STAMP(4);
 
   // M[e][d] = ang_e . F_ang_d + lin_e(p_d) . F_lin_d where e moves body(d);
   // the symmetric entry otherwise; armature on the diagonal.
@@ -219,14 +245,14 @@ RS_DEV void forward_block(const RsTables& T, FwdShared& s) {
       }
     }
     if (e == d) v += s.arma[d];
-    s.M[e][d] = (float)v;
+    s.M[e * nv + d] = (float)v;
   }
   // ---- RNEA (b): centroid-referenced linear subspace
   for (int d = tid; d < nv; d += nt) {
-    v3_cross(s.sa[d], s.o, s.sdl[d]);
+    v3_cross(s.sa[d], o, s.sdl[d]);
     for (int i = 0; i < 3; ++i) s.sdl[d][i] += s.sl[d][i];
   }
-  RS_SYNC();
+  tm.sync();
   // (c) body velocities
   for (int b = tid; b < nb; b += nt) {
     double va[3] = {0, 0, 0}, vl[3] = {0, 0, 0};
@@ -236,7 +262,7 @@ RS_DEV void forward_block(const RsTables& T, FwdShared& s) {
     }
     for (int i = 0; i < 3; ++i) { s.vang[b][i] = (float)va[i]; s.vlin[b][i] = (float)vl[i]; }
   }
-  RS_SYNC();
+  tm.sync();
   // (d) motion-subspace rates; world-fixed free translation axes have none
   for (int d = tid; d < nv; d += nt) {
     int bd = T.dof_bodyid[d];
@@ -250,7 +276,7 @@ RS_DEV void forward_block(const RsTables& T, FwdShared& s) {
     v3_cross(s.vlin[bd], s.sa[d], t2);
     for (int i = 0; i < 3; ++i) s.sdotl[d][i] = t1[i] + t2[i];
   }
-  RS_SYNC();
+  tm.sync();
   // (e) per-body force f = I a + v x* (I v), about the centroid
   for (int b = tid; b < nb; b += nt) {
     double aa[3] = {0, 0, 0}, al[3] = {0, 0, 0};
@@ -261,7 +287,7 @@ RS_DEV void forward_block(const RsTables& T, FwdShared& s) {
     for (int i = 0; i < 3; ++i) al[i] -= s.grav[i];
     double m = s.mass[b], c[3], h[3], va[3], vl[3];
     for (int i = 0; i < 3; ++i) {
-      c[i] = (double)s.xipos[b][i] - s.o[i];
+      c[i] = (double)s.xipos[b][i] - o[i];
       h[i] = m * c[i];
       va[i] = s.vang[b][i];
       vl[i] = s.vlin[b][i];
@@ -291,7 +317,7 @@ RS_DEV void forward_block(const RsTables& T, FwdShared& s) {
       s.flin[b][i] = (float)(Ia_l[i] + t3[i]);
     }
   }
-  RS_SYNC();
+  tm.sync();
   // (f) subtree force sums projected on the subspace
   for (int d = tid; d < nv; d += nt) {
     int bd = T.dof_bodyid[d];
@@ -304,16 +330,18 @@ RS_DEV void forward_block(const RsTables& T, FwdShared& s) {
     for (int i = 0; i < 3; ++i) v += s.sa[d][i] * fa[i] + s.sdl[d][i] * fl[i];
     s.bias[d] = (float)v;
   }
-  RS_SYNC();
+  tm.sync();
+  RS_STAMP(5);
 }
 
 // K1: one scenario's forward products from global inputs to global outputs.
-RS_DEV void forward_body(const RsTables& T, FwdShared& s, int b, const float* qpos, const float* qvel,
+template <class Team>
+RS_DEV void forward_body(const Team& tm, const RsTables& T, const Fwd& s, int b, const float* qpos, const float* qvel,
                          const float* mass, const float* inertia, const float* gravity, const float* armature,
                          float* xpos, float* xquat, float* xmat, float* gxpos, float* gxmat, float* sxpos,
                          float* sxmat, float* sdof_ang, float* sdof_lin, float* M, float* bias, float* xipos,
                          float* ximat) {
-  const int tid = rs_tid(), nt = rs_nthreads();
+  const int tid = tm.rank(), nt = tm.size();
   const int nq = T.nq, nv = T.nv, nb = T.nbody, ng = T.ngeom, ns = T.nsite;
   for (int i = tid; i < nq; i += nt) s.q[i] = qpos[(size_t)b * nq + i];
   for (int i = tid; i < nv; i += nt) { s.qd[i] = qvel[(size_t)b * nv + i]; s.arma[i] = armature[(size_t)b * nv + i]; }
@@ -322,8 +350,8 @@ RS_DEV void forward_body(const RsTables& T, FwdShared& s, int b, const float* qp
     for (int k = 0; k < 3; ++k) s.inertia[i][k] = inertia[((size_t)b * nb + i) * 3 + k];
   }
   for (int i = tid; i < 3; i += nt) s.grav[i] = gravity[(size_t)b * 3 + i];
-  RS_SYNC();
-  forward_block(T, s);
+  tm.sync();
+  forward_team(tm, T, s);
   for (int i = tid; i < nb; i += nt) {
     size_t o = (size_t)b * nb + i;
     for (int k = 0; k < 3; ++k) {
@@ -352,7 +380,7 @@ RS_DEV void forward_body(const RsTables& T, FwdShared& s, int b, const float* qp
     }
     bias[o] = s.bias[d];
   }
-  for (int i = tid; i < nv * nv; i += nt) M[(size_t)b * nv * nv + i] = s.M[i / nv][i % nv];
+  for (int i = tid; i < nv * nv; i += nt) M[(size_t)b * nv * nv + i] = s.M[i];
 }
 
 // K4: one scenario's pose-only FK, on one thread, in its own (local) arrays.

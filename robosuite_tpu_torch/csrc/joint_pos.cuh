@@ -1,5 +1,5 @@
-// JOINT_POSITION torque law for one scenario (one thread, float32 as the
-// plain version): controllers/parts/joint_pos.py run (robosuite
+// JOINT_POSITION torque law for one scenario (one lane per arm joint,
+// float32 as the plain version): controllers/parts/joint_pos.py run (robosuite
 // joint_pos.py:233-272), then the torque clip.
 //   goal  = goal_qpos (na)
 //   gains = [kp (na), kd (na)]
@@ -13,20 +13,24 @@
 
 #include "forward.cuh"
 
-RS_DEV void joint_pos_torques(const RsTables& T, const FwdShared& s, const float* goal, const float* gains,
-                              float* tau) {
-  const int na = T.na;
+template <class Team>
+RS_DEV void joint_pos_team(const Team& tm, const RsTables& T, const Fwd& s, const float* goal, const float* gains,
+                           float* tau) {
+  const int na = T.na, nv = T.nv;
   const bool shaped = T.torque_comp && !T.raw_pd;
-  float des[RS_MAXA];
-  for (int i = 0; i < na; ++i)
-    des[i] = (goal[i] - s.q[T.arm_qp[i]]) * gains[i] - s.qd[T.arm_qv[i]] * gains[na + i];
-  for (int i = 0; i < na; ++i) {
-    float v = des[i];
+  for (int i = tm.rank(); i < na; i += tm.size()) {
+    float v;
     if (shaped) {
       v = 0.0f;
-      for (int j = 0; j < na; ++j) v += s.M[T.arm_qv[i]][T.arm_qv[j]] * des[j];
+      for (int j = 0; j < na; ++j) {
+        float des = (goal[j] - s.q[T.arm_qp[j]]) * gains[j] - s.qd[T.arm_qv[j]] * gains[na + j];
+        v += s.M[T.arm_qv[i] * nv + T.arm_qv[j]] * des;
+      }
+    } else {
+      v = (goal[i] - s.q[T.arm_qp[i]]) * gains[i] - s.qd[T.arm_qv[i]] * gains[na + i];
     }
     if (T.torque_comp) v += s.bias[T.arm_qv[i]];
     tau[i] = clampf(v, T.torque_lo[i], T.torque_hi[i]);
   }
+  tm.sync();
 }

@@ -1,27 +1,29 @@
-// Narrowphase of one candidate pair (one thread per pair): candidate
-// points, the manifold cut to the pair's deepest points, and the contact
-// frame of each kept point.
+// Narrowphase of one scenario over its team: every candidate point of
+// every pair, the manifold cut to each pair's deepest points, and, per kept
+// row, the candidate's point and normal.
 //
 // The formulas are physics/contact.py's (the JAX package's lane formulas,
 // robosuite_tpu/ops/pallas_substep.py _np_plane_box, _np_capsule_box,
-// _np_box_box, _np_box_box_edges), including their floors. The cut is a
-// tournament that keeps the earliest candidate on ties, the order
-// contact.select_deepest (a stable sort) gives: a different tie rule would
-// put other points in a row and change f row by row.
+// _np_box_box, _np_box_box_edges), including their floors. Lanes go over
+// every (pair, candidate), grouped by the branch that computes it
+// (ops/tables.py cand_pi): each lane computes one candidate's depth on its
+// own, into the flat pair-major list (pair_cand). A box-box pair emits an
+// edge-cross candidate only where its separation is within 1e-9 of the
+// pair's best edge and beats every face separation (max_face). The cut is
+// the team argmin, repeated per kept row, which keeps the earliest
+// candidate on ties, the order contact.select_deepest (a stable sort)
+// gives: a different tie rule would put other points in a row and change
+// f row by row. Only depths are stored; a kept row's point and normal are
+// computed again from its candidate index where the row is assembled.
 #pragma once
 
 #include "forward.cuh"
 
 #define RS_BIG 1e4f
+#define RS_PF 25  // a pair's frame: p1, R1, p2, R2, and the box-box max_face
 
-struct RowShared {
-  float dist[RS_MAXK], pos[RS_MAXK][3], frame[RS_MAXK][9];  // frame rows: normal, t1, t2
-};
-
-struct Cands {
-  int n;
-  float d[RS_MAXCAND], p[RS_MAXCAND][3], nrm[RS_MAXCAND][3];
-};
+// Candidates per pair kind (plane-box, capsule-box, box-box).
+RS_DEV int pair_ncand(int kind) { return kind == RS_PAIR_PLANE_BOX ? 8 : kind == RS_PAIR_CAPSULE_BOX ? 2 : 25; }
 
 RS_DEV void mat_vec(const float* R, const float* v, float* o) {
   for (int i = 0; i < 3; ++i) o[i] = R[i * 3 + 0] * v[0] + R[i * 3 + 1] * v[1] + R[i * 3 + 2] * v[2];
@@ -36,12 +38,6 @@ RS_DEV void mat_col(const float* R, int i, float* o) {
 }
 
 RS_DEV float norm3(const float* v) { return sqrtf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]); }
-
-RS_DEV void push(Cands& c, float d, const float* p, const float* n) {
-  c.d[c.n] = d;
-  for (int i = 0; i < 3; ++i) { c.p[c.n][i] = p[i]; c.nrm[c.n][i] = n[i]; }
-  c.n++;
-}
 
 // Signed distance from the box surface to a local point, outward local
 // normal; inside, a softmax blend (2 mm) of the face normals.
@@ -69,38 +65,10 @@ RS_DEV void corner(int c, const float* s, float* off) {
   off[2] = (c & 1 ? 1.0f : -1.0f) * s[2];
 }
 
-RS_DEV void np_plane_box(const float* p1, const float* R1, const float* p2, const float* R2, const float* s2, Cands& c) {
-  float n[3], off[3], t[3], pt[3], pos[3];
-  mat_col(R1, 2, n);
-  for (int k = 0; k < 8; ++k) {
-    corner(k, s2, off);
-    mat_vec(R2, off, t);
-    for (int i = 0; i < 3; ++i) { pt[i] = p2[i] + t[i]; t[i] = pt[i] - p1[i]; }
-    float d = v3_dot(t, n);
-    for (int i = 0; i < 3; ++i) pos[i] = pt[i] - 0.5f * d * n[i];
-    push(c, d, pos, n);
-  }
-}
-
-RS_DEV void np_capsule_box(const float* p1, const float* R1, const float* s1, const float* p2, const float* R2,
-                           const float* s2, Cands& c) {
-  float ax[3], e[3], t[3], pl[3], nl[3], nw[3], pos[3];
-  mat_col(R1, 2, ax);
-  for (int k = 0; k < 2; ++k) {
-    float sgn = k == 0 ? -1.0f : 1.0f;
-    for (int i = 0; i < 3; ++i) { e[i] = p1[i] + (sgn * s1[1]) * ax[i]; t[i] = e[i] - p2[i]; }
-    matT_vec(R2, t, pl);
-    float ds = point_box(pl, s2, nl);
-    mat_vec(R2, nl, nw);
-    for (int i = 0; i < 3; ++i) nw[i] = -nw[i];
-    float d = ds - s1[0];
-    for (int i = 0; i < 3; ++i) pos[i] = e[i] + (s1[0] + 0.5f * d) * nw[i];
-    push(c, d, pos, nw);
-  }
-}
-
-RS_DEV void np_box_box_edges(const float* p1, const float* R1, const float* s1, const float* p2, const float* R2,
-                             const float* s2, Cands& c) {
+// The largest face separation of a box-box pair (the SAT face axes of
+// both boxes).
+RS_DEV float box_box_max_face(const float* p1, const float* R1, const float* s1, const float* p2, const float* R2,
+                              const float* s2) {
   float dp[3], A[3][3], Bx[3][3];
   for (int i = 0; i < 3; ++i) dp[i] = p2[i] - p1[i];
   for (int i = 0; i < 3; ++i) { mat_col(R1, i, A[i]); mat_col(R2, i, Bx[i]); }
@@ -116,140 +84,202 @@ RS_DEV void np_box_box_edges(const float* p1, const float* R1, const float* s1, 
       max_face = fmaxf(max_face, fabsf(v3_dot(ax[k], dp)) - hs[k] - proj);
     }
   }
-  float seps[9], poss[9][3], axes[9][3];
-  bool valid[9];
-  float best = -INFINITY;
-  for (int i = 0; i < 3; ++i) {
-    for (int j = 0; j < 3; ++j) {
-      int idx = i * 3 + j;
-      const float* a = A[i];
-      const float* b = Bx[j];
-      float axis[3];
-      v3_cross(a, b, axis);
-      float nrm = norm3(axis);
-      valid[idx] = nrm > 1e-6f;
-      float inv = 1.0f / fmaxf(nrm, 1e-6f);
-      for (int k = 0; k < 3; ++k) axis[k] *= inv;
-      float sgn = v3_dot(axis, dp) < 0.0f ? -1.0f : 1.0f;
-      for (int k = 0; k < 3; ++k) axis[k] *= sgn;
-      float proj1 = 0.0f, proj2 = 0.0f;
-      for (int k = 0; k < 3; ++k) {
-        proj1 += s1[k] * fabsf(v3_dot(axis, A[k]));
-        proj2 += s2[k] * fabsf(v3_dot(axis, Bx[k]));
-      }
-      float sep = v3_dot(axis, dp) - proj1 - proj2;
-      if (!valid[idx]) sep = -INFINITY;
-      seps[idx] = sep;
-      best = fmaxf(best, sep);
-      float c1[3], c2[3];
-      for (int k = 0; k < 3; ++k) { c1[k] = p1[k]; c2[k] = p2[k]; }
-      for (int k = 0; k < 3; ++k) {
-        if (k != i) {
-          float f = signf(v3_dot(axis, A[k])) * s1[k];
-          for (int m = 0; m < 3; ++m) c1[m] += f * A[k][m];
-        }
-        if (k != j) {
-          float f = signf(v3_dot(axis, Bx[k])) * s2[k];
-          for (int m = 0; m < 3; ++m) c2[m] -= f * Bx[k][m];
-        }
-      }
-      float r[3];
-      for (int k = 0; k < 3; ++k) r[k] = c2[k] - c1[k];
-      float ab = v3_dot(a, b);
-      float den = fmaxf(1.0f - ab * ab, 1e-9f);
-      float t1 = clampf((v3_dot(a, r) - ab * v3_dot(b, r)) / den, -s1[i], s1[i]);
-      float t2 = clampf((ab * v3_dot(a, r) - v3_dot(b, r)) / den, -s2[j], s2[j]);
-      for (int k = 0; k < 3; ++k) {
-        poss[idx][k] = 0.5f * ((c1[k] + t1 * a[k]) + (c2[k] + t2 * b[k]));
-        axes[idx][k] = axis[k];
-      }
-    }
-  }
-  for (int idx = 0; idx < 9; ++idx) {
-    bool emit = valid[idx] && (seps[idx] >= best - 1e-9f) && (seps[idx] > max_face);
-    push(c, emit ? seps[idx] : RS_BIG, poss[idx], axes[idx]);
-  }
+  return max_face;
 }
 
-RS_DEV void np_box_box(const float* p1, const float* R1, const float* s1, const float* p2, const float* R2,
-                       const float* s2, Cands& c) {
-  float off[3], t[3], pt[3], pl[3], nl[3], nw[3], pos[3];
-  for (int k = 0; k < 8; ++k) {  // corners of box1 vs box2
-    corner(k, s1, off);
-    mat_vec(R1, off, t);
-    for (int i = 0; i < 3; ++i) { pt[i] = p1[i] + t[i]; t[i] = pt[i] - p2[i]; }
-    matT_vec(R2, t, pl);
-    float d = point_box(pl, s2, nl);
-    mat_vec(R2, nl, nw);
-    for (int i = 0; i < 3; ++i) { nw[i] = -nw[i]; pos[i] = pt[i] + 0.5f * d * nw[i]; }
-    push(c, d, pos, nw);
+// Edge-cross candidate idx = 3 i + j (edge i of box1 x edge j of box2):
+// its separation (-INF where the cross product degenerates), midpoint of
+// the closest points, and axis.
+RS_DEV float box_box_edge(const float* p1, const float* R1, const float* s1, const float* p2, const float* R2,
+                          const float* s2, int idx, float* pos, float* axis) {
+  float dp[3], A[3][3], Bx[3][3];
+  for (int k = 0; k < 3; ++k) dp[k] = p2[k] - p1[k];
+  for (int k = 0; k < 3; ++k) { mat_col(R1, k, A[k]); mat_col(R2, k, Bx[k]); }
+  const int i = idx / 3, j = idx % 3;
+  const float* a = A[i];
+  const float* b = Bx[j];
+  v3_cross(a, b, axis);
+  float nrm = norm3(axis);
+  bool valid = nrm > 1e-6f;
+  float inv = 1.0f / fmaxf(nrm, 1e-6f);
+  for (int k = 0; k < 3; ++k) axis[k] *= inv;
+  float sgn = v3_dot(axis, dp) < 0.0f ? -1.0f : 1.0f;
+  for (int k = 0; k < 3; ++k) axis[k] *= sgn;
+  float proj1 = 0.0f, proj2 = 0.0f;
+  for (int k = 0; k < 3; ++k) {
+    proj1 += s1[k] * fabsf(v3_dot(axis, A[k]));
+    proj2 += s2[k] * fabsf(v3_dot(axis, Bx[k]));
   }
-  for (int k = 0; k < 8; ++k) {  // corners of box2 vs box1 (normal from box1 toward box2)
-    corner(k, s2, off);
+  float sep = v3_dot(axis, dp) - proj1 - proj2;
+  float c1[3], c2[3];
+  for (int k = 0; k < 3; ++k) { c1[k] = p1[k]; c2[k] = p2[k]; }
+  for (int k = 0; k < 3; ++k) {
+    if (k != i) {
+      float f = signf(v3_dot(axis, A[k])) * s1[k];
+      for (int m = 0; m < 3; ++m) c1[m] += f * A[k][m];
+    }
+    if (k != j) {
+      float f = signf(v3_dot(axis, Bx[k])) * s2[k];
+      for (int m = 0; m < 3; ++m) c2[m] -= f * Bx[k][m];
+    }
+  }
+  float r[3];
+  for (int k = 0; k < 3; ++k) r[k] = c2[k] - c1[k];
+  float ab = v3_dot(a, b);
+  float den = fmaxf(1.0f - ab * ab, 1e-9f);
+  float t1 = clampf((v3_dot(a, r) - ab * v3_dot(b, r)) / den, -s1[i], s1[i]);
+  float t2 = clampf((ab * v3_dot(a, r) - v3_dot(b, r)) / den, -s2[j], s2[j]);
+  for (int k = 0; k < 3; ++k) pos[k] = 0.5f * ((c1[k] + t1 * a[k]) + (c2[k] + t2 * b[k]));
+  return valid ? sep : -INFINITY;
+}
+
+// The depth a box-box edge candidate enters the cut with: its separation
+// where emitted, else RS_BIG.
+RS_DEV float edge_depth(float sep, float best, float max_face) {
+  return (sep > -INFINITY && sep >= best - 1e-9f && sep > max_face) ? sep : RS_BIG;
+}
+
+// Candidate i of pair p at the pair's frame pf (normals from geom1 into
+// geom2 in model order): -> its raw depth (a box-box edge: the separation,
+// see edge_depth), its point and normal.
+RS_DEV float candidate(const RsTables& T, const float* pf, int p, int i, float* pos, float* nrm) {
+  const float *p1 = pf, *R1 = pf + 3, *p2 = pf + 12, *R2 = pf + 15;
+  const float *s1 = T.geom_size[T.pair_g1[p]], *s2 = T.geom_size[T.pair_g2[p]];
+  const int kind = T.pair_kind[p];
+  float d, off[3], t[3], pt[3], pl[3], nl[3];
+  if (kind == RS_PAIR_PLANE_BOX) {
+    mat_col(R1, 2, nrm);
+    corner(i, s2, off);
     mat_vec(R2, off, t);
-    for (int i = 0; i < 3; ++i) { pt[i] = p2[i] + t[i]; t[i] = pt[i] - p1[i]; }
-    matT_vec(R1, t, pl);
-    float d = point_box(pl, s1, nl);
-    mat_vec(R1, nl, nw);
-    for (int i = 0; i < 3; ++i) pos[i] = pt[i] + (-0.5f * d) * nw[i];
-    push(c, d, pos, nw);
-  }
-  np_box_box_edges(p1, R1, s1, p2, R2, s2, c);
-}
-
-// Candidates of pair p (normals from geom1 into geom2 in model order).
-RS_DEV void pair_candidates(const RsTables& T, const FwdShared& s, int p, Cands& c) {
-  int g1 = T.pair_g1[p], g2 = T.pair_g2[p];
-  float p1[3], R1[9], p2[3], R2[9];
-  frame_pose(s, T.geom_bodyid[g1], T.geom_pos[g1], T.geom_quat[g1], p1, R1);
-  frame_pose(s, T.geom_bodyid[g2], T.geom_pos[g2], T.geom_quat[g2], p2, R2);
-  c.n = 0;
-  int kind = T.pair_kind[p];
-  if (kind == RS_PAIR_PLANE_BOX) np_plane_box(p1, R1, p2, R2, T.geom_size[g2], c);
-  else if (kind == RS_PAIR_CAPSULE_BOX) np_capsule_box(p1, R1, T.geom_size[g1], p2, R2, T.geom_size[g2], c);
-  else np_box_box(p1, R1, T.geom_size[g1], p2, R2, T.geom_size[g2], c);
-  if (T.pair_flip[p])
-    for (int k = 0; k < c.n; ++k)
-      for (int i = 0; i < 3; ++i) c.nrm[k][i] = -c.nrm[k][i];
-}
-
-// Narrowphase of all pairs into the row buffer; ends with a barrier.
-RS_DEV void narrowphase_block(const RsTables& T, const FwdShared& s, RowShared& rows) {
-  for (int p = rs_tid(); p < T.npair; p += rs_nthreads()) {
-    Cands c;
-    pair_candidates(T, s, p, c);
-    int npts = T.pair_npts[p];
-    uint32_t used = 0;
-    for (int r = 0; r < npts; ++r) {
-      int bi = r;  // passthrough when the pair has no more candidates than rows
-      if (c.n > npts) {
-        float bd = 0.0f;
-        bi = -1;
-        for (int i = 0; i < c.n; ++i) {
-          float de = c.d[i] + (((used >> i) & 1u) ? RS_BIG : 0.0f);
-          if (bi < 0 || de < bd) { bi = i; bd = de; }
-        }
-        used |= 1u << bi;
-      }
-      int row = T.pair_row[p] + r;
-      rows.dist[row] = c.d[bi];
-      float n[3], ref[3], t1[3], t2[3];
-      float nn = fmaxf(norm3(c.nrm[bi]), 1e-9f);
-      for (int i = 0; i < 3; ++i) { n[i] = c.nrm[bi][i] / nn; rows.pos[row][i] = c.p[bi][i]; }
-      bool use_ex = fabsf(n[0]) < 0.5f;
-      ref[0] = use_ex ? 1.0f : 0.0f;
-      ref[1] = use_ex ? 0.0f : 1.0f;
-      ref[2] = 0.0f;
-      v3_cross(n, ref, t1);
-      float tn = fmaxf(norm3(t1), 1e-9f);
-      for (int i = 0; i < 3; ++i) t1[i] /= tn;
-      v3_cross(n, t1, t2);
-      for (int i = 0; i < 3; ++i) {
-        rows.frame[row][i] = n[i];
-        rows.frame[row][3 + i] = t1[i];
-        rows.frame[row][6 + i] = t2[i];
-      }
+    for (int k = 0; k < 3; ++k) { pt[k] = p2[k] + t[k]; t[k] = pt[k] - p1[k]; }
+    d = v3_dot(t, nrm);
+    for (int k = 0; k < 3; ++k) pos[k] = pt[k] - 0.5f * d * nrm[k];
+  } else if (kind == RS_PAIR_CAPSULE_BOX) {
+    float ax[3], e[3];
+    mat_col(R1, 2, ax);
+    float sgn = i == 0 ? -1.0f : 1.0f;
+    for (int k = 0; k < 3; ++k) { e[k] = p1[k] + (sgn * s1[1]) * ax[k]; t[k] = e[k] - p2[k]; }
+    matT_vec(R2, t, pl);
+    float ds = point_box(pl, s2, nl);
+    mat_vec(R2, nl, nrm);
+    for (int k = 0; k < 3; ++k) nrm[k] = -nrm[k];
+    d = ds - s1[0];
+    for (int k = 0; k < 3; ++k) pos[k] = e[k] + (s1[0] + 0.5f * d) * nrm[k];
+  } else if (i < 16) {  // a corner of box1 vs box2 (i < 8), or of box2 vs box1; one code path for both
+    const bool first = i < 8;
+    const float *pa = first ? p1 : p2, *Ra = first ? R1 : R2, *sa = first ? s1 : s2;
+    const float *pb = first ? p2 : p1, *Rb = first ? R2 : R1, *sb = first ? s2 : s1;
+    corner(i & 7, sa, off);
+    mat_vec(Ra, off, t);
+    for (int k = 0; k < 3; ++k) { pt[k] = pa[k] + t[k]; t[k] = pt[k] - pb[k]; }
+    matT_vec(Rb, t, pl);
+    d = point_box(pl, sb, nl);
+    mat_vec(Rb, nl, nrm);
+    // the point moves half the depth against box b's outward normal; the
+    // contact normal points from box1 toward box2
+    for (int k = 0; k < 3; ++k) {
+      pos[k] = pt[k] - 0.5f * d * nrm[k];
+      if (first) nrm[k] = -nrm[k];
     }
+  } else {
+    d = box_box_edge(p1, R1, s1, p2, R2, s2, i - 16, pos, nrm);
   }
-  RS_SYNC();
+  if (T.pair_flip[p])
+    for (int k = 0; k < 3; ++k) nrm[k] = -nrm[k];
+  return d;
+}
+
+// The narrowphase's shared memory: pair frames, candidate depths, and
+// each kept row's candidate and depth.
+struct Narrow {
+  float (*pf)[RS_PF];
+  float* cd;
+  int* row_cand;
+  float* row_dist;
+};
+
+// Pair frames, then every candidate's depth (raw, see candidate); ends
+// synchronised.
+template <class Team>
+RS_DEV void candidates_team(const Team& tm, const RsTables& T, const Fwd& s, const Narrow& nw) {
+  for (int p = tm.rank(); p < T.npair; p += tm.size()) {
+    int g1 = T.pair_g1[p], g2 = T.pair_g2[p];
+    float* f = nw.pf[p];
+    frame_pose(s, T.geom_bodyid[g1], T.geom_pos[g1], T.geom_quat[g1], f, f + 3);
+    frame_pose(s, T.geom_bodyid[g2], T.geom_pos[g2], T.geom_quat[g2], f + 12, f + 15);
+    f[24] = T.pair_kind[p] == RS_PAIR_BOX_BOX ? box_box_max_face(f, f + 3, T.geom_size[g1], f + 12, f + 15,
+                                                                 T.geom_size[g2])
+                                              : 0.0f;
+  }
+  tm.sync();
+  // in the table's path order (cand_pi), so a warp's lanes mostly run one
+  // branch of candidate() at a time; depths land in the flat pair order
+  for (int e = tm.rank(); e < T.ncand; e += tm.size()) {
+    const int p = T.cand_pi[e] >> 5, i = T.cand_pi[e] & 31;
+    float pos[3], nrm[3];
+    nw.cd[T.pair_cand[p] + i] = candidate(T, nw.pf[p], p, i, pos, nrm);
+  }
+  tm.sync();
+}
+
+// The manifold cut of one pair: the npts deepest of its nc candidate
+// depths d, deepest first, the earliest on ties (a kept candidate's depth
+// is raised by RS_BIG, as the tournament does), into cand / dist; a pair
+// with no more candidates than rows passes them through. Ends synchronised.
+template <class Team>
+RS_DEV void cut_team(const Team& tm, float* d, int nc, int npts, int* cand, float* dist) {
+  if (nc <= npts) {
+    for (int r = tm.rank(); r < npts; r += tm.size()) {
+      cand[r] = r;
+      dist[r] = d[r];
+    }
+    tm.sync();
+    return;
+  }
+  for (int r = 0; r < npts; ++r) {
+    const int bi = team_argmin(tm, d, nc);
+    tm.sync();
+    if (tm.rank() == 0) {
+      cand[r] = bi;
+      dist[r] = d[bi];
+      d[bi] += RS_BIG;
+    }
+    tm.sync();
+  }
+}
+
+// The narrowphase into (row_cand, row_dist): candidates, each box-box
+// pair's edge emission (edge_depth), and the cut; ends synchronised.
+template <class Team>
+RS_DEV void narrowphase_team(const Team& tm, const RsTables& T, const Fwd& s, const Narrow& nw) {
+  candidates_team(tm, T, s, nw);
+  for (int p = 0; p < T.npair; ++p) {
+    const int off = T.pair_cand[p], row0 = T.pair_row[p];
+    float* d = nw.cd + off;
+    if (T.pair_kind[p] == RS_PAIR_BOX_BOX) {
+      float best = -INFINITY;
+      for (int i = 16 + tm.rank(); i < 25; i += tm.size()) best = fmaxf(best, d[i]);
+      best = tm.max(best);
+      for (int i = 16 + tm.rank(); i < 25; i += tm.size()) d[i] = edge_depth(d[i], best, nw.pf[p][24]);
+      tm.sync();
+    }
+    cut_team(tm, d, T.pair_cand[p + 1] - off, T.pair_npts[p], nw.row_cand + row0, nw.row_dist + row0);
+  }
+}
+
+// Each pair's minimum candidate depth (the minimum over all candidates is
+// the minimum over the rows the cut keeps, which are the deepest), one lane
+// per pair, into out[pair_k[p]]. Expects candidates_team to have run.
+template <class Team>
+RS_DEV void pair_min_team(const Team& tm, const RsTables& T, const Narrow& nw, float* out) {
+  for (int p = tm.rank(); p < T.npair; p += tm.size()) {
+    const int off = T.pair_cand[p], nc = T.pair_cand[p + 1] - off;
+    const float* d = nw.cd + off;
+    float best = -INFINITY, m = INFINITY;
+    if (T.pair_kind[p] == RS_PAIR_BOX_BOX)
+      for (int i = 16; i < 25; ++i) best = fmaxf(best, d[i]);
+    for (int i = 0; i < nc; ++i)
+      m = fminf(m, T.pair_kind[p] == RS_PAIR_BOX_BOX && i >= 16 ? edge_depth(d[i], best, nw.pf[p][24]) : d[i]);
+    out[T.pair_k[p]] = m;
+  }
 }

@@ -177,10 +177,11 @@ class RobotEnv:
         return qpos
 
     def reset_batch(self, n: int, generator: torch.Generator):
-        """n fresh episodes: -> (EnvState, raw observation dict). Where the
-        env's placement sampler reports validity, the dict carries it as
-        "placement_valid" (n,): False where an object found no free spot
-        (robosuite raises RandomizationError there)."""
+        """n fresh episodes: -> (EnvState, raw observation dict). The dict
+        carries "placement_valid" (n,), as the JAX reset does for every env:
+        False where an object found no free spot (robosuite raises
+        RandomizationError there), all True where the env's sampler reports
+        no validity."""
         qpos = self._initial_qpos(n, generator)
         placement = self._sample_placements(generator, n)
         valid = None
@@ -193,8 +194,8 @@ class RobotEnv:
         ctrl = self.robots[0].init_ctrl_state(kin, M, bias, physics.qpos, physics.qvel)
         state = EnvState(physics=physics, ctrl=ctrl, t=torch.zeros(n, dtype=torch.int32, device=self.device))
         obs = self._get_observations(physics, kin)
-        if valid:
-            obs["placement_valid"] = valid[0].to(self.device)
+        obs["placement_valid"] = (valid[0].to(self.device) if valid
+                                  else torch.ones(n, dtype=torch.bool, device=self.device))
         return state, obs
 
     def state_from_flattened(self, flat):

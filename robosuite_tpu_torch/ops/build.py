@@ -27,14 +27,21 @@ _SOURCES = ("forward.cu", "contact_solve.cu", "substep.cu", "fk.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
           "-Xptxas", "-v")
 
-P = ctypes.c_void_p
+# Scenarios (one warp each) per block of K1, K2 and K3, from the sweep of
+# robosuite_tpu_torch/ab_kernels.py (PERF.md): K3 at one a block packs the
+# most scenarios into an SM's shared memory; K1 runs fastest at two.
+SCENARIOS_PER_BLOCK = {"forward": 2, "contact_solve": 2, "substep": 1}
+
+P, I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "rs_tables_size": [],
-    "rs_forward": [P] * 20 + [ctypes.c_int, P],
-    "rs_contact_solve": [P] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, P],
-    "rs_substep": [P] * 13 + [ctypes.c_int, P],
-    "rs_substep_aux": [P] * 17 + [ctypes.c_int, P],
-    "rs_fk": [P] * 4 + [ctypes.c_int, P],
+    "rs_forward": [P] * 21 + [I, I, P],
+    "rs_contact_solve": [P] * 11 + [I] * 5 + [ctypes.c_float, I, P],
+    "rs_substep": [P] * 14 + [I, I, P],
+    "rs_substep_aux": [P] * 18 + [I, I, P],
+    "rs_substep_smem_bytes": [P],
+    "rs_substep_resident": [P, I, I],
+    "rs_fk": [P] * 4 + [I, P],
 }
 
 
@@ -45,8 +52,8 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit's nvcc")
 
 
-def _digest():
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
+def _digest(flags):
+    h = hashlib.sha256(" ".join(flags).encode())
     for name in sorted(os.listdir(_CSRC)):
         if name.endswith((".cu", ".cuh")):
             with open(os.path.join(_CSRC, name), "rb") as f:
@@ -54,10 +61,12 @@ def _digest():
     return h.hexdigest()[:16]
 
 
-def build() -> str:
-    """Compile the kernels if this source hash has no library yet; returns
-    the library's path."""
-    out_dir = os.path.join(_BUILD, _digest())
+def build(defines=()) -> str:
+    """Compile the kernels if this source hash (and `defines`, extra nvcc
+    -D flags of a diagnostic build) has no library yet; returns the
+    library's path."""
+    flags = (*_FLAGS, *defines)
+    out_dir = os.path.join(_BUILD, _digest(flags))
     lib_path = os.path.join(out_dir, "librs_kernels.so")
     if os.path.exists(lib_path):
         return lib_path
@@ -67,7 +76,7 @@ def build() -> str:
     procs = []
     for src in _SOURCES:
         obj = os.path.join(tmp, src.replace(".cu", ".o"))
-        cmd = [nvcc, *_FLAGS, "-c", os.path.join(_CSRC, src), "-o", obj]
+        cmd = [nvcc, *flags, "-c", os.path.join(_CSRC, src), "-o", obj]
         procs.append((src, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     log = []
     for src, p in procs:
@@ -92,11 +101,17 @@ def build() -> str:
 @functools.cache
 def library():
     """The loaded kernel library (built at first use)."""
+    return load(build())
+
+
+def load(path):
+    """Load a kernel library built by `build`, with its C signatures set
+    and its RsTables layout checked against ops/tables.py."""
     from robosuite_tpu_torch.ops.tables import RsTables
 
     if not torch.cuda.is_available():
         raise RuntimeError("the CUDA kernels need a CUDA device")
-    lib = ctypes.CDLL(build())
+    lib = ctypes.CDLL(path)
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = args

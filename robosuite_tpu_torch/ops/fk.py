@@ -30,7 +30,7 @@ def fk_pose(model, qpos):
     lib = _b.library()
     B = qpos.shape[0]
     _b.require(qpos, (B, model.nq), "qpos")
-    T = model_tables(model)
+    T = model_tables(model)[0]
     xpos = torch.empty(B, model.nbody, 3, dtype=torch.float32, device=qpos.device)
     xquat = torch.empty(B, model.nbody, 4, dtype=torch.float32, device=qpos.device)
     err = lib.rs_fk(_b.ptr(T), _b.ptr(qpos), _b.ptr(xpos), _b.ptr(xquat), B, _b.stream())

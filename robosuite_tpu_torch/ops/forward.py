@@ -27,12 +27,13 @@ def forward_plain(model, qpos, qvel, mass, inertia, gravity, armature):
 
 
 def model_tables(model, arm=None, key=None):
-    """The packed model table on the model's device, cached on the model
-    (per device and `key`, the fused substep's arm spec)."""
+    """(the packed model table on the model's device, its host copy), cached
+    on the model (per device and `key`, the fused substep's arm spec)."""
     cache = model.__dict__.setdefault("_kernel_tables", {})
     k = (str(model.device), key)
     if k not in cache:
-        cache[k] = _tables.pack(model, arm=arm)
+        host = _tables.pack(model, arm=arm, device="cpu")
+        cache[k] = (host.to(model.device), host)
     return cache[k]
 
 
@@ -56,7 +57,7 @@ def forward_products(model, qpos, qvel, mass=None, inertia=None, gravity=None, a
                            (inertia, (B, nb, 3), "inertia"), (gravity, (B, 3), "gravity"),
                            (armature, (B, nv), "armature")):
         _b.require(t, shape, name)
-    T = model_tables(model)
+    T, T_host = model_tables(model)
     out = dict(
         xpos=(B, nb, 3), xquat=(B, nb, 4), xmat=(B, nb, 3, 3), geom_xpos=(B, ng, 3), geom_xmat=(B, ng, 3, 3),
         site_xpos=(B, ns, 3), site_xmat=(B, ns, 3, 3), sdof_ang=(B, nv, 3), sdof_lin=(B, nv, 3),
@@ -64,8 +65,8 @@ def forward_products(model, qpos, qvel, mass=None, inertia=None, gravity=None, a
     )
     o = {k: torch.empty(v, dtype=torch.float32, device=qpos.device) for k, v in out.items()}
     err = lib.rs_forward(
-        _b.ptr(T), *(_b.ptr(t) for t in (qpos, qvel, mass, inertia, gravity, armature)),
-        *(_b.ptr(o[k]) for k in out), B, _b.stream(),
+        _b.ptr(T), _b.ptr(T_host), *(_b.ptr(t) for t in (qpos, qvel, mass, inertia, gravity, armature)),
+        *(_b.ptr(o[k]) for k in out), B, _b.SCENARIOS_PER_BLOCK["forward"], _b.stream(),
     )
     _b.check(err, "rs_forward")
     forward_products.launches += 1

@@ -131,23 +131,37 @@ def make_fused_substep(env, model, emit_aux=False):
                                (gravity, (B, 3), "gravity"), (armature, (B, model.nv), "armature"),
                                (goal, (B, n_goal), "goal"), (gains, (B, n_gains), "gains"), (grip, (B, ng), "grip")):
             _b.require(t, shape, name)
-        T = model_tables(model, arm=spec, key="fused")
+        T, T_host = model_tables(model, arm=spec, key="fused")
         qpos_out, qvel_out = torch.empty_like(qpos), torch.empty_like(qvel)
         f = torch.empty(B, ntot, dtype=qpos.dtype, device=qpos.device)
         ins = (qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip, qpos_out, qvel_out, f)
         if not emit_aux:
-            err = lib.rs_substep(_b.ptr(T), *(_b.ptr(t) for t in ins), B, _b.stream())
+            err = lib.rs_substep(_b.ptr(T), _b.ptr(T_host), *(_b.ptr(t) for t in ins), B,
+                                 _b.SCENARIOS_PER_BLOCK["substep"], _b.stream())
             _b.check(err, "rs_substep")
             make_fused_substep.launches += 1
             return qpos_out, qvel_out, f
         aux = tuple(torch.empty(shape, dtype=qpos.dtype, device=qpos.device) for shape in (
             (B, model.nsite, 3), (B, model.nsite, 3, 3), (B, model.nbody, 3), (B, model.npair)))
-        err = lib.rs_substep_aux(_b.ptr(T), *(_b.ptr(t) for t in ins + aux), B, _b.stream())
+        err = lib.rs_substep_aux(_b.ptr(T), _b.ptr(T_host), *(_b.ptr(t) for t in ins + aux), B,
+                                 _b.SCENARIOS_PER_BLOCK["substep"], _b.stream())
         _b.check(err, "rs_substep_aux")
         make_fused_substep.aux_launches += 1
         return (qpos_out, qvel_out, f) + aux
 
+    fused.model, fused.spec, fused.emit_aux = model, spec, emit_aux
     return fused
+
+
+def resident_per_sm(fused) -> int:
+    """Scenarios resident per SM of a fused wrapper's kernel at its model's
+    carve and the library's scenarios per block (the card's occupancy
+    calculator)."""
+    _, T_host = model_tables(fused.model, arm=fused.spec, key="fused")
+    S = _b.SCENARIOS_PER_BLOCK["substep"]
+    n = _b.library().rs_substep_resident(_b.ptr(T_host), int(fused.emit_aux), S)
+    _b.check(max(0, -n), "rs_substep_resident")
+    return n
 
 
 make_fused_substep.launches = 0

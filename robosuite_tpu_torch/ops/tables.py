@@ -5,7 +5,11 @@ is 4 bytes wide, so neither side pads); the kernel library reports
 sizeof(RsTables) and the loader checks the two agree. A model is checked
 against the compile-time maxima here, before anything is packed, and
 packed once per env into a device byte tensor that every launch gets by
-pointer.
+pointer (and a host copy, from which the launchers size shared memory).
+
+`substep_smem_bytes` mirrors the fused substep's shared-memory carve
+(csrc/substep.cuh carve_substep): the bytes one scenario takes, computed
+from the model's own sizes.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 from robosuite_tpu_torch.models import spec as S
 
 MAXB, MAXJ, MAXQ, MAXV, MAXG, MAXS, MAXU, MAXP, MAXK, MAXA, MAXGR = 32, 16, 24, 24, 96, 16, 16, 32, 96, 8, 4
+MAXCT = 25 * MAXP  # narrowphase candidates, all pairs
 
 _i, _f, _u = ctypes.c_int32, ctypes.c_float, ctypes.c_uint32
 
@@ -56,6 +61,7 @@ class RsTables(ctypes.Structure):
         ("pair_body1", _a(_i, MAXP)), ("pair_body2", _a(_i, MAXP)),
         ("pair_friction", _a(_f, MAXP)), ("pair_solref", _a(_f, MAXP, 2)), ("pair_solimp", _a(_f, MAXP, 5)),
         ("pair_margin", _a(_f, MAXP)), ("row_pair", _a(_i, MAXK)), ("pair_k", _a(_i, MAXP)),
+        ("pair_cand", _a(_i, MAXP + 1)), ("ncand", _i), ("cand_pi", _a(_i, MAXCT)),
         *[(n, _i) for n in ("na", "eef_site", "center_site", "uncouple", "ngrip")],
         *[(n, _i) for n in ("ctrl_type", "torque_comp", "raw_pd", "goal_stride", "gains_stride")],
         ("arm_qv", _a(_i, MAXA)), ("arm_qp", _a(_i, MAXA)), ("arm_act", _a(_i, MAXA)),
@@ -65,6 +71,7 @@ class RsTables(ctypes.Structure):
 
 
 _PAIR_KIND = {(S.PLANE, S.BOX): 0, (S.CYLINDER, S.BOX): 1, (S.BOX, S.BOX): 2}
+_NCAND = {0: 8, 1: 2, 2: 25}  # narrowphase candidates per pair kind (csrc/narrowphase.cuh pair_ncand)
 _ACT_KIND = {"motor": 0, "position": 1, "velocity": 2}
 _CTRL_TYPE = {"osc": 0, "joint_pos": 1}
 
@@ -95,6 +102,12 @@ def check_model(model):
 def pack(model, arm=None, device=None) -> torch.Tensor:
     """The model (and, for the fused substep, the arm's static controller
     data `arm`, a dict) as a uint8 tensor holding one RsTables."""
+    raw = bytes(fill(model, arm))
+    return torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device or model.device)
+
+
+def fill(model, arm=None) -> RsTables:
+    """The RsTables of `model` (and `arm`, see pack)."""
     from robosuite_tpu_torch.physics import contact as C
     from robosuite_tpu_torch.physics import dynamics as D
 
@@ -144,6 +157,7 @@ def pack(model, arm=None, device=None) -> torch.Tensor:
 
     layout = C.contact_row_layout(model)
     i = 0
+    t.pair_cand[0] = 0
     row_pair = np.zeros(MAXK, dtype=np.int32)
     for key, items in sorted(C.pair_groups(model).items()):
         for g1, g2, k, flip in items:
@@ -158,8 +172,16 @@ def pack(model, arm=None, device=None) -> torch.Tensor:
             _set(t.pair_solimp[i], cpu["pair_solimp"][k])
             t.pair_margin[i] = cpu["pair_margin"][k]
             t.pair_k[i] = k
+            t.pair_cand[i + 1] = t.pair_cand[i] + _NCAND[t.pair_kind[i]]
             row_pair[rows] = i
             i += 1
+    t.ncand = t.pair_cand[i]
+    # the candidates grouped by the code path that computes them (stable, so
+    # pair order within a path), so a warp's lanes mostly take one path
+    path = lambda kind, k: kind if kind != 2 else 2 + (k >= 16)  # noqa: E731
+    order = sorted(((p, k) for p in range(i) for k in range(_NCAND[t.pair_kind[p]])),
+                   key=lambda pk: path(t.pair_kind[pk[0]], pk[1]))
+    _set(t.cand_pi, np.array([32 * p + k for p, k in order] + [0] * (MAXCT - len(order)), dtype=np.int32))
     _set(t.row_pair, row_pair)
 
     if arm is not None:
@@ -175,6 +197,39 @@ def pack(model, arm=None, device=None) -> torch.Tensor:
             src = {"arm_qv": "qv_idx", "arm_qp": "qp_idx", "arm_act": "actuator_ids",
                    "grip_act": "grip_actuators"}.get(n, n)
             _set(getattr(t, n), arm[src])
+    return t
 
-    raw = bytes(t)
-    return torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device or model.device)
+
+OSC_WORDS = 952 * 2  # sizeof(OscScratch) / 4 (csrc/osc.cuh): 952 doubles
+PF_WORDS = 25        # a pair frame (csrc/narrowphase.cuh RS_PF)
+
+
+class _Carver:
+    """Counts words as csrc/common.cuh Carver takes them."""
+
+    def __init__(self, w=0):
+        self.w = w
+
+    def take(self, words, align=1):
+        self.w = -(-self.w // align) * align + words
+
+    def take_d(self, n):
+        self.take(2 * n, 2)
+
+
+def substep_smem_bytes(t: RsTables) -> int:
+    """Shared memory of one fused-substep scenario, in bytes, for the packed
+    table t: csrc/substep.cuh carve_substep, region for region."""
+    nq, nv, nb, K = t.nq, t.nv, t.nbody, t.nrows
+    c = _Carver()
+    for words in (nq, nv, nv, nb, 3 * nb, 4, 3 * nb, 4 * nb, 9 * nb, 3 * nb, 9 * nb, 3 * nv, 3 * nv, nv * nv, nv,
+                  t.nu, MAXA, nq, nv, PF_WORDS * t.npair, K, K):
+        c.take(words)
+    for words in (3 * K,) * 5 + (K, K, nv, nv, nv, K):  # carve_solve (rhs on aref, v on y), the active rows
+        c.take(words)
+    for n in (nv * (nv | 1), nv, nv, nv):
+        c.take_d(n)
+    u0 = -(-c.w // 2) * 2
+    union = (15 * nv + 12 * nb, nv * ((3 * K) | 1), t.ncand, OSC_WORDS if t.ctrl_type == _CTRL_TYPE["osc"] else 0)
+    w = u0 + max(union)
+    return 4 * (-(-w // 4) * 4)

@@ -1,14 +1,20 @@
 """The CUDA kernels' arithmetic, checked without a GPU: the device code in
-robosuite_tpu_torch/csrc/*.cuh is written as block functions that also
-compile as plain C++ (one thread per block, csrc/common.cuh), so this test
-builds it with the host C++ compiler, runs K1, K2, K3, K3's emit_aux
-variant and K4 block by block on CPU tensors and holds each against its
+robosuite_tpu_torch/csrc/*.cuh is written as functions over a team of
+lanes that also compile as plain C++ over the one-lane host team
+(csrc/common.cuh HostTeam), so this test builds it with the host C++
+compiler, runs K1, K2, K3, K3's emit_aux variant and K4 scenario by
+scenario on CPU tensors, each scenario in a shared-memory carve of its own, and holds each against its
 plain PyTorch version with the tolerances chip_smoke.py uses on the card;
 on the Lift world (OSC) and on the Stack world (JOINT_POSITION: K2, K3-JP
 and K3-aux-JP at nv 21, 96 rows, which also exercises the kernels'
 compile-time maxima and sizeof(RsTables)).
-Launch configuration, warp shuffles and shared memory are exercised only on
-the card."""
+It also holds the fused substep's carve size (C) to ops/tables.py's mirror,
+and the manifold cut's tie rule to contact.select_deepest; and runs K3 and
+the cut over a team of CPU threads (ThreadTeam below: rank, size, a
+barrier for sync, sums, ballot and argmin through a shared buffer), so the
+lane-strided loops, the active-row compaction and the team argmin run with
+32 lanes as on the card. Launch configuration, warp shuffles and shared
+memory are exercised only on the card."""
 
 import ctypes
 import os
@@ -26,58 +32,181 @@ from robosuite_tpu_torch.physics import engine
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "robosuite_tpu_torch", "csrc")
 
-# The three C entry points of the kernel library, run block by block.
+# The kernel library's C entry points, run scenario by scenario over the
+# one-lane host team, each scenario's shared memory carved as on the card;
+# and two host-only probes: the fused substep's carve size and the manifold
+# cut.
 HARNESS = r"""
 #include "substep.cuh"
+#include <condition_variable>
+#include <mutex>
+#include <thread>
+#include <vector>
 extern "C" int rs_tables_size() { return (int)sizeof(RsTables); }
-extern "C" int rs_forward(const void* T, const float* qpos, const float* qvel, const float* mass,
+static float* scratch(std::vector<double>& buf, int words) {
+  buf.assign(words / 2 + 2, 0.0);
+  return reinterpret_cast<float*>(buf.data());
+}
+extern "C" int rs_forward(const void* T, const void*, const float* qpos, const float* qvel, const float* mass,
     const float* inertia, const float* gravity, const float* armature, float* xpos, float* xquat, float* xmat,
     float* gxpos, float* gxmat, float* sxpos, float* sxmat, float* sa, float* sl, float* M, float* bias,
-    float* xipos, float* ximat, int B, void*) {
-  FwdShared* s = new FwdShared();
+    float* xipos, float* ximat, int B, int, void*) {
+  const RsTables& t = *(const RsTables*)T;
+  Fwd s;
+  Carver n{nullptr, 0};
+  carve_fwd(t, n, s);
+  carve_rnea(t, n, s);
+  std::vector<double> buf;
+  Carver c{scratch(buf, n.w), 0};
+  carve_fwd(t, c, s);
+  carve_rnea(t, c, s);
   for (int b = 0; b < B; ++b)
-    forward_body(*(const RsTables*)T, *s, b, qpos, qvel, mass, inertia, gravity, armature, xpos, xquat, xmat,
-                 gxpos, gxmat, sxpos, sxmat, sa, sl, M, bias, xipos, ximat);
-  delete s;
+    forward_body(HostTeam(), t, s, b, qpos, qvel, mass, inertia, gravity, armature, xpos, xquat, xmat, gxpos,
+                 gxmat, sxpos, sxmat, sa, sl, M, bias, xipos, ximat);
   return 0;
 }
 extern "C" int rs_contact_solve(const float* M, const float* JfT, const float* aref, const float* qfrc,
     const float* qvel, const float* damping, const float* reg3, const float* mu, const float* active,
-    float* qvel_out, float* f_out, int B, int nv, int K, int iters, int power_iters, float dt, void*) {
-  SolveShared* s = new SolveShared();
-  float Msh[RS_MAXV * RS_MAXV];
+    float* qvel_out, float* f_out, int B, int nv, int K, int iters, int power_iters, float dt, int, void*) {
+  Solve s;
+  float* Msh;
+  Carver n{nullptr, 0};
+  carve_k2(nv, K, n, Msh, s);
+  std::vector<double> buf;
+  Carver c{scratch(buf, n.w), 0};
+  carve_k2(nv, K, c, Msh, s);
   for (int b = 0; b < B; ++b)
-    contact_solve_body(*s, Msh, b, nv, K, iters, power_iters, dt, M, JfT, aref, qfrc, qvel, damping, reg3, mu,
-                       active, qvel_out, f_out);
-  delete s;
+    contact_solve_body(HostTeam(), s, Msh, b, nv, K, iters, power_iters, dt, M, JfT, aref, qfrc, qvel, damping,
+                       reg3, mu, active, qvel_out, f_out);
   return 0;
 }
-extern "C" int rs_substep_aux(const void* T, const float* qpos, const float* qvel, const float* mass,
-    const float* inertia, const float* gravity, const float* armature, const float* goal, const float* gains,
-    const float* grip, float* qpos_out, float* qvel_out, float* f_out, float* sxpos, float* sxmat, float* bxpos,
-    float* pdist, int B, void*) {
-  SubstepShared* s = new SubstepShared();
+extern "C" int rs_substep_smem_bytes(const void* T_host) {
+  Sub sh;
+  return 4 * carve_substep(*(const RsTables*)T_host, nullptr, sh);
+}
+template <bool AUX>
+static int substep(const void* T, const float* qpos, const float* qvel, const float* mass, const float* inertia,
+    const float* gravity, const float* armature, const float* goal, const float* gains, const float* grip,
+    float* qpos_out, float* qvel_out, float* f_out, float* sxpos, float* sxmat, float* bxpos, float* pdist,
+    int B) {
+  const RsTables& t = *(const RsTables*)T;
+  Sub sh;
+  std::vector<double> buf;
+  carve_substep(t, scratch(buf, rs_substep_smem_bytes(T) / 4), sh);
   for (int b = 0; b < B; ++b)
-    substep_body<true>(*(const RsTables*)T, *s, b, qpos, qvel, mass, inertia, gravity, armature, goal, gains,
-                       grip, qpos_out, qvel_out, f_out, sxpos, sxmat, bxpos, pdist);
-  delete s;
+    substep_body<AUX>(HostTeam(), t, sh, b, qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip,
+                      qpos_out, qvel_out, f_out, sxpos, sxmat, bxpos, pdist);
   return 0;
 }
-extern "C" int rs_substep(const void* T, const float* qpos, const float* qvel, const float* mass,
+extern "C" int rs_substep_aux(const void* T, const void*, const float* qpos, const float* qvel,
+    const float* mass, const float* inertia, const float* gravity, const float* armature, const float* goal,
+    const float* gains, const float* grip, float* qpos_out, float* qvel_out, float* f_out, float* sxpos,
+    float* sxmat, float* bxpos, float* pdist, int B, int, void*) {
+  return substep<true>(T, qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip, qpos_out, qvel_out,
+                       f_out, sxpos, sxmat, bxpos, pdist, B);
+}
+extern "C" int rs_substep(const void* T, const void*, const float* qpos, const float* qvel, const float* mass,
     const float* inertia, const float* gravity, const float* armature, const float* goal, const float* gains,
-    const float* grip, float* qpos_out, float* qvel_out, float* f_out, int B, void*) {
-  SubstepShared* s = new SubstepShared();
-  for (int b = 0; b < B; ++b)
-    substep_body<false>(*(const RsTables*)T, *s, b, qpos, qvel, mass, inertia, gravity, armature, goal, gains,
-                        grip, qpos_out, qvel_out, f_out, nullptr, nullptr, nullptr, nullptr);
-  delete s;
-  return 0;
+    const float* grip, float* qpos_out, float* qvel_out, float* f_out, int B, int, void*) {
+  return substep<false>(T, qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip, qpos_out, qvel_out,
+                        f_out, nullptr, nullptr, nullptr, nullptr, B);
 }
 extern "C" int rs_fk(const void* T, const float* qpos, float* xpos, float* xquat, int B, void*) {
   for (int b = 0; b < B; ++b) fk_pose_one(*(const RsTables*)T, (size_t)b, qpos, xpos, xquat);
   return 0;
 }
+extern "C" int rs_cut(float* d, int nc, int npts, int* cand, float* dist) {
+  cut_team(HostTeam(), d, nc, npts, cand, dist);
+  return 0;
+}
+// A team of nt CPU threads: sync is a barrier; the reductions go through a
+// shared buffer (argmin as WarpTeam's: the smallest key, then the lowest
+// index).
+struct TeamShared {
+  std::mutex m;
+  std::condition_variable cv;
+  int n, count = 0, gen = 0;
+  std::vector<float> f;
+  std::vector<double> d;
+  std::vector<int> i;
+  explicit TeamShared(int n_) : n(n_), f(n_), d(n_), i(n_) {}
+  void wait() {
+    std::unique_lock<std::mutex> l(m);
+    const int g = gen;
+    if (++count == n) { count = 0; ++gen; cv.notify_all(); }
+    else cv.wait(l, [&] { return gen != g; });
+  }
+};
+struct ThreadTeam {
+  int r;
+  TeamShared* sh;
+  int rank() const { return r; }
+  int size() const { return sh->n; }
+  void sync() const { sh->wait(); }
+  template <class V> V reduce(std::vector<V>& buf, V v, V (*op)(V, V)) const {
+    buf[r] = v; sync();
+    V s = buf[0];
+    for (int k = 1; k < sh->n; ++k) s = op(s, buf[k]);
+    sync();
+    return s;
+  }
+  double sum(double v) const { return reduce<double>(sh->d, v, [](double a, double b) { return a + b; }); }
+  float max(float v) const { return reduce<float>(sh->f, v, [](float a, float b) { return fmaxf(a, b); }); }
+  unsigned ballot(bool p) const {
+    sh->i[r] = p; sync();
+    unsigned m = 0;
+    for (int k = 0; k < sh->n; ++k) m |= (unsigned)(sh->i[k] != 0) << k;
+    sync();
+    return m;
+  }
+  int argmin(float v, int idx) const {
+    sh->f[r] = v; sh->i[r] = idx; sync();
+    unsigned bk = 0xffffffffu;
+    int bi = 0x7fffffff;
+    for (int k = 0; k < sh->n; ++k) {
+      const unsigned key = rs_fkey(sh->f[k]);
+      if (key < bk || (key == bk && sh->i[k] < bi)) { bk = key; bi = sh->i[k]; }
+    }
+    sync();
+    return bi;
+  }
+};
+template <class F> static void on_team(int nt, F body) {
+  TeamShared sh(nt);
+  std::vector<std::thread> th;
+  for (int r = 0; r < nt; ++r) th.emplace_back([&, r] { body(ThreadTeam{r, &sh}); });
+  for (auto& t : th) t.join();
+}
+extern "C" int rs_substep_threads(int nt, int aux, const void* T, const float* qpos, const float* qvel,
+    const float* mass, const float* inertia, const float* gravity, const float* armature, const float* goal,
+    const float* gains, const float* grip, float* qpos_out, float* qvel_out, float* f_out, float* sxpos,
+    float* sxmat, float* bxpos, float* pdist, int B) {
+  const RsTables& t = *(const RsTables*)T;
+  for (int b = 0; b < B; ++b) {
+    std::vector<double> buf;
+    float* base = scratch(buf, rs_substep_smem_bytes(T) / 4);
+    on_team(nt, [&](const ThreadTeam& tm) {
+      Sub sh;
+      carve_substep(t, base, sh);
+      if (aux)
+        substep_body<true>(tm, t, sh, b, qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip, qpos_out,
+                           qvel_out, f_out, sxpos, sxmat, bxpos, pdist);
+      else
+        substep_body<false>(tm, t, sh, b, qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip,
+                            qpos_out, qvel_out, f_out, sxpos, sxmat, bxpos, pdist);
+    });
+  }
+  return 0;
+}
+extern "C" int rs_cut_threads(int nt, float* d, int nc, int npts, int* cand, float* dist) {
+  on_team(nt, [&](const ThreadTeam& tm) { cut_team(tm, d, nc, npts, cand, dist); });
+  return 0;
+}
 """
+_V, _I = ctypes.c_void_p, ctypes.c_int
+HOST_ONLY = {"rs_cut": [_V, _I, _I, _V, _V], "rs_substep_threads": [_I, _I] + [_V] * 17 + [_I],
+             "rs_cut_threads": [_I, _V, _I, _I, _V, _V]}
+CARD_ONLY = ("rs_substep_resident",)
 
 
 @pytest.fixture(scope="module")
@@ -88,12 +217,13 @@ def lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("kernels_host")
     src, so = d / "harness.cpp", d / "libharness.so"
     src.write_text(HARNESS)
-    subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", f"-I{CSRC}", str(src), "-o", str(so)],
+    subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-pthread", f"-I{CSRC}", str(src), "-o", str(so)],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
-    for name, args in build._SIGNATURES.items():
-        getattr(lib, name).argtypes = args
-        getattr(lib, name).restype = ctypes.c_int
+    for name, args in {**build._SIGNATURES, **HOST_ONLY}.items():
+        if name not in CARD_ONLY:
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = ctypes.c_int
     assert lib.rs_tables_size() == ctypes.sizeof(tables.RsTables)
     return lib
 
@@ -128,7 +258,7 @@ def test_forward_kernel_matches_plain(lib, contact_state):
              "sdof_lin", "M", "bias", "xipos", "ximat")
     out = {k: torch.empty_like(ref[k]) for k in names}
     T = tables.pack(m)
-    lib.rs_forward(_p(T), *(_p(t) for t in (q, qd, *leaves)), *(_p(out[k]) for k in names), B, None)
+    lib.rs_forward(_p(T), _p(T), *(_p(t) for t in (q, qd, *leaves)), *(_p(out[k]) for k in names), B, 1, None)
     for k in names:
         scale = max(1.0, float(ref[k].abs().max())) if k in ("M", "bias") else 1.0
         tol = {"M": 1e-5, "bias": 1e-4}.get(k, 2e-5)
@@ -148,7 +278,7 @@ def test_contact_solve_kernel_matches_plain(lib, contact_state):
     qv_p, f_p = contact_solve.vel_update_plain(*args, C.APGD_ITERS, C.POWER_ITERS, m.timestep)
     qv_k, f_k = torch.empty_like(qv_p), torch.empty_like(f_p)
     lib.rs_contact_solve(*(_p(t) for t in args), _p(qv_k), _p(f_k), B, m.nv, act.shape[1], C.APGD_ITERS,
-                         C.POWER_ITERS, m.timestep, None)
+                         C.POWER_ITERS, m.timestep, 1, None)
     assert float((qv_k - qv_p).abs().max()) <= 1e-4
     assert float((f_k - f_p).abs().max()) <= 1e-4 * max(1.0, float(f_p.abs().max()))
 
@@ -165,7 +295,7 @@ def test_substep_kernel_matches_plain(lib, contact_state):
     qp_p, qv_p, f_p = substep.substep_plain(env, m, q, qd, *leaves, goal, gains, grip)
     qp_k, qv_k, f_k = torch.empty_like(qp_p), torch.empty_like(qv_p), torch.empty_like(f_p)
     T = tables.pack(m, arm=substep.extract_spec(env, m))
-    lib.rs_substep(_p(T), *(_p(t) for t in (q, qd, *leaves, goal, gains, grip, qp_k, qv_k, f_k)), B, None)
+    lib.rs_substep(_p(T), _p(T), *(_p(t) for t in (q, qd, *leaves, goal, gains, grip, qp_k, qv_k, f_k)), B, 1, None)
     assert float((qp_k - qp_p).abs().max()) <= 1e-5
     assert float((qv_k - qv_p).abs().max()) <= 1e-3
     np.testing.assert_allclose(f_k.numpy(), f_p.numpy(), rtol=0, atol=1e-4 * max(1.0, float(f_p.abs().max())))
@@ -202,7 +332,7 @@ def test_substep_aux_kernel_matches_plain(lib, contact_state):
     ref = substep.substep_aux_plain(env, m, q, qd, *leaves, goal, gains, grip)
     out = [torch.empty_like(r) for r in ref]
     T = tables.pack(m, arm=substep.extract_spec(env, m))
-    lib.rs_substep_aux(_p(T), *(_p(t) for t in (q, qd, *leaves, goal, gains, grip, *out)), B, None)
+    lib.rs_substep_aux(_p(T), _p(T), *(_p(t) for t in (q, qd, *leaves, goal, gains, grip, *out)), B, 1, None)
     names = ("qpos", "qvel", "f", "site_xpos", "site_xmat", "xpos", "pair_dist")
     tols = dict(qpos=1e-5, qvel=1e-3, site_xpos=2e-5, site_xmat=2e-5, xpos=2e-5, pair_dist=1e-5)
     for name, k, p in zip(names, out, ref):
@@ -252,9 +382,9 @@ def test_joint_position_substep_kernel_matches_plain(lib, stack_state, emit_aux)
     out = [torch.empty_like(r) for r in ref]
     T = tables.pack(m, arm=substep.extract_spec(env, m))
     if emit_aux:
-        lib.rs_substep_aux(_p(T), *(_p(t) for t in (*args, *out)), 3, None)
+        lib.rs_substep_aux(_p(T), _p(T), *(_p(t) for t in (*args, *out)), 3, 1, None)
     else:
-        lib.rs_substep(_p(T), *(_p(t) for t in (*args, *out)), 3, None)
+        lib.rs_substep(_p(T), _p(T), *(_p(t) for t in (*args, *out)), 3, 1, None)
     names = ("qpos", "qvel", "f", "site_xpos", "site_xmat", "xpos")
     tols = dict(qpos=1e-5, qvel=1e-3, site_xpos=2e-5, site_xmat=2e-5, xpos=2e-5)
     for name, k, p in zip(names, out, ref):
@@ -282,6 +412,104 @@ def test_contact_solve_kernel_matches_plain_on_stack(lib, stack_state):
     qv_p, f_p = contact_solve.vel_update_plain(*args, C.APGD_ITERS, C.POWER_ITERS, m.timestep)
     qv_k, f_k = torch.empty_like(qv_p), torch.empty_like(f_p)
     lib.rs_contact_solve(*(_p(t) for t in args), _p(qv_k), _p(f_k), B, m.nv, 96, C.APGD_ITERS, C.POWER_ITERS,
-                         m.timestep, None)
+                         m.timestep, 1, None)
     assert float((qv_k - qv_p).abs().max()) <= 1e-4
     assert float((f_k - f_p).abs().max()) <= 1e-4 * max(1.0, float(f_p.abs().max()))
+
+
+def _models():
+    """Lift (OSC) and Stack (JOINT_POSITION) with their planning models, and
+    each one's fused-substep arm spec."""
+    out = []
+    for name, kw in (("Lift", {}), ("Stack", dict(controller_configs="JOINT_POSITION"))):
+        env = robosuite_tpu_torch.make(name, robots="Panda", reward_shaping=True, device="cpu", **kw)
+        plan = env.model.replace(timestep=0.025, solver_iters=10, **({"pair_points_cap": 2} if name == "Lift" else {}))
+        out += [(f"{name}", env, env.model), (f"{name} planning", env, plan)]
+    return out
+
+
+def test_substep_carve_matches_mirror(lib):
+    """The fused substep's shared memory per scenario: the C carve and
+    ops/tables.py's mirror agree, Lift's (OSC) sits below Stack's, the
+    2-point planning model below the execution model, and a block of
+    SCENARIOS_PER_BLOCK["substep"] scenarios fits the card's 227 KB."""
+    sizes = {}
+    for label, env, m in _models():
+        t = tables.fill(m, arm=substep.extract_spec(env, m))
+        c_bytes = lib.rs_substep_smem_bytes(ctypes.addressof(t))
+        assert c_bytes == tables.substep_smem_bytes(t), label
+        assert build.SCENARIOS_PER_BLOCK["substep"] * c_bytes <= 232448, label
+        sizes[label] = c_bytes
+    assert sizes["Lift planning"] < sizes["Lift"] < sizes["Stack"]
+    assert sizes["Stack planning"] <= sizes["Stack"]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_manifold_cut_keeps_earliest_on_ties(lib, seed):
+    """The cut (csrc/narrowphase.cuh cut_team over the host team, whose
+    team argmin keeps the lowest index) against contact.select_deepest's
+    stable sort, on depths with many ties, -0.0 beside 0.0 included."""
+    rng = np.random.default_rng(seed)
+    for nc, npts in ((25, 4), (25, 8), (8, 4), (2, 2)):
+        d = rng.integers(-3, 3, nc).astype(np.float32) * 0.5
+        d[rng.random(nc) < 0.2] = -0.0
+        ref = C.select_deepest(torch.as_tensor(d), npts).numpy()
+        work = d.copy()
+        cand, dist = np.zeros(npts, dtype=np.int32), np.zeros(npts, dtype=np.float32)
+        lib.rs_cut(work.ctypes.data, nc, npts, cand.ctypes.data, dist.ctypes.data)
+        np.testing.assert_array_equal(cand, ref if nc > npts else np.arange(npts))
+        np.testing.assert_array_equal(dist, d[cand])
+
+
+@pytest.mark.parametrize("world", ["Lift K3", "Stack K3-aux-JP"])
+def test_substep_over_a_thread_team_matches_one_lane(lib, contact_state, stack_state, world):
+    """K3 over a 32-lane team of CPU threads (the lanes split every stage as
+    the card's warp does; the solve's compaction runs through the team
+    ballot): the same outputs as the one-lane team (the solve's sums do not
+    depend on how the lanes split the work) and the plain version's, at the
+    tolerances above."""
+    if world == "Lift K3":
+        env, s = contact_state
+        m, aux = env.model, False
+        q, qd = s.physics.qpos.contiguous(), s.physics.qvel.contiguous()
+        leaves = forward.runtime_leaves(m, q.shape[0])
+        kin = forward.forward_plain(m, q, qd, *leaves)[0]
+        robot = env.robots[0]
+        goal, gains = env._fused_goal_fn(robot, "right", s.ctrl, kin)
+        args = (q, qd, *leaves, goal, gains, robot.gripper_ctrl("right", s.ctrl).contiguous())
+    else:
+        env, s = stack_state
+        m, aux = env.model.replace(timestep=0.025, solver_iters=10), True
+        args = _jp_inputs(env, m, s)
+    B = args[0].shape[0]
+    ref = (substep.substep_aux_plain if aux else substep.substep_plain)(env, m, *args)[:3]
+    T = tables.pack(m, arm=substep.extract_spec(env, m))
+    outs = {}
+    for nt in (1, 32):
+        out = [torch.empty_like(r) for r in ref]
+        aux_out = ([torch.empty(B, m.nsite, 3), torch.empty(B, m.nsite, 3, 3), torch.empty(B, m.nbody, 3),
+                    torch.empty(B, m.npair)] if aux else [None] * 4)
+        lib.rs_substep_threads(nt, int(aux), _p(T), *(_p(t) for t in args), *(_p(t) for t in out),
+                               *((_p(t) if t is not None else None) for t in aux_out), B)
+        outs[nt] = out
+    for name, tol, k32, k1, p in zip(("qpos", "qvel", "f"), (1e-5, 1e-3, 1e-4), outs[32], outs[1], ref):
+        scale = max(1.0, float(p.abs().max())) if name == "f" else 1.0
+        assert float((k32 - p).abs().max()) <= tol * scale, name
+        assert float((k32 - k1).abs().max()) <= 1e-6 * scale, name
+
+
+@pytest.mark.parametrize("nt", [5, 32])
+def test_manifold_cut_over_a_thread_team_keeps_earliest_on_ties(lib, nt):
+    """The cut over a team of nt CPU threads (each lane scans its strided
+    share, the team argmin keeps the lowest index) against
+    contact.select_deepest's stable sort, on depths with many ties."""
+    rng = np.random.default_rng(nt)
+    for nc, npts in ((25, 4), (25, 8), (8, 4), (40, 6)):
+        d = rng.integers(-3, 3, nc).astype(np.float32) * 0.5
+        d[rng.random(nc) < 0.2] = -0.0
+        ref = C.select_deepest(torch.as_tensor(d), npts).numpy()
+        work = d.copy()
+        cand, dist = np.zeros(npts, dtype=np.int32), np.zeros(npts, dtype=np.float32)
+        lib.rs_cut_threads(nt, work.ctypes.data, nc, npts, cand.ctypes.data, dist.ctypes.data)
+        np.testing.assert_array_equal(cand, ref)
+        np.testing.assert_array_equal(dist, d[cand])

@@ -78,16 +78,17 @@ def test_three_policy_steps_arm_matches_jax(setup):
 
 
 def test_reset_batch_and_fused_unfused_agree(setup):
-    """reset_batch gives finite states and the raw Lift observations; the
-    fused substep path and the unfused one (forward products + contact
-    solve per substep) agree on the CPU."""
+    """reset_batch gives finite states and the raw Lift observations (with
+    placement_valid, see test_reset_reports_placement_valid); the fused
+    substep path and the unfused one (forward products + contact solve per
+    substep) agree on the CPU."""
     _, penv, _, _ = setup
     gen = torch.Generator().manual_seed(0)
     states, obs = penv.reset_batch(2, gen)
     assert set(obs) == {
         "robot0_joint_pos", "robot0_joint_pos_cos", "robot0_joint_pos_sin", "robot0_joint_vel",
         "robot0_eef_pos", "robot0_eef_quat", "robot0_gripper_qpos", "robot0_gripper_qvel",
-        "cube_pos", "cube_quat", "gripper_to_cube_pos",
+        "cube_pos", "cube_quat", "gripper_to_cube_pos", "placement_valid",
     }
     assert all(torch.isfinite(v).all() for v in obs.values())
     a = torch.as_tensor(_actions(2, penv.action_dim))
@@ -99,6 +100,17 @@ def test_reset_batch_and_fused_unfused_agree(setup):
         penv._disable_fused = False
     torch.testing.assert_close(s1.physics.qpos, s2.physics.qpos, rtol=0, atol=1e-6)
     torch.testing.assert_close(r1, r2, rtol=0, atol=1e-6)
+
+
+def test_reset_reports_placement_valid(setup):
+    """Lift's sampler reports no validity, so reset_batch's placement_valid
+    is all True, as the JAX reset's is (it carries the key for every env)."""
+    jenv, penv, _, _ = setup
+    _, obs = penv.reset_batch(3, torch.Generator().manual_seed(1))
+    assert obs["placement_valid"].dtype == torch.bool and obs["placement_valid"].shape == (3,)
+    assert bool(obs["placement_valid"].all())
+    _, jobs = jenv.reset(jax.random.PRNGKey(1))
+    assert bool(np.asarray(jobs["placement_valid"]))
 
 
 def test_osc_torques_match_robosuite_fixture(setup):
