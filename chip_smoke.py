@@ -152,6 +152,9 @@ def hold_step(label, state, qpos, qvel):
     for name, a, b, tol in (("qpos", state.physics.qpos, qpos, 1e-5), ("qvel", state.physics.qvel, qvel, 1e-4)):
         spread(f"{label} {name}", a, b)
         e = (a - b).abs().amax(dim=1)
+        n_over, n_allowed = int((e > tol).sum()), int(e.numel() * 0.01)
+        print(f"{label} {name}: {n_over} of {e.numel()} scenarios past {tol:.0e} (the p99 check allows about "
+              f"{n_allowed})")
         check(f"{label} {name} p99 over scenarios", float(torch.quantile(e, 0.99)), tol)
 
 
@@ -224,11 +227,12 @@ def op_counts(model, nrows, nact=0.0, iters=30, power_iters=8, ctrl="osc"):
     for `nrows` contact rows of which `nact` are active (the mean over this
     run's scenarios: the solve whitens, multiplies and projects only the
     active rows' columns), the contact solve's iteration counts and the
-    arm's torque law (`ctrl`, "osc" or "joint_pos"), split by type: the
-    CRBA/RNEA sums, the Cholesky factorisations and solves, the whitening,
-    the solve's products and the OSC law run in float64, the rest in
-    float32. Returns {"K1", "K2", "K3", "K3-aux", "K4": (float32 flops,
-    float64 flops)}."""
+    arm's torque law (`ctrl`, "osc" or "joint_pos"), split by the type the
+    function needs: the CRBA/RNEA sums, the Cholesky factorisations and
+    solves, the whitening and the OSC law in float64, as the kernels and
+    the plain versions compute them; the rest in float32, the solve's
+    products with the whitened operator included. Returns
+    {"K1", "K2", "K3", "K3-aux", "K4": (float32 flops, float64 flops)}."""
     from robosuite_tpu_torch.models import spec as S
     from robosuite_tpu_torch.physics import contact as C
 
@@ -245,9 +249,10 @@ def op_counts(model, nrows, nact=0.0, iters=30, power_iters=8, ctrl="osc"):
     nac = 3 * nact                                               # the active columns
     yx, ytx = 2 * nv * nac, 2 * nv * nac + 2 * nac               # Y x; R x + Y^T (Y x)
     k2_64 = (2 * chol + 2 * nv * nv + nv * ntot + nv * nv       # factorisations and solves, the inactive sum
-             + nac * nv * (nv + 4)                               # whitening of the active columns
-             + (power_iters + iters + 2) * yx + (power_iters + iters + 1) * ytx)
-    k2 = (2 * ntot + power_iters * 3 * nac + iters * 20 * nact, k2_64)  # norms, the cone projection
+             + nac * nv * (nv + 4))                              # whitening of the active columns
+    k2_32 = ((power_iters + iters + 2) * yx + (power_iters + iters + 1) * ytx  # products with Y
+             + 2 * ntot + power_iters * 3 * nac + iters * 20 * nact)           # norms, the cone projection
+    k2 = (k2_32, k2_64)
     na = 7
     if ctrl == "osc":
         law = (0, 2 * na ** 3 + 3 * 6 * na * na + 6 * 6 * na + 2 * 6 ** 3 + nv * 24)
@@ -921,8 +926,7 @@ def main():
     check("K3 qpos", max_err(qp_k, qp_p), 1e-5)
     check("K3 qvel", max_err(qv_k, qv_p), 1e-3)
     results["resident_per_sm"]["K3"] = substep.resident_per_sm(fused)
-    print(f"K3 resident scenarios per SM (Lift, {build.SCENARIOS_PER_BLOCK['substep']} a block): "
-          f"{results['resident_per_sm']['K3']}")
+    print(f"K3 resident scenarios per SM (Lift): {results['resident_per_sm']['K3']}")
     k3_ms = cuda_ms(lambda: fused(*k3_args), 20)
     k3_plain = cuda_ms(lambda: substep.substep_plain(env, model, *k3_args), 3)
     results["kernels"]["K3"] = dict(

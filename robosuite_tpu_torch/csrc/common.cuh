@@ -116,7 +116,19 @@ static __device__ long long rs_stage_clock[RS_NSTAGES];
 #define RS_MAXCT 800   // RS_MAXP * 25: narrowphase candidates, all pairs
 #define RS_MAXA 8      // arm dofs
 #define RS_MAXGR 4     // gripper actuators
-#define RS_MAXWARPS 4  // scenarios (warps) per block
+
+// Scenarios (one warp each) a block of K1, K2 and K3, fixed at compile
+// time; `python -m robosuite_tpu_torch.ab_kernels sweep` builds and times
+// other values with -D (PERF.md gives the sweep).
+#ifndef RS_S_FORWARD
+#define RS_S_FORWARD 2
+#endif
+#ifndef RS_S_SOLVE
+#define RS_S_SOLVE 2
+#endif
+#ifndef RS_S_SUBSTEP
+#define RS_S_SUBSTEP 1
+#endif
 
 // Joint types (MuJoCo enum order) and narrowphase pair kinds.
 #define RS_FREE 0

@@ -22,12 +22,12 @@ static int solve_words(int nv, int K) {
   return (c.w + 3) / 4 * 4;
 }
 
-__global__ void __launch_bounds__(RS_MAXWARPS * 32) rs_contact_solve_kernel(
+__global__ void __launch_bounds__(RS_S_SOLVE * 32) rs_contact_solve_kernel(
     int words, int B, int nv, int K, int iters, int power_iters, float dt, const float* M, const float* JfT,
     const float* aref, const float* qfrc, const float* qvel, const float* damping, const float* reg3,
     const float* mu, const float* active, float* qvel_out, float* f_out) {
   extern __shared__ __align__(16) float rs_smem[];
-  const int warp = threadIdx.x >> 5, b = blockIdx.x * (blockDim.x >> 5) + warp;
+  const int warp = threadIdx.x >> 5, b = blockIdx.x * RS_S_SOLVE + warp;
   if (b >= B) return;
   Carver c{rs_smem + (size_t)warp * words, 0};
   float* Msh;
@@ -40,8 +40,9 @@ __global__ void __launch_bounds__(RS_MAXWARPS * 32) rs_contact_solve_kernel(
 extern "C" int rs_contact_solve(const float* M, const float* JfT, const float* aref, const float* qfrc,
                                 const float* qvel, const float* damping, const float* reg3, const float* mu,
                                 const float* active, float* qvel_out, float* f_out, int B, int nv, int K, int iters,
-                                int power_iters, float dt, int S, void* stream) {
-  if (nv > RS_MAXV || K > RS_MAXK || S < 1 || S > RS_MAXWARPS) return (int)cudaErrorInvalidValue;
+                                int power_iters, float dt, void* stream) {
+  if (nv > RS_MAXV || K > RS_MAXK) return (int)cudaErrorInvalidValue;
+  constexpr int S = RS_S_SOLVE;
   const int words = solve_words(nv, K);
   const size_t bytes = (size_t)S * words * 4;
   static size_t opted = 48 * 1024;

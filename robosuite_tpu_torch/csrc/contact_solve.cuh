@@ -18,10 +18,11 @@
 // first power iteration's Y v with v = 1e-6 / |v| there, takes their part
 // as L^-1 (sum of those columns of Jf^T) times that value: one triangular
 // solve instead of one per column. The products Y x (one lane per dof) and
-// Y^T (Y x) (one lane per column) sum in double in a fixed order and round
-// once, so the result does not depend on how the lanes split the work. The
-// two nv x nv Cholesky factorisations and their solves run in double over
-// the lanes (common.cuh chol_team). Y overwrites Jf^T in shared memory.
+// Y^T (Y x) (one lane per column) sum in float32, as the plain version
+// does, in a fixed order, so the result does not depend on how the lanes
+// split the work. The two nv x nv Cholesky factorisations and their solves
+// run in double over the lanes (common.cuh chol_team). Y overwrites Jf^T in
+// shared memory.
 #pragma once
 
 #include "common.cuh"
@@ -75,38 +76,38 @@ RS_DEV int compact_active(const Team& tm, const float* act, int K, int* rows) {
 RS_DEV int active_col(const Solve& s, int K, int na, int j) { return (j / na) * K + s.rows[j % na]; }
 
 // s.acc[i] = (Y x)_i over the active columns, plus zscale * s.acc[i] where
-// zscale is not 0 (the first power iteration's inactive part), in double,
+// zscale is not 0 (the first power iteration's inactive part), in float32,
 // one lane per dof; three independent sums (normals, t1, t2) added in a
 // fixed order. Ends synchronised.
 template <class Team>
 RS_DEV void y_times(const Team& tm, const Solve& s, int nv, int K, int na, const float* x, double zscale) {
   for (int i = tm.rank(); i < nv; i += tm.size()) {
     const float* row = s.Y + i * s.ldy;
-    double a[3] = {0.0, 0.0, 0.0};
+    float a[3] = {0.0f, 0.0f, 0.0f};
     for (int r = 0; r < na; ++r) {
       const int k = s.rows[r];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) a[j] += (double)row[j * K + k] * x[j * K + k];
+      for (int j = 0; j < 3; ++j) a[j] += row[j * K + k] * x[j * K + k];
     }
-    s.acc[i] = (zscale == 0.0 ? 0.0 : s.acc[i] * zscale) + a[0] + a[1] + a[2];
+    s.acc[i] = (double)((zscale == 0.0 ? 0.0f : (float)s.acc[i] * (float)zscale) + a[0] + a[1] + a[2]);
   }
   tm.sync();
 }
 
-// out[c] = R[c] x[c] + (Y^T s.acc)[c] at the active columns, in double
-// (four independent sums over the dofs, added in a fixed order), rounded
-// once, one lane per column. Ends synchronised.
+// out[c] = R[c] x[c] + (Y^T s.acc)[c] at the active columns, in float32
+// (four independent sums over the dofs, added in a fixed order), one lane
+// per column. Ends synchronised.
 template <class Team>
 RS_DEV void yt_times(const Team& tm, const Solve& s, int nv, int K, int na, const float* x, float* out) {
   for (int j = tm.rank(); j < 3 * na; j += tm.size()) {
     const int c = active_col(s, K, na, j);
-    double v[4] = {(double)s.R[c] * x[c], 0.0, 0.0, 0.0};
+    float v[4] = {s.R[c] * x[c], 0.0f, 0.0f, 0.0f};
     int i = 0;
     for (; i + 4 <= nv; i += 4)
 #pragma unroll
-      for (int u = 0; u < 4; ++u) v[u] += (double)s.Y[(i + u) * s.ldy + c] * s.acc[i + u];
-    for (; i < nv; ++i) v[0] += (double)s.Y[i * s.ldy + c] * s.acc[i];
-    out[c] = (float)((v[0] + v[1]) + (v[2] + v[3]));
+      for (int u = 0; u < 4; ++u) v[u] += s.Y[(i + u) * s.ldy + c] * (float)s.acc[i + u];
+    for (; i < nv; ++i) v[0] += s.Y[i * s.ldy + c] * (float)s.acc[i];
+    out[c] = (v[0] + v[1]) + (v[2] + v[3]);
   }
   tm.sync();
 }

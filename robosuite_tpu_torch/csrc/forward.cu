@@ -22,13 +22,13 @@ static int forward_words(const RsTables& T) {
   return (c.w + 3) / 4 * 4;
 }
 
-__global__ void __launch_bounds__(RS_MAXWARPS * 32) rs_forward_kernel(
+__global__ void __launch_bounds__(RS_S_FORWARD * 32) rs_forward_kernel(
     const RsTables* __restrict__ T, int words, int B, const float* qpos, const float* qvel, const float* mass,
     const float* inertia, const float* gravity, const float* armature, float* xpos, float* xquat, float* xmat,
     float* gxpos, float* gxmat, float* sxpos, float* sxmat, float* sdof_ang, float* sdof_lin, float* M, float* bias,
     float* xipos, float* ximat) {
   extern __shared__ __align__(16) float rs_smem[];
-  const int warp = threadIdx.x >> 5, b = blockIdx.x * (blockDim.x >> 5) + warp;
+  const int warp = threadIdx.x >> 5, b = blockIdx.x * RS_S_FORWARD + warp;
   if (b >= B) return;
   Carver c{rs_smem + (size_t)warp * words, 0};
   Fwd s;
@@ -42,8 +42,8 @@ extern "C" int rs_forward(const void* T, const void* T_host, const float* qpos, 
                           const float* mass, const float* inertia, const float* gravity, const float* armature,
                           float* xpos, float* xquat, float* xmat, float* gxpos, float* gxmat, float* sxpos,
                           float* sxmat, float* sdof_ang, float* sdof_lin, float* M, float* bias, float* xipos,
-                          float* ximat, int B, int S, void* stream) {
-  if (S < 1 || S > RS_MAXWARPS) return (int)cudaErrorInvalidValue;
+                          float* ximat, int B, void* stream) {
+  constexpr int S = RS_S_FORWARD;
   const int words = forward_words(*(const RsTables*)T_host);
   rs_forward_kernel<<<(B + S - 1) / S, 32 * S, (size_t)S * words * 4, (cudaStream_t)stream>>>(
       (const RsTables*)T, words, B, qpos, qvel, mass, inertia, gravity, armature, xpos, xquat, xmat, gxpos, gxmat,

@@ -11,8 +11,8 @@
 // (66 / 96; 36 on Lift's 2-point planning model) and the cone QP on the
 // few active rows, a chain of dependent stages.
 //
-// The design: a scenario is one warp (common.cuh WarpTeam), S scenarios a
-// block (the launcher's argument; ops/build.py launches one), so stages
+// The design: a scenario is one warp (common.cuh WarpTeam), RS_S_SUBSTEP
+// scenarios a block (one: the most scenarios per SM), so stages
 // synchronise with __syncwarp and reduce with shuffles, never at a block
 // barrier. Every stage spreads over the lanes but the tree walk (each body
 // needs its parent's pose): the Cholesky factorisations and solves, the
@@ -23,8 +23,8 @@
 // Lift's 2-point planning model, 45.2 KB on Stack), so the SM holds as many
 // scenarios as their sizes allow (8, 11 and 5); the opt-in for dynamic
 // shared memory is raised to the largest carve launched. The launch bounds
-// keep registers to what 12 warps an SM can hold, a little more than the
-// smallest carve's 11.
+// keep registers to what 12 warps an SM can hold (168), a little more than
+// the smallest carve's 11 scenarios.
 //
 // What this kernel does not use, and why. Tensor cores (wgmma, mma.sync):
 // each scenario's operator is nv x ntot <= 24 x 288 in float32, the APGD
@@ -35,13 +35,13 @@
 #include "substep.cuh"
 
 template <bool AUX>
-__global__ void __launch_bounds__(RS_MAXWARPS * 32, 3) rs_substep_kernel(
+__global__ void __launch_bounds__(RS_S_SUBSTEP * 32, 12 / RS_S_SUBSTEP) rs_substep_kernel(
     const RsTables* __restrict__ T, int words, int B, const float* qpos, const float* qvel, const float* mass,
     const float* inertia, const float* gravity, const float* armature, const float* goal, const float* gains,
     const float* grip, float* qpos_out, float* qvel_out, float* f_out, float* sxpos, float* sxmat, float* bxpos,
     float* pdist) {
   extern __shared__ __align__(16) float rs_smem[];
-  const int warp = threadIdx.x >> 5, b = blockIdx.x * (blockDim.x >> 5) + warp;
+  const int warp = threadIdx.x >> 5, b = blockIdx.x * RS_S_SUBSTEP + warp;
   if (b >= B) return;
   Sub sh;
   carve_substep(*T, rs_smem + (size_t)warp * words, sh);
@@ -68,9 +68,10 @@ extern "C" int rs_substep_smem_bytes(const void* T_host) {
   return 4 * carve_substep(*(const RsTables*)T_host, nullptr, sh);
 }
 
-// Scenarios resident per SM for S scenarios a block at this table's carve
-// (negative: the CUDA error).
-extern "C" int rs_substep_resident(const void* T_host, int aux, int S) {
+// Scenarios resident per SM at this table's carve (negative: the CUDA
+// error).
+extern "C" int rs_substep_resident(const void* T_host, int aux) {
+  constexpr int S = RS_S_SUBSTEP;
   size_t bytes = (size_t)S * rs_substep_smem_bytes(T_host);
   int blocks = 0;
   cudaError_t err = aux ? smem_opt_in<true>(bytes) : smem_opt_in<false>(bytes);
@@ -84,8 +85,8 @@ template <bool AUX>
 static int launch(const void* T, const void* T_host, const float* qpos, const float* qvel, const float* mass,
                   const float* inertia, const float* gravity, const float* armature, const float* goal,
                   const float* gains, const float* grip, float* qpos_out, float* qvel_out, float* f_out,
-                  float* sxpos, float* sxmat, float* bxpos, float* pdist, int B, int S, void* stream) {
-  if (S < 1 || S > RS_MAXWARPS) return (int)cudaErrorInvalidValue;
+                  float* sxpos, float* sxmat, float* bxpos, float* pdist, int B, void* stream) {
+  constexpr int S = RS_S_SUBSTEP;
   const int words = rs_substep_smem_bytes(T_host) / 4;
   const size_t bytes = (size_t)S * words * 4;
   if (cudaError_t err = smem_opt_in<AUX>(bytes)) return (int)err;
@@ -98,18 +99,18 @@ static int launch(const void* T, const void* T_host, const float* qpos, const fl
 extern "C" int rs_substep(const void* T, const void* T_host, const float* qpos, const float* qvel,
                           const float* mass, const float* inertia, const float* gravity, const float* armature,
                           const float* goal, const float* gains, const float* grip, float* qpos_out,
-                          float* qvel_out, float* f_out, int B, int S, void* stream) {
+                          float* qvel_out, float* f_out, int B, void* stream) {
   return launch<false>(T, T_host, qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip, qpos_out,
-                       qvel_out, f_out, nullptr, nullptr, nullptr, nullptr, B, S, stream);
+                       qvel_out, f_out, nullptr, nullptr, nullptr, nullptr, B, stream);
 }
 
 extern "C" int rs_substep_aux(const void* T, const void* T_host, const float* qpos, const float* qvel,
                               const float* mass, const float* inertia, const float* gravity, const float* armature,
                               const float* goal, const float* gains, const float* grip, float* qpos_out,
                               float* qvel_out, float* f_out, float* sxpos, float* sxmat, float* bxpos, float* pdist,
-                              int B, int S, void* stream) {
+                              int B, void* stream) {
   return launch<true>(T, T_host, qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip, qpos_out,
-                      qvel_out, f_out, sxpos, sxmat, bxpos, pdist, B, S, stream);
+                      qvel_out, f_out, sxpos, sxmat, bxpos, pdist, B, stream);
 }
 
 #ifdef RS_STAGE_CLOCKS

@@ -27,20 +27,15 @@ _SOURCES = ("forward.cu", "contact_solve.cu", "substep.cu", "fk.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
           "-Xptxas", "-v")
 
-# Scenarios (one warp each) per block of K1, K2 and K3, from the sweep of
-# robosuite_tpu_torch/ab_kernels.py (PERF.md): K3 at one a block packs the
-# most scenarios into an SM's shared memory; K1 runs fastest at two.
-SCENARIOS_PER_BLOCK = {"forward": 2, "contact_solve": 2, "substep": 1}
-
 P, I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "rs_tables_size": [],
-    "rs_forward": [P] * 21 + [I, I, P],
-    "rs_contact_solve": [P] * 11 + [I] * 5 + [ctypes.c_float, I, P],
-    "rs_substep": [P] * 14 + [I, I, P],
-    "rs_substep_aux": [P] * 18 + [I, I, P],
+    "rs_forward": [P] * 21 + [I, P],
+    "rs_contact_solve": [P] * 11 + [I] * 5 + [ctypes.c_float, P],
+    "rs_substep": [P] * 14 + [I, P],
+    "rs_substep_aux": [P] * 18 + [I, P],
     "rs_substep_smem_bytes": [P],
-    "rs_substep_resident": [P, I, I],
+    "rs_substep_resident": [P, I],
     "rs_fk": [P] * 4 + [I, P],
 }
 

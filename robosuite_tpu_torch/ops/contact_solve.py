@@ -87,7 +87,7 @@ def vel_update(M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active, iters
     f = torch.empty_like(aref)
     err = lib.rs_contact_solve(
         *(_b.ptr(t) for t in (M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active, qvel_out, f)),
-        B, nv, K, iters, power_iters, float(dt), _b.SCENARIOS_PER_BLOCK["contact_solve"], _b.stream(),
+        B, nv, K, iters, power_iters, float(dt), _b.stream(),
     )
     _b.check(err, "rs_contact_solve")
     vel_update.launches += 1

@@ -66,7 +66,7 @@ def forward_products(model, qpos, qvel, mass=None, inertia=None, gravity=None, a
     o = {k: torch.empty(v, dtype=torch.float32, device=qpos.device) for k, v in out.items()}
     err = lib.rs_forward(
         _b.ptr(T), _b.ptr(T_host), *(_b.ptr(t) for t in (qpos, qvel, mass, inertia, gravity, armature)),
-        *(_b.ptr(o[k]) for k in out), B, _b.SCENARIOS_PER_BLOCK["forward"], _b.stream(),
+        *(_b.ptr(o[k]) for k in out), B, _b.stream(),
     )
     _b.check(err, "rs_forward")
     forward_products.launches += 1

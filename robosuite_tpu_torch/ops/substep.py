@@ -136,15 +136,13 @@ def make_fused_substep(env, model, emit_aux=False):
         f = torch.empty(B, ntot, dtype=qpos.dtype, device=qpos.device)
         ins = (qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip, qpos_out, qvel_out, f)
         if not emit_aux:
-            err = lib.rs_substep(_b.ptr(T), _b.ptr(T_host), *(_b.ptr(t) for t in ins), B,
-                                 _b.SCENARIOS_PER_BLOCK["substep"], _b.stream())
+            err = lib.rs_substep(_b.ptr(T), _b.ptr(T_host), *(_b.ptr(t) for t in ins), B, _b.stream())
             _b.check(err, "rs_substep")
             make_fused_substep.launches += 1
             return qpos_out, qvel_out, f
         aux = tuple(torch.empty(shape, dtype=qpos.dtype, device=qpos.device) for shape in (
             (B, model.nsite, 3), (B, model.nsite, 3, 3), (B, model.nbody, 3), (B, model.npair)))
-        err = lib.rs_substep_aux(_b.ptr(T), _b.ptr(T_host), *(_b.ptr(t) for t in ins + aux), B,
-                                 _b.SCENARIOS_PER_BLOCK["substep"], _b.stream())
+        err = lib.rs_substep_aux(_b.ptr(T), _b.ptr(T_host), *(_b.ptr(t) for t in ins + aux), B, _b.stream())
         _b.check(err, "rs_substep_aux")
         make_fused_substep.aux_launches += 1
         return (qpos_out, qvel_out, f) + aux
@@ -158,8 +156,7 @@ def resident_per_sm(fused) -> int:
     carve and the library's scenarios per block (the card's occupancy
     calculator)."""
     _, T_host = model_tables(fused.model, arm=fused.spec, key="fused")
-    S = _b.SCENARIOS_PER_BLOCK["substep"]
-    n = _b.library().rs_substep_resident(_b.ptr(T_host), int(fused.emit_aux), S)
+    n = _b.library().rs_substep_resident(_b.ptr(T_host), int(fused.emit_aux))
     _b.check(max(0, -n), "rs_substep_resident")
     return n
 

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 import robosuite_tpu_torch
+from robosuite_tpu_torch import ab_kernels
 from robosuite_tpu_torch.ops import build, contact_solve, fk, forward, substep, tables
 from robosuite_tpu_torch.physics import contact as C
 from robosuite_tpu_torch.physics import engine
@@ -50,7 +51,7 @@ static float* scratch(std::vector<double>& buf, int words) {
 extern "C" int rs_forward(const void* T, const void*, const float* qpos, const float* qvel, const float* mass,
     const float* inertia, const float* gravity, const float* armature, float* xpos, float* xquat, float* xmat,
     float* gxpos, float* gxmat, float* sxpos, float* sxmat, float* sa, float* sl, float* M, float* bias,
-    float* xipos, float* ximat, int B, int, void*) {
+    float* xipos, float* ximat, int B, void*) {
   const RsTables& t = *(const RsTables*)T;
   Fwd s;
   Carver n{nullptr, 0};
@@ -67,7 +68,7 @@ extern "C" int rs_forward(const void* T, const void*, const float* qpos, const f
 }
 extern "C" int rs_contact_solve(const float* M, const float* JfT, const float* aref, const float* qfrc,
     const float* qvel, const float* damping, const float* reg3, const float* mu, const float* active,
-    float* qvel_out, float* f_out, int B, int nv, int K, int iters, int power_iters, float dt, int, void*) {
+    float* qvel_out, float* f_out, int B, int nv, int K, int iters, int power_iters, float dt, void*) {
   Solve s;
   float* Msh;
   Carver n{nullptr, 0};
@@ -101,13 +102,13 @@ static int substep(const void* T, const float* qpos, const float* qvel, const fl
 extern "C" int rs_substep_aux(const void* T, const void*, const float* qpos, const float* qvel,
     const float* mass, const float* inertia, const float* gravity, const float* armature, const float* goal,
     const float* gains, const float* grip, float* qpos_out, float* qvel_out, float* f_out, float* sxpos,
-    float* sxmat, float* bxpos, float* pdist, int B, int, void*) {
+    float* sxmat, float* bxpos, float* pdist, int B, void*) {
   return substep<true>(T, qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip, qpos_out, qvel_out,
                        f_out, sxpos, sxmat, bxpos, pdist, B);
 }
 extern "C" int rs_substep(const void* T, const void*, const float* qpos, const float* qvel, const float* mass,
     const float* inertia, const float* gravity, const float* armature, const float* goal, const float* gains,
-    const float* grip, float* qpos_out, float* qvel_out, float* f_out, int B, int, void*) {
+    const float* grip, float* qpos_out, float* qvel_out, float* f_out, int B, void*) {
   return substep<false>(T, qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip, qpos_out, qvel_out,
                         f_out, nullptr, nullptr, nullptr, nullptr, B);
 }
@@ -115,6 +116,7 @@ extern "C" int rs_fk(const void* T, const float* qpos, float* xpos, float* xquat
   for (int b = 0; b < B; ++b) fk_pose_one(*(const RsTables*)T, (size_t)b, qpos, xpos, xquat);
   return 0;
 }
+extern "C" int rs_s_substep() { return RS_S_SUBSTEP; }
 extern "C" int rs_cut(float* d, int nc, int npts, int* cand, float* dist) {
   cut_team(HostTeam(), d, nc, npts, cand, dist);
   return 0;
@@ -204,7 +206,7 @@ extern "C" int rs_cut_threads(int nt, float* d, int nc, int npts, int* cand, flo
 }
 """
 _V, _I = ctypes.c_void_p, ctypes.c_int
-HOST_ONLY = {"rs_cut": [_V, _I, _I, _V, _V], "rs_substep_threads": [_I, _I] + [_V] * 17 + [_I],
+HOST_ONLY = {"rs_s_substep": [], "rs_cut": [_V, _I, _I, _V, _V], "rs_substep_threads": [_I, _I] + [_V] * 17 + [_I],
              "rs_cut_threads": [_I, _V, _I, _I, _V, _V]}
 CARD_ONLY = ("rs_substep_resident",)
 
@@ -258,7 +260,7 @@ def test_forward_kernel_matches_plain(lib, contact_state):
              "sdof_lin", "M", "bias", "xipos", "ximat")
     out = {k: torch.empty_like(ref[k]) for k in names}
     T = tables.pack(m)
-    lib.rs_forward(_p(T), _p(T), *(_p(t) for t in (q, qd, *leaves)), *(_p(out[k]) for k in names), B, 1, None)
+    lib.rs_forward(_p(T), _p(T), *(_p(t) for t in (q, qd, *leaves)), *(_p(out[k]) for k in names), B, None)
     for k in names:
         scale = max(1.0, float(ref[k].abs().max())) if k in ("M", "bias") else 1.0
         tol = {"M": 1e-5, "bias": 1e-4}.get(k, 2e-5)
@@ -278,7 +280,7 @@ def test_contact_solve_kernel_matches_plain(lib, contact_state):
     qv_p, f_p = contact_solve.vel_update_plain(*args, C.APGD_ITERS, C.POWER_ITERS, m.timestep)
     qv_k, f_k = torch.empty_like(qv_p), torch.empty_like(f_p)
     lib.rs_contact_solve(*(_p(t) for t in args), _p(qv_k), _p(f_k), B, m.nv, act.shape[1], C.APGD_ITERS,
-                         C.POWER_ITERS, m.timestep, 1, None)
+                         C.POWER_ITERS, m.timestep, None)
     assert float((qv_k - qv_p).abs().max()) <= 1e-4
     assert float((f_k - f_p).abs().max()) <= 1e-4 * max(1.0, float(f_p.abs().max()))
 
@@ -295,7 +297,7 @@ def test_substep_kernel_matches_plain(lib, contact_state):
     qp_p, qv_p, f_p = substep.substep_plain(env, m, q, qd, *leaves, goal, gains, grip)
     qp_k, qv_k, f_k = torch.empty_like(qp_p), torch.empty_like(qv_p), torch.empty_like(f_p)
     T = tables.pack(m, arm=substep.extract_spec(env, m))
-    lib.rs_substep(_p(T), _p(T), *(_p(t) for t in (q, qd, *leaves, goal, gains, grip, qp_k, qv_k, f_k)), B, 1, None)
+    lib.rs_substep(_p(T), _p(T), *(_p(t) for t in (q, qd, *leaves, goal, gains, grip, qp_k, qv_k, f_k)), B, None)
     assert float((qp_k - qp_p).abs().max()) <= 1e-5
     assert float((qv_k - qv_p).abs().max()) <= 1e-3
     np.testing.assert_allclose(f_k.numpy(), f_p.numpy(), rtol=0, atol=1e-4 * max(1.0, float(f_p.abs().max())))
@@ -332,7 +334,7 @@ def test_substep_aux_kernel_matches_plain(lib, contact_state):
     ref = substep.substep_aux_plain(env, m, q, qd, *leaves, goal, gains, grip)
     out = [torch.empty_like(r) for r in ref]
     T = tables.pack(m, arm=substep.extract_spec(env, m))
-    lib.rs_substep_aux(_p(T), _p(T), *(_p(t) for t in (q, qd, *leaves, goal, gains, grip, *out)), B, 1, None)
+    lib.rs_substep_aux(_p(T), _p(T), *(_p(t) for t in (q, qd, *leaves, goal, gains, grip, *out)), B, None)
     names = ("qpos", "qvel", "f", "site_xpos", "site_xmat", "xpos", "pair_dist")
     tols = dict(qpos=1e-5, qvel=1e-3, site_xpos=2e-5, site_xmat=2e-5, xpos=2e-5, pair_dist=1e-5)
     for name, k, p in zip(names, out, ref):
@@ -382,9 +384,9 @@ def test_joint_position_substep_kernel_matches_plain(lib, stack_state, emit_aux)
     out = [torch.empty_like(r) for r in ref]
     T = tables.pack(m, arm=substep.extract_spec(env, m))
     if emit_aux:
-        lib.rs_substep_aux(_p(T), _p(T), *(_p(t) for t in (*args, *out)), 3, 1, None)
+        lib.rs_substep_aux(_p(T), _p(T), *(_p(t) for t in (*args, *out)), 3, None)
     else:
-        lib.rs_substep(_p(T), _p(T), *(_p(t) for t in (*args, *out)), 3, 1, None)
+        lib.rs_substep(_p(T), _p(T), *(_p(t) for t in (*args, *out)), 3, None)
     names = ("qpos", "qvel", "f", "site_xpos", "site_xmat", "xpos")
     tols = dict(qpos=1e-5, qvel=1e-3, site_xpos=2e-5, site_xmat=2e-5, xpos=2e-5)
     for name, k, p in zip(names, out, ref):
@@ -412,7 +414,7 @@ def test_contact_solve_kernel_matches_plain_on_stack(lib, stack_state):
     qv_p, f_p = contact_solve.vel_update_plain(*args, C.APGD_ITERS, C.POWER_ITERS, m.timestep)
     qv_k, f_k = torch.empty_like(qv_p), torch.empty_like(f_p)
     lib.rs_contact_solve(*(_p(t) for t in args), _p(qv_k), _p(f_k), B, m.nv, 96, C.APGD_ITERS, C.POWER_ITERS,
-                         m.timestep, 1, None)
+                         m.timestep, None)
     assert float((qv_k - qv_p).abs().max()) <= 1e-4
     assert float((f_k - f_p).abs().max()) <= 1e-4 * max(1.0, float(f_p.abs().max()))
 
@@ -431,14 +433,15 @@ def _models():
 def test_substep_carve_matches_mirror(lib):
     """The fused substep's shared memory per scenario: the C carve and
     ops/tables.py's mirror agree, Lift's (OSC) sits below Stack's, the
-    2-point planning model below the execution model, and a block of
-    SCENARIOS_PER_BLOCK["substep"] scenarios fits the card's 227 KB."""
+    2-point planning model below the execution model, and a block fits the
+    card's 227 KB at the library's scenarios per block (RS_S_SUBSTEP) and
+    at every value the sweep of ab_kernels.py builds."""
     sizes = {}
     for label, env, m in _models():
         t = tables.fill(m, arm=substep.extract_spec(env, m))
         c_bytes = lib.rs_substep_smem_bytes(ctypes.addressof(t))
         assert c_bytes == tables.substep_smem_bytes(t), label
-        assert build.SCENARIOS_PER_BLOCK["substep"] * c_bytes <= 232448, label
+        assert max(lib.rs_s_substep(), *ab_kernels.SWEEP) * c_bytes <= 232448, label
         sizes[label] = c_bytes
     assert sizes["Lift planning"] < sizes["Lift"] < sizes["Stack"]
     assert sizes["Stack planning"] <= sizes["Stack"]
