@@ -8,7 +8,9 @@ Phases (any failure exits non-zero):
   2. build the CUDA kernels (csrc/*.cu, nvcc for sm_90a);
   3. make("Lift", robots="Panda", reward_shaping=True) on CUDA and
      reset_batch(512) — the batch of bench.py's env-step workload;
-  4. K1 (forward products) against its plain version on those states;
+  4. K1 (forward products) against its plain version on those states, with
+     the model's leaves at batch stride 0 (as the paths pass them) and with
+     contiguous ones; timed by events and by the profiler's device time;
   5. K2 (contact solve) against its plain version on operands the plain
      path forms at a contact-rich state (the arm driven down onto the
      cube, fingers closing), with at least 4 active contact rows;
@@ -18,26 +20,33 @@ Phases (any failure exits non-zero):
      K3 = 25 launches per step, K1 = 2 per step + 1 for the reset; one
      policy step of the kernel path against the plain path; one step with
      the fused path disabled, which must run through K1 and K2;
-  8. K4 (pose-only FK) against its plain version on random arm poses at
-     B=4096 and at the MPC path's widths (128, 512, 8192, 32768);
+  8. K1 at random arm poses at 32, 128 and 4096 (Stack's executed step,
+     the iLQR rollouts, the MPPI start) against its plain version, timed at
+     128 and 4096; K4 (pose-only FK) against its plain version at B=4096
+     and at the MPC path's widths (128, 512, 8192, 32768), timed at 8192
+     and 32768;
   9. K3's emit_aux variant against its plain version at the contact-rich
      state on the 2-point planning model (dt 25 ms, 10 solver iterations),
-     at B=512 and at the MPPI width B*K=4096; pair distances in every
-     scenario, a mismatch set aside only with a float64 witness that it is
-     a SAT near-tie (hold_pair_dist);
+     at B=512 and at the MPPI width B*K=4096 (two draws of its velocity
+     offsets); pair distances in every scenario, a mismatch set aside only
+     with a float64 witness that it is a SAT near-tie or an ill-conditioned
+     edge separation that the kernel has within tolerance of float64
+     (hold_pair_dist);
  10. the MPC planning hooks, kernel path against the plain path: the
      planning returns of make_plan_return on a subset (8 solves x 32
      samples, H=8), and the forward-difference sweep of make_plan_dynamics
      at full width (B*H*(1+nx+nu) = 335,872 scenarios, one K1 and one K3
      launch) against the plain path on a strided sample of its rows
-     (before the division by eps);
+     (before the division by eps); then K1 alone on the sweep's states at
+     full width against its plain version on those rows, and timed;
  11. the MPC slice at bench.py's width (B=128, H=64, K=32, MPPI + 1 iLQR
      iteration, relinearized every 4th tick): a warm-up tick, then ticks
      1-4 timed on the host clock, with the launches per tick the config
      implies, finite actions in [-1, 1], the peak device memory and a
      profiler pass over one more tick;
  12. make("Stack", robots="Panda", controller_configs="JOINT_POSITION") on
-     CUDA, reset_batch(512): K1 against its plain version at B=512 and 32;
+     CUDA, reset_batch(512): K1 against its plain version at B=512 and 32,
+     and timed at both;
      a contact-rich state (cubeA dropped onto cubeB in every other
      scenario, four steps to land);
  13. K2 against its plain version at Stack's width (nv 21, 96 rows);
@@ -57,7 +66,9 @@ Phases (any failure exits non-zero):
      timed with their launch counts, finite actions in [-1, 1], peak
      memory and a profiled tick.
 Timings use CUDA events (profiler passes show one policy step's and one
-MPC tick's device time); every number is printed beside the card's name
+MPC tick's device time; K1's and K4's widths also print the profiler's
+kernel device time, and, at the end, each width's launches over the
+paths); every number is printed beside the card's name
 and power limit, which the first line gives. TF32 is off, so the plain
 versions are float32 references. Each phase prints its seconds. The line
 before the last is one JSON object listing the kernels (launches: the
@@ -112,6 +123,80 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """Mean ms per launch of the device time of the rs_* kernel fn launches
+    (torch.profiler's kernel time, free of the host's pace), after one
+    warm-up call; over the launches the profiler recorded (it can miss
+    some of a run of long kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if "rs_" in e.key]  # each call launches one rs_ kernel
+    return sum(e.self_device_time_total for e in rows) / 1e3 / max(1, sum(e.count for e in rows))
+
+
+def time_width(tag, label, fn, plain, reps, bytes_, flops, n):
+    """One kernel at one width: events and device time, bound, the plain
+    version's events time; printed, -> a dict for the results."""
+    ev, dev = cuda_ms(fn, reps), device_ms(fn, reps)
+    bms, bby = bound(bytes_, flops, n)
+    pms = cuda_ms(plain, 1 if n > 100000 else 3)
+    print(f"{tag} {label} B={n}: {ev:.4f} ms by events, {dev:.4f} ms device time (profiler), bound {bms:.5f} ms "
+          f"({bby}, {100 * bms / dev:.1f}% of the device time), plain {pms:.3f} ms")
+    return dict(B=n, ms=ev, dev_ms=dev, bound_ms=bms, bound_by=bby, plain_ms=pms)
+
+
+def hold_k1(label, model, q, qd, leaves=None):
+    """K1 against its plain version on (q, qd) (leaves: the model's own,
+    batch stride 0, as the paths pass them, unless given): poses 2e-5 (the
+    float32 rounding of chains of ~26 rotations, |x| <= 3 m), M 1e-5 and
+    bias 1e-4 relative to their largest entry (the kernel sums in double,
+    the plain version in float32). -> the largest absolute error."""
+    import torch
+    from robosuite_tpu_torch.ops import forward
+
+    kin_k, M_k, bias_k = forward.forward_products(model, q, qd, *(leaves or ()))
+    kin_p, M_p, bias_p = forward.forward_plain(model, q, qd, *(leaves or forward.model_leaves(model, q.shape[0])))
+    torch.cuda.synchronize()
+    fields = [f for f, v in kin_p.__dict__.items() if v is not None]
+    pose_err = max(max_err(getattr(kin_k, f), getattr(kin_p, f)) for f in fields)
+    check(f"{label} poses", pose_err, 2e-5)
+    check(f"{label} M (relative)", max_err(M_k, M_p) / max(1.0, float(M_p.abs().max())), 1e-5)
+    check(f"{label} bias (relative)", max_err(bias_k, bias_p) / max(1.0, float(bias_p.abs().max())), 1e-4)
+    return max(pose_err, max_err(M_k, M_p), max_err(bias_k, bias_p))
+
+
+def k1_bytes(model, n):
+    """Bytes K1 must move for n scenarios: qpos and qvel read, the model's
+    leaves read once (batch stride 0), the 13 outputs written."""
+    nq, nv, nb, ng, ns = model.nq, model.nv, model.nbody, model.ngeom, model.nsite
+    per = (nq + nv) + 3 * nb + 4 * nb + 9 * nb + 12 * ng + 12 * ns + 6 * nv + nv * nv + nv + 12 * nb
+    return 4 * (n * per + nb + 3 * nb + 3 + nv)
+
+
+WIDTHS = []  # (world, {kernel: {batch: launches}}) of each path, counted from zero
+
+
+def clear_widths():
+    from robosuite_tpu_torch.ops import fk, forward
+
+    forward.forward_products.by_batch.clear()
+    fk.fk_pose.by_batch.clear()
+
+
+def take_widths(world):
+    """Record the launches of K1 and K4 by batch size since clear_widths."""
+    from robosuite_tpu_torch.ops import fk, forward
+
+    WIDTHS.append((world, {"K1": dict(forward.forward_products.by_batch), "K4": dict(fk.fk_pose.by_batch)}))
 
 
 def max_err(a, b):
@@ -185,22 +270,28 @@ def box_box_branches(model, qpos, k):
 
 def hold_pair_dist(label, model, pd_k, pd_p, qpos_k, qpos_p, tol=2e-5, tie=1e-5):
     """Hold per-pair minimum distances (B, npair) to the plain version's in
-    every scenario. A box-box pair emits an edge-cross candidate only where
-    its best edge separation beats every face separation; where the two tie
-    within the float32 rounding of the two versions' post-step poses, they
-    can decide differently, and the minimum jumps between two values. A
-    (scenario, pair) beyond `tol` passes only with that witness: the
-    float64 tie margin within `tie` at both versions' post-step qpos, and
-    the kernel's and the plain version's values each within `tol` of a
-    different side of the tie. Every case is printed. -> the largest error
-    held (the witnessed near-ties set aside)."""
+    every scenario. A (scenario, box-box pair) beyond `tol` passes only
+    with one of two float64 witnesses, recomputed at both versions'
+    post-step qpos; every case is printed. (1) A near-tie: a box-box pair
+    emits an edge-cross candidate only where its best edge separation beats
+    every face separation; where the two tie within the float32 rounding of
+    the two versions' poses, they can decide differently, and the minimum
+    jumps between two values. The witness: the tie margin within `tie` at
+    both qpos, and the two values each within `tol` of a different side.
+    (2) An ill-conditioned edge: an edge-cross separation divides by |a x
+    b| of two edges, so for nearly parallel edges the float32 rounding of
+    the poses moves it by more than `tol` in either version. The witness:
+    the kernel's value within `tol` of the float64 distance at its own
+    qpos, and the float64 distances at the two qpos within `tol` of each
+    other (the plain version's own float32 error is the rest). -> the
+    largest error held (the witnessed cases set aside)."""
     import torch
 
     from robosuite_tpu_torch.models import spec as S
 
     err = (pd_k - pd_p).abs()
     bad = torch.nonzero(err > tol).tolist()
-    witnessed = 0
+    ties = exact = 0
     if len(bad) <= 64:
         for b, k in bad:
             dk, dp = float(pd_k[b, k]), float(pd_p[b, k])
@@ -211,13 +302,19 @@ def hold_pair_dist(label, model, pd_k, pd_p, qpos_k, qpos_p, tol=2e-5, tie=1e-5)
             mp, vp, ep = (float(x[0]) for x in box_box_branches(model, qpos_p[b:b + 1], k))
             flip = (abs(mk) <= tie and abs(mp) <= tie
                     and ((abs(dk - vk) <= tol and abs(dp - ep) <= tol) or (abs(dk - ek) <= tol and abs(dp - vp) <= tol)))
+            d64k, d64p = (ek if mk > 0 else vk), (ep if mp > 0 else vp)  # the float64 distance at each qpos
+            f64 = not flip and abs(mk) > tie and abs(mp) > tie and abs(dk - d64k) <= tol and abs(d64k - d64p) <= tol
             print(f"{label} scenario {b} pair {k}: kernel {dk:.6e} plain {dp:.6e}; float64 tie margin, vertex-only "
                   f"and with-edge minimum at the kernel's qpos {mk:.3e} {vk:.6e} {ek:.6e}, at the plain's qpos "
-                  f"{mp:.3e} {vp:.6e} {ep:.6e}: {'a near-tie decided differently' if flip else 'NOT a near-tie'}")
-            if flip:
+                  f"{mp:.3e} {vp:.6e} {ep:.6e}; kernel - float64 {dk - d64k:.3e}, plain - float64 {dp - d64p:.3e}: "
+                  + ("a near-tie decided differently" if flip else
+                     "the kernel agrees with float64, the plain version's float32 error" if f64 else "NOT witnessed"))
+            if flip or f64:
                 err[b, k] = 0.0
-                witnessed += 1
-    check(f"{label} pair_dist, every scenario ({witnessed} witnessed near-ties set aside)", float(err.max()), tol)
+                ties += flip
+                exact += f64
+    check(f"{label} pair_dist, every scenario ({ties} witnessed near-ties, {exact} witnessed float64 agreements "
+          f"set aside)", float(err.max()), tol)
     return float(err.max())
 
 
@@ -305,6 +402,32 @@ def ptxas_report(log_path):
             if m and cur is not None:
                 cur["registers"] = int(m[1])
     return {v: next(r for fn, r in per_fn.items() if k in fn) for v, k in VARIANT_KERNEL.items()}
+
+
+def profile_once(tag, label, fn, top):
+    """fn() once under torch.profiler; prints the wall time, the device's
+    busy time, the `top` kernels by device time and the device time of
+    every kernel of the port (rs_*). -> (fn's result, wall ms, busy ms, the
+    top rows, the port's rows), each row (kernel, ms, launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.self_device_time_total > 0), key=lambda r: -r[1])
+    dev_ms = sum(r[1] for r in rows)
+    print(f"{tag} {label} under the profiler: wall {wall_ms:.2f} ms, device busy {dev_ms:.2f} ms "
+          f"({100 * dev_ms / wall_ms:.1f}%)")
+    for key, ms, n in rows[:top]:
+        print(f"{tag}   {ms:8.3f} ms  x{n:<5d} {key[:90]}")
+    port = [(k.split("(")[0].split()[-1], ms, n) for k, ms, n in rows if "rs_" in k]
+    print(f"{tag}   the port's kernels: " + "; ".join(f"{k} {ms:.3f} ms x{n}" for k, ms, n in port))
+    return out, wall_ms, dev_ms, rows[:top], port
 
 
 def nbytes(*tensors):
@@ -475,7 +598,6 @@ def stack_slice(tag, results):
     counts of the env step (reset + STEPS policy steps), of the MPC ticks
     and of the unfused policy step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import robosuite_tpu_torch as R
     from robosuite_tpu_torch.mpc import receding
@@ -508,26 +630,18 @@ def stack_slice(tag, results):
     states, obs = env.reset_batch(B, gen)
     if not all(torch.isfinite(v.float()).all() for v in obs.values()) or not bool(obs["placement_valid"].all()):
         fail("Stack reset: non-finite observations or an invalid placement")
-    k1_err = 0.0
+    k1_err, k1_rows = 0.0, results.setdefault("k1_widths", [])
     for n in (B, STACK_B):
         q, qd = states.physics.qpos[:n], states.physics.qvel[:n]
-        leaves = forward.runtime_leaves(model, n)
-        kin_k, M_k, bias_k = forward.forward_products(model, q, qd, *leaves)
-        kin_p, M_p, bias_p = forward.forward_plain(model, q, qd, *leaves)
-        torch.cuda.synchronize()
-        fields = [f for f, v in kin_p.__dict__.items() if v is not None]
-        pose_err = max(max_err(getattr(kin_k, f), getattr(kin_p, f)) for f in fields)
-        check(f"Stack K1 poses (B={n})", pose_err, 2e-5)
-        check(f"Stack K1 M (relative, B={n})", max_err(M_k, M_p) / max(1.0, float(M_p.abs().max())), 1e-5)
-        check(f"Stack K1 bias (relative, B={n})", max_err(bias_k, bias_p) / max(1.0, float(bias_p.abs().max())), 1e-4)
-        k1_err = max(k1_err, pose_err, max_err(M_k, M_p), max_err(bias_k, bias_p))
-    q, qd = states.physics.qpos, states.physics.qvel
+        k1_err = max(k1_err, hold_k1(f"Stack K1 (B={n})", model, q, qd))
+        k1_rows.append(dict(world="Stack", **time_width(
+            tag, "K1 Stack", lambda: forward.forward_products(model, q, qd),
+            lambda: forward.forward_plain(model, q, qd, *forward.model_leaves(model, n)), 20, k1_bytes(model, n),
+            flops["K1"], n)))
     leaves = forward.runtime_leaves(model, B)
-    kin_k, M_k, bias_k = forward.forward_products(model, q, qd, *leaves)
-    stack_k["K1"] = dict(max_abs_err=k1_err, ms=cuda_ms(lambda: forward.forward_products(model, q, qd, *leaves), 20),
-                         plain_ms=cuda_ms(lambda: forward.forward_plain(model, q, qd, *leaves), 3),
-                         bound=bound(nbytes(q, qd, *leaves, M_k, bias_k, *(getattr(kin_k, f) for f in fields)),
-                                     flops["K1"], B))
+    k1 = k1_rows[-2]
+    stack_k["K1"] = dict(max_abs_err=k1_err, ms=k1["ms"], dev_ms=k1["dev_ms"], plain_ms=k1["plain_ms"],
+                         bound=(k1["bound_ms"], k1["bound_by"]))
 
     # a contact-rich state: cubeA dropped onto cubeB in every other scenario
     # (stacked boxes with parallel faces, the structural SAT tie), the other
@@ -629,6 +743,7 @@ def stack_slice(tag, results):
     # ---- 15. the Stack env-step slice: reset + 10 policy steps on the fused path
     actions = torch.clamp(0.3 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
     zero_counts()
+    clear_widths()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     states, _ = env.reset_batch(B, gen)
@@ -640,6 +755,7 @@ def stack_slice(tag, results):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = kcounts()
+    take_widths("Stack")
     print(f"Stack main path launches over reset + {STEPS} policy steps: {counts}")
     if counts != {"K1": 2 * STEPS + 1, "K2": 0, "K3": 25 * STEPS, "K3-aux": 0, "K4": 0}:
         fail(f"unexpected Stack launch counts {counts}")
@@ -655,21 +771,11 @@ def stack_slice(tag, results):
     torch.cuda.synchronize()
     steady = B * STEPS / (time.perf_counter() - t0)
     print(f"{tag} Stack env policy-steps/s (B={B}, {STEPS} steps after the above, host clock): {steady:.1f}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        env.rollout_batch(states, actions)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-                   if e.self_device_time_total > 0), key=lambda r: -r[1])
-    dev_ms = sum(r[1] for r in rows)
-    print(f"{tag} one Stack policy step under the profiler: wall {wall_ms:.2f} ms, device busy {dev_ms:.2f} ms "
-          f"({100 * dev_ms / wall_ms:.1f}%)")
-    for key, ms_, n in rows[:6]:
-        print(f"{tag}   {ms_:8.3f} ms  x{n:<4d} {key[:90]}")
+    _, wall_ms, dev_ms, top, port = profile_once(tag, "one Stack policy step",
+                                                 lambda: env.rollout_batch(states, actions), 6)
     results.update(stack_policy_steps_per_s=B * STEPS / dt, stack_steady_policy_steps_per_s=steady,
                    stack_launches=counts, stack_profile_wall_ms=wall_ms, stack_profile_device_ms=dev_ms,
-                   stack_profile_top=rows[:6])
+                   stack_profile_top=top, stack_profile_port=port)
 
     # each policy step of that run, substep by substep: the kernel and the
     # plain substep from the same input, then on from the kernel's output;
@@ -705,9 +811,11 @@ def stack_slice(tag, results):
     start, after = trail[STEPS // 2], trail[STEPS // 2 + 1]
     env._disable_fused = True
     zero_counts()
+    clear_widths()
     s_u, _ = env.rollout_batch(start, actions)
     torch.cuda.synchronize()
     counts_u = kcounts()
+    take_widths("Stack")
     print(f"Stack unfused policy step launches: {counts_u}")
     if counts_u != {"K1": env.n_substeps + 2, "K2": env.n_substeps, "K3": 0, "K3-aux": 0, "K4": 0}:
         fail(f"unexpected Stack unfused launch counts {counts_u}")
@@ -751,6 +859,7 @@ def stack_slice(tag, results):
     torch.cuda.synchronize()
     print(f"{tag} Stack MPC warm-up tick s: {time.perf_counter() - t0:.3f}")
     zero_counts()
+    clear_widths()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = tick_launches(cfg, mpc, env, False)
@@ -767,26 +876,16 @@ def stack_slice(tag, results):
     torch.cuda.synchronize()
     mpc_dt = time.perf_counter() - t0
     mpc_counts = kcounts()
+    take_widths("Stack")
     solves = STACK_B * STACK_TICKS / mpc_dt
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"{tag} Stack MPC solves/s (B={STACK_B}, H={cfg.horizon}, K={cfg.n_samples}, MPPI only; ticks "
           f"1-{STACK_TICKS}, host clock): {solves:.1f}; mean executed reward {float(rew.mean()):.4f}; "
           f"masked rollouts {int(met['n_masked'].sum())}; peak device memory {peak_gb:.2f} GB")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tick(mstates, ms)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-                   if e.self_device_time_total > 0), key=lambda r: -r[1])
-    dev_ms = sum(r[1] for r in rows)
-    print(f"{tag} one Stack MPC tick under the profiler: wall {wall_ms:.2f} ms, device busy {dev_ms:.2f} ms "
-          f"({100 * dev_ms / wall_ms:.1f}%)")
-    for key, ms_, n in rows[:8]:
-        print(f"{tag}   {ms_:8.3f} ms  x{n:<5d} {key[:90]}")
+    _, wall_ms, dev_ms, top, port = profile_once(tag, "one Stack MPC tick", lambda: tick(mstates, ms), 8)
     results.update(stack_mpc_solves_per_s=solves, stack_mpc_launches=mpc_counts, stack_mpc_peak_gb=peak_gb,
                    stack_mpc_profile_wall_ms=wall_ms, stack_mpc_profile_device_ms=dev_ms,
-                   stack_mpc_profile_top=rows[:8])
+                   stack_mpc_profile_top=top, stack_mpc_profile_port=port)
     for k, r in stack_k.items():
         print(f"{tag} Stack {k}: {r['ms']:.4f} ms/launch at B={B}, plain {r['plain_ms']:.3f} ms, "
               f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
@@ -848,25 +947,14 @@ def main():
     q, qd = states.physics.qpos, states.physics.qvel
     q_reset = q
     leaves = forward.runtime_leaves(model, B)
-    kin_k, M_k, bias_k = forward.forward_products(model, q, qd, *leaves)
-    kin_p, M_p, bias_p = forward.forward_plain(model, q, qd, *leaves)
-    torch.cuda.synchronize()
-    kin_fields = [f for f, v in kin_p.__dict__.items() if v is not None]
-    pose_err = max(max_err(getattr(kin_k, f), getattr(kin_p, f)) for f in kin_fields)
-    # poses: float32 rounding of chains of ~26 rotations (|x| <= 3 m);
-    # M and bias: the kernel sums in double, the plain version in float32
-    check("K1 poses", pose_err, 2e-5)
-    m_scale = max(1.0, float(M_p.abs().max()))
-    b_scale = max(1.0, float(bias_p.abs().max()))
-    check("K1 M (relative)", max_err(M_k, M_p) / m_scale, 1e-5)
-    check("K1 bias (relative)", max_err(bias_k, bias_p) / b_scale, 1e-4)
-    k1_err = max(pose_err, max_err(M_k, M_p), max_err(bias_k, bias_p))
-    k1_ms = cuda_ms(lambda: forward.forward_products(model, q, qd, *leaves), 20)
-    k1_plain = cuda_ms(lambda: forward.forward_plain(model, q, qd, *leaves), 3)
-    k1_bytes = nbytes(q, qd, *leaves, M_k, bias_k, *(getattr(kin_k, f) for f in kin_fields))
-    results["kernels"]["K1"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
-                                    bound=bound(k1_bytes, flops["K1"], B))
-    torch.cuda.synchronize()
+    # as the paths call it (the model's own leaves, batch stride 0), and with
+    # per-scenario contiguous leaves
+    k1_err = max(hold_k1("K1", model, q, qd), hold_k1("K1 (contiguous leaves)", model, q, qd, leaves))
+    k1 = time_width(tag, "K1 Lift", lambda: forward.forward_products(model, q, qd),
+                    lambda: forward.forward_plain(model, q, qd, *leaves), 20, k1_bytes(model, B), flops["K1"], B)
+    results["k1_widths"] = [dict(world="Lift", **k1)]
+    results["kernels"]["K1"] = dict(max_abs_err=k1_err, ms=k1["ms"], dev_ms=k1["dev_ms"], plain_ms=k1["plain_ms"],
+                                    bound=(k1["bound_ms"], k1["bound_by"]))
 
     # ---- drive to a contact-rich state: the grip site to the cube, fingers closing
     s = states
@@ -939,6 +1027,7 @@ def main():
     forward.forward_products.launches = 0
     contact_solve.vel_update.launches = 0
     substep.make_fused_substep.launches = substep.make_fused_substep.aux_launches = fk.fk_pose.launches = 0
+    clear_widths()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     states, _ = env.reset_batch(B, gen)
@@ -953,6 +1042,7 @@ def main():
     counts = {"K1": forward.forward_products.launches, "K2": contact_solve.vel_update.launches,
               "K3": substep.make_fused_substep.launches, "K3-aux": substep.make_fused_substep.aux_launches,
               "K4": fk.fk_pose.launches}
+    take_widths("Lift")
     print(f"main path launches over reset + {STEPS} policy steps: {counts}")
     if (counts["K3"] != 25 * STEPS or counts["K1"] != 2 * STEPS + 1 or counts["K2"] != 0
             or counts["K3-aux"] != 0 or counts["K4"] != 0):
@@ -976,23 +1066,9 @@ def main():
     results.update(steady_policy_steps_per_s=steady)
 
     # where one policy step's time goes: device time by kernel vs wall time
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        env.rollout_batch(states, actions)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    dev_ms = sum(r[1] for r in rows)
-    print(f"{tag} one policy step under the profiler: wall {wall_ms:.2f} ms, device busy {dev_ms:.2f} ms "
-          f"({100 * dev_ms / wall_ms:.1f}%)")
-    for key, ms, n in rows[:6]:
-        print(f"{tag}   {ms:8.3f} ms  x{n:<4d} {key[:90]}")
-    results.update(profile_wall_ms=wall_ms, profile_device_ms=dev_ms, profile_top=rows[:6])
+    _, wall_ms, dev_ms, top, port = profile_once(tag, "one policy step",
+                                                 lambda: env.rollout_batch(states, actions), 6)
+    results.update(profile_wall_ms=wall_ms, profile_device_ms=dev_ms, profile_top=top, profile_port=port)
 
     # one policy step: kernel path vs the plain composition on the card
     s1, r1 = env.rollout_batch(start, actions)
@@ -1018,11 +1094,13 @@ def main():
     env._disable_fused = True
     forward.forward_products.launches = contact_solve.vel_update.launches = 0
     substep.make_fused_substep.launches = 0
+    clear_widths()
     s2, r2 = env.rollout_batch(start, actions)
     torch.cuda.synchronize()
     env._disable_fused = False
     counts_u = {"K1": forward.forward_products.launches, "K2": contact_solve.vel_update.launches,
                 "K3": substep.make_fused_substep.launches}
+    take_widths("Lift")
     print(f"unfused policy step launches: {counts_u}")
     if counts_u != {"K1": env.n_substeps + 2, "K2": env.n_substeps, "K3": 0}:
         fail(f"unexpected unfused launch counts {counts_u}")
@@ -1030,13 +1108,25 @@ def main():
     check("unfused vs fused policy step reward", max_err(r2, r1), 1e-4)
     phase_done("env-step slice (reset + policy steps, profile, kernel vs plain, unfused)")
 
-    # ---- 8. K4 (pose-only FK) vs plain at random arm poses, at B=4096 and at
-    # the MPC path's widths: the iLQR costs at B, B*H, 4*B and 4*B*H (128, 8192,
-    # 512, 32768 for bench.py's B=128, H=64 and 4 line-search steps)
+    # ---- 8. K1 at the MPC path's widths and K4 (pose-only FK) vs plain, at
+    # random arm poses. K1: 32 (Stack's executed step, here on Lift), 128 (the
+    # iLQR nominal rollout), 4096 (the MPPI start, B*K); K4: B=4096 and the
+    # iLQR costs at B, B*H, 4*B and 4*B*H (128, 8192, 512, 32768 for
+    # bench.py's B=128, H=64 and 4 line-search steps)
     B4, BK4 = 4096, 32768
     g4 = torch.Generator(device="cuda").manual_seed(SEED + 4)
     q4 = q_reset.repeat(BK4 // B, 1)
     q4[:, :7] += 0.5 * torch.randn(BK4, 7, generator=g4, device="cuda")
+    qd4 = 0.2 * torch.randn(BK4, model.nv, generator=torch.Generator(device="cuda").manual_seed(SEED + 8),
+                            device="cuda")  # its own generator: phase 9 draws from g4 next
+    for n in (32, 128, B4):
+        hold_k1(f"K1 (B={n})", model, q4[:n], qd4[:n])
+    for n in (128, B4):
+        q, qd = q4[:n], qd4[:n]
+        results["k1_widths"].append(dict(world="Lift", **time_width(
+            tag, "K1 Lift", lambda: forward.forward_products(model, q, qd),
+            lambda: forward.forward_plain(model, q, qd, *forward.model_leaves(model, n)), 20,
+            k1_bytes(model, n), flops["K1"], n)))
     k4_err = 0.0
     for n in (128, 512, B4, 8192, BK4):
         xp_k, xq_k = fk.fk_pose(model, q4[:n])
@@ -1046,11 +1136,13 @@ def main():
         check(f"K4 xpos (B={n})", max_err(xp_k, xp_p), 2e-5)
         check(f"K4 xquat (B={n})", max_err(xq_k, xq_p), 2e-5)
         k4_err = max(k4_err, max_err(xp_k, xp_p), max_err(xq_k, xq_p))
-    print(f"{tag} K4 ms/launch at B=8192: {cuda_ms(lambda: fk.fk_pose(model, q4[:8192]), 20):.4f}")
-    results["kernels"]["K4"] = dict(
-        max_abs_err=k4_err, ms=cuda_ms(lambda: fk.fk_pose(model, q4), 20),
-        plain_ms=cuda_ms(lambda: fk.fk_pose_plain(model, q4), 3), batch=BK4,
-        bound=bound(nbytes(q4, xp_k, xq_k), flops["K4"], BK4))
+    results["k4_widths"] = [time_width(tag, "K4", lambda n=n: fk.fk_pose(model, q4[:n]),
+                                       lambda n=n: fk.fk_pose_plain(model, q4[:n]), 20,
+                                       nbytes(q4[:n]) + 4 * n * 7 * model.nbody, flops["K4"], n)
+                            for n in (8192, BK4)]
+    k4 = results["k4_widths"][-1]
+    results["kernels"]["K4"] = dict(max_abs_err=k4_err, ms=k4["ms"], dev_ms=k4["dev_ms"], plain_ms=k4["plain_ms"],
+                                    batch=BK4, bound=(k4["bound_ms"], k4["bound_by"]))
     phase_done("K4 vs plain")
 
     # ---- 9. K3-aux vs plain at the contact-rich state, 2-point planning model ---------
@@ -1071,7 +1163,7 @@ def main():
           f"{int((out_p[-1] < 0).sum())} over {B} scenarios")
     # qpos/qvel as K3's; the poses as K1's. A pair distance moves with the
     # geoms' positions, which the qpos tolerance bounds at a ~1 m lever arm
-    # (hold_pair_dist sets aside only witnessed SAT near-ties)
+    # (hold_pair_dist sets aside only float64-witnessed cases)
     aux_tols = {"qpos": 1e-5, "qvel": 1e-3, "site_xpos": 2e-5, "site_xmat": 2e-5, "xpos": 2e-5}
 
     def hold_aux(label, out_k, out_p):
@@ -1094,6 +1186,20 @@ def main():
     out4_p = substep.substep_aux_plain(env, plan, *a4)
     torch.cuda.synchronize()
     aux_err = max(aux_err, hold_aux(f"K3-aux (B={B4})", out4, out4_p))
+    # and on a second draw of the offsets from the same seed (the one g4
+    # gives when it has first made phase 8's velocities too): a scenario
+    # there has a cube edge nearly parallel to a finger pad's (|a x b| 2e-3)
+    # at 0.53 m, where the kernel's float32 separation misses float64 by
+    # 1.7e-5 and the plain version's by 4.7e-6 the other way
+    g9 = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    for n in (7, model.nv):
+        torch.randn(BK4, n, generator=g9, device="cuda")
+    a4b = [t.repeat((B4 // B,) + (1,) * (t.dim() - 1)) for t in a_args]
+    a4b[1] = a4b[1].clone()
+    a4b[1][B:, :7] += 0.05 * torch.randn(B4 - B, 7, generator=g9, device="cuda")
+    out4b, out4b_p = fused_aux(*a4b), substep.substep_aux_plain(env, plan, *a4b)
+    torch.cuda.synchronize()
+    aux_err = max(aux_err, hold_aux(f"K3-aux (B={B4}, second draw)", out4b, out4b_p))
     results["resident_per_sm"]["K3-aux"] = substep.resident_per_sm(fused_aux)
     print(f"K3-aux resident scenarios per SM (Lift planning model): {results['resident_per_sm']['K3-aux']}")
     results["kernels"]["K3-aux"] = dict(
@@ -1157,7 +1263,29 @@ def main():
     check("FD dynamics qpos (kernel vs plain)", max_err(F_k[:, :nq], F_p[:, :nq]), 1e-5)
     check("FD dynamics qvel (kernel vs plain)", max_err(F_k[:, nq:nq + nv], F_p[:, nq:nq + nv]), 1e-3)
     check("FD dynamics gripper ramp (kernel vs plain)", max_err(F_k[:, nq + nv:], F_p[:, nq + nv:]), 1e-6)
-    del X, U, F_k, F_p, xs, us
+    del U, F_k, F_p, xs, us
+    # K1 alone at the sweep's width, on the sweep's own states (its one K1
+    # launch), against the plain version on the strided rows; then timed
+    lin = mpc.lin_model
+    qx, qvx = X[:, :nq].contiguous(), X[:, nq:nq + nv].contiguous()
+    del X
+    kin_k, M_k, bias_k = forward.forward_products(lin, qx, qvx)
+    kin_k = {f: v[rows] for f, v in kin_k.__dict__.items() if v is not None}
+    M_k, bias_k = M_k[rows], bias_k[rows]
+    torch.cuda.empty_cache()
+    kin_p, M_p, bias_p = forward.forward_plain(lin, qx[rows], qvx[rows], *forward.model_leaves(lin, rows.numel()))
+    check(f"K1 poses (B={N}, {rows.numel()} strided rows)", max(max_err(v, getattr(kin_p, f))
+                                                                for f, v in kin_k.items()), 2e-5)
+    check(f"K1 M (relative, B={N}, strided rows)", max_err(M_k, M_p) / max(1.0, float(M_p.abs().max())), 1e-5)
+    check(f"K1 bias (relative, B={N}, strided rows)",
+          max_err(bias_k, bias_p) / max(1.0, float(bias_p.abs().max())), 1e-4)
+    del kin_k, M_k, bias_k, kin_p, M_p, bias_p
+    results["k1_widths"].append(dict(world="Lift", **time_width(
+        tag, "K1 Lift", lambda: forward.forward_products(lin, qx, qvx),
+        lambda: forward.forward_plain(lin, qx, qvx, *forward.model_leaves(lin, N)), 5, k1_bytes(lin, N),
+        flops["K1"], N)))
+    del qx, qvx
+    torch.cuda.empty_cache()
     phase_done("planning hooks, kernel vs plain")
 
     # ---- 11. the slice at full width: MPC ticks (bench.py's MPC workload) -------------
@@ -1184,6 +1312,7 @@ def main():
 
     forward.forward_products.launches = contact_solve.vel_update.launches = 0
     substep.make_fused_substep.launches = substep.make_fused_substep.aux_launches = fk.fk_pose.launches = 0
+    clear_widths()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     per_tick, finite, improved, fulls = [], [], [], []
@@ -1201,6 +1330,7 @@ def main():
     torch.cuda.synchronize()
     mpc_dt = time.perf_counter() - t0
     mpc_counts = kcounts()
+    take_widths("Lift")
     for i, (got, full) in enumerate(zip(per_tick, fulls)):
         want = tick_launches(cfg, mpc, env_m, full)
         print(f"MPC tick {i + 1} ({'full relinearization' if full else 'frozen linearization'}) launches: {got}")
@@ -1219,21 +1349,11 @@ def main():
     results.update(mpc_solves_per_s=solves, mpc_launches=mpc_counts, mpc_per_tick=per_tick, mpc_finite=fin,
                    mpc_improved=imp, mpc_peak_gb=peak_gb)
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        mstates, ms, met, actions, rewards = tick(mstates, ms)  # tick 5, a frozen-linearization tick
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    dev_ms = sum(r[1] for r in rows)
-    print(f"{tag} one MPC tick under the profiler: wall {wall_ms:.2f} ms, device busy {dev_ms:.2f} ms "
-          f"({100 * dev_ms / wall_ms:.1f}%)")
-    for key, ms_, n in rows[:8]:
-        print(f"{tag}   {ms_:8.3f} ms  x{n:<5d} {key[:90]}")
-    results.update(mpc_profile_wall_ms=wall_ms, mpc_profile_device_ms=dev_ms, mpc_profile_top=rows[:8])
+    # tick 5, a frozen-linearization tick
+    (mstates, ms, met, actions, rewards), wall_ms, dev_ms, top, port = profile_once(
+        tag, "one MPC tick", lambda: tick(mstates, ms), 8)
+    results.update(mpc_profile_wall_ms=wall_ms, mpc_profile_device_ms=dev_ms, mpc_profile_top=top,
+                   mpc_profile_port=port)
     phase_done("MPC slice at full width")
 
     stack_counts, stack_mpc_counts, stack_counts_u = stack_slice(tag, results)
@@ -1261,6 +1381,24 @@ def main():
     print(f"launches over Lift reset + {STEPS} policy steps {counts}, one unfused step {counts_u}, MPC ticks "
           f"1-{TICKS} {mpc_counts}; over Stack reset + {STEPS} policy steps {stack_counts}, one unfused step "
           f"{stack_counts_u}, MPC ticks 1-{STACK_TICKS} {stack_mpc_counts}")
+    # K1 and K4 at each width: the launches there over every path (each
+    # counted from zero), beside the times of phases 4, 8, 10 and 12
+    by_width = {}
+    for world, w in WIDTHS:
+        for k, per_b in w.items():
+            for n, c in per_b.items():
+                key = (k, world if k == "K1" else "Lift", n)
+                by_width[key] = by_width.get(key, 0) + c
+    for r in results["k1_widths"]:
+        r["launches"] = by_width.get(("K1", r["world"], r["B"]), 0)
+    for r in results["k4_widths"]:
+        r["launches"] = by_width.get(("K4", "Lift", r["B"]), 0)
+    print(f"K1 and K4 launches by (kernel, world, batch) over the paths: {dict(sorted(by_width.items()))}")
+    for label, rows_ in (("K1", results["k1_widths"]), ("K4", results["k4_widths"])):
+        for r in rows_:
+            print(f"{tag} {label} {r.get('world', 'Lift')} B={r['B']}: launches {r['launches']}, {r['ms']:.4f} ms by "
+                  f"events, {r['dev_ms']:.4f} ms device, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), plain "
+                  f"{r['plain_ms']:.3f} ms")
     line = []
     for k, r in results["kernels"].items():
         bms, bby = r["bound"]

@@ -1,48 +1,84 @@
-"""K3's four variants, K1 and K2 timed on one card for two trees of this
-package, the stage split of K3, and the scenarios-per-block sweep.
+"""The port's kernels timed on one card for two trees of this package, the
+stage splits of K3 and K1, and the sweeps of their launch layouts.
 
     git archive <commit> robosuite_tpu_torch | tar -x -C <dir>
-    python -m robosuite_tpu_torch.ab_kernels <dir>     # A/B, then the split
-    python -m robosuite_tpu_torch.ab_kernels split     # the split alone
-    python -m robosuite_tpu_torch.ab_kernels sweep     # scenarios per block
+    python -m robosuite_tpu_torch.ab_kernels <dir>      # A/B, then the splits
+    python -m robosuite_tpu_torch.ab_kernels split      # the splits alone
+    python -m robosuite_tpu_torch.ab_kernels sweep      # K1's and K4's layouts
+    python -m robosuite_tpu_torch.ab_kernels sweep-k3   # K2's and K3's scenarios a block
+    python -m robosuite_tpu_torch.ab_kernels aux-draw <dir>   # K3-aux of both trees on one input
 
 run from the repository root on a machine with a CUDA GPU and nvcc.
 
 A/B: the parent tree in <dir> and this one, in the order parent, this,
 this, parent, each in its own process (so each loads its own kernel
-build). Each run prints one JSON line: ms per launch of K3 (OSC), K1 and
-K2 at B=512 at a contact-rich Lift state (the arm driven onto the cube,
-fingers closing) and K3-aux at B=4096 on Lift's 2-point planning model;
-of K3-JP at B=32 and 512, K1 and K2 at B=512 and K3-aux-JP at B=512 on
+build). Each run prints one JSON line: ms per launch of K3 (OSC) and K2 at
+B=512 at a contact-rich Lift state (the arm driven onto the cube, fingers
+closing) and K3-aux at B=4096 on Lift's 2-point planning model; K1 at that
+state at every width the paths launch it at (Lift: 128 and 512, the iLQR
+rollouts; 512, the env step; 4096, the MPPI start; 335,872, the
+forward-difference sweep; Stack: 32 and 512), called as the paths call it
+(the model's own leaves), and at 4096 and 335,872 on distinct random arm
+poses and velocities (`K1-random`); K4 at 8192 and 32768 (the iLQR costs) at random
+arm poses; K3-JP at B=32 and 512, K2 at B=512 and K3-aux-JP at B=512 on
 Stack's planning model (dt 25 ms, 10 solver iterations) at a Stack state
 after a reset and four policy steps; and, where the tree reports it, each
-K3 variant's resident scenarios per SM.
-K2's operands are the plain path's at each state. Each case is timed two
-ways after a warm-up: by CUDA events around its calls (`<case>_ms_B<n>`,
-which includes any wait for the wrapper on the host) and by the
-profiler's device time of its rs_* kernels alone (`<case>_dev_ms_B<n>`).
+K3 variant's resident scenarios per SM. K2's operands are the plain
+path's at each state. Each case is timed two ways after a warm-up: by CUDA
+events around its calls (`<case>_ms_B<n>`, which includes any wait for the
+wrapper on the host) and by the profiler's device time of its rs_* kernels
+alone (`<case>_dev_ms_B<n>`); K1 and K4 up to B=4096 also by the host
+time of a call, queued without a wait (`<case>_host_us_B<n>`).
 
 Split: a diagnostic build of this tree's kernels (nvcc -DRS_STAGE_CLOCKS,
 its own build directory; the port never loads it) records clock64() at the
 end of each stage of block 0's first scenario (csrc/common.cuh RS_STAMP).
 One launch per case (K3 at B=512, K3-aux at B=4096, K3-JP at B=32,
-K3-aux-JP at B=512) prints the cycles of each stage and their share.
+K3-aux-JP at B=512; K1 on Lift at 512 and 335,872 and on Stack at 512;
+K4 at 8192 and 32768) prints the cycles of each stage and their share.
 
-Sweep: this tree's kernels built with 1, 2 and 4 scenarios (warps) a block
-(nvcc -DRS_S_FORWARD=S -DRS_S_SOLVE=S -DRS_S_SUBSTEP=S, a build directory
-each, all three compiled at once), each case timed in each build, with each
-K3 variant's resident scenarios per SM: the measurement behind the defaults
-in csrc/common.cuh.
+Sweep: this tree's kernels built with each pair of K1_SWEEP (K1's and
+K4's scenarios a block, nvcc -DRS_S_FORWARD -DRS_S_FK; a build directory
+each, all compiled at once), each K1 and K4 case timed in each build: the
+measurement behind the defaults in csrc/common.cuh.
+Sweep-k3: the full library built with 1, 2 and 4 scenarios (warps) a block
+of K2 and K3 (nvcc -DRS_S_SOLVE=S -DRS_S_SUBSTEP=S), their cases timed in
+each, with each K3 variant's resident scenarios per SM.
+
+Aux-draw: K3-aux of the parent tree in <dir> and of this one on the same
+inputs, chip_smoke.py phase 9's at B*K=4096 (made once, by this tree, and
+saved): the velocity offsets of phase 9 (AUX_DRAWS "phase9") and a second
+draw of them from the same seed ("second", the draw phase 9 gets when its
+generator has first made K1's random velocities too). Each tree holds its
+outputs against the plain version with chip_smoke.py's tolerances and
+hold_pair_dist (also the distances recomputed in float64 at the kernel's
+post-step qpos, what a float64-exact kernel would give), and prints, for
+each (scenario, pair) past the distance tolerance, that pair's minimum
+distance recomputed in float64 from the float64 poses, from the plain
+float32 poses and from K1's, and its best edge pair's |a x b|; then the
+two trees' outputs are compared bit for bit.
 """
+import concurrent.futures
 import ctypes
 import json
 import os
 import subprocess
 import sys
 
-SWEEP = (1, 2, 4)
+SWEEP = (1, 2, 4)  # sweep-k3's scenarios a block
+K1_SWEEP = ((4, 32), (2, 64), (8, 128))  # sweep: (K1, K4) scenarios a block
 STAGES = ("load", "tree walk", "poses", "CRBA", "RNEA", "torque law", "smooth forces", "narrowphase", "rows",
           "Cholesky 1 + whitening", "power iterations", "APGD", "Cholesky 2", "integration", "aux tail")
+K1_STAGES = ("load", "tree walk", "poses", "CRBA", "RNEA", "frames", "store")
+K4_STAGES = ("load", "joint terms + walk", "store")
+K1_WIDTHS = (128, 512, 4096, 335872)   # Lift: iLQR rollouts, env step, MPPI start, FD sweep
+K1_STACK_WIDTHS = (32, 512)            # Stack: the executed MPC step, env step and MPPI start
+K4_WIDTHS = (8192, 32768)              # the iLQR stage and terminal costs
+K1_RANDOM_WIDTHS = (4096, 335872)      # K1 on distinct random scenarios too
+# aux-draw: the (count, width) normal draws made from chip_smoke.py's seed 4
+# before K3-aux's velocity offsets: K1's random arm poses, and with
+# "second" its random velocities too
+AUX_DRAWS = {"phase9": ((32768, 7),), "second": ((32768, 7), (32768, "nv"))}
 
 
 def _k2_args(env, s, leaves, torch):
@@ -62,61 +98,97 @@ def _k2_args(env, s, leaves, torch):
         C.APGD_ITERS, C.POWER_ITERS, model.timestep)
 
 
-def _cases(R, forward, engine, torch):
-    """{name: (wrapper, args, batch)} for the timed kernels."""
-    from robosuite_tpu_torch.ops import contact_solve
-
-    cases = {}
-    B = 512
+def _states(R, engine, torch, B=512):
+    """(Lift env, its contact-rich states; Stack env, its states after a
+    reset and four policy steps), B scenarios each."""
     env = R.make("Lift", robots="Panda", reward_shaping=True, seed=0)
-    model = env.model
     s, _ = env.reset_batch(B, torch.Generator(device="cuda").manual_seed(0))
     for i in range(16):  # chip_smoke.py's contact-rich Lift state
-        eef = env._get_observations(s.physics, engine.forward_products(model, s.physics.qpos, s.physics.qvel)[0])
+        eef = env._get_observations(s.physics,
+                                    engine.forward_products(env.model, s.physics.qpos, s.physics.qvel)[0])
         a = torch.zeros(B, env.action_dim, device="cuda")
         a[:, :3] = torch.clamp(-eef["gripper_to_cube_pos"] * 40.0, -1.0, 1.0)
         a[:, 6] = -1.0 if i < 12 else 1.0
         s, _ = env.rollout_batch(s, a)
-    q, qd = s.physics.qpos, s.physics.qvel
-    leaves = forward.runtime_leaves(model, B)
-    kin = forward.forward_plain(model, q, qd, *leaves)[0]
-    robot = env.robots[0]
-    goal, gains = env._fused_goal_fn(robot, "right", s.ctrl, kin)
-    args = (q, qd, *leaves, goal, gains, robot.gripper_ctrl("right", s.ctrl).contiguous())
-    cases["K3"] = (env._fused_for(model), args, B)
-    plan = model.replace(timestep=0.025, solver_iters=10, pair_points_cap=2)
-    cases["K3-aux"] = (env._fused_for(plan, emit_aux=True),
-                       tuple(t.repeat((8,) + (1,) * (t.dim() - 1)) for t in args), 8 * B)
-    cases["K1"] = (lambda *a, m=model: forward.forward_products(m, *a), (q, qd, *leaves), B)
-    cases["K2"] = (contact_solve.vel_update, _k2_args(env, s, leaves, torch), B)
-
-    env = R.make("Stack", robots="Panda", controller_configs="JOINT_POSITION", reward_shaping=True)
-    model, robot = env.model, env.robots[0]
+    senv = R.make("Stack", robots="Panda", controller_configs="JOINT_POSITION", reward_shaping=True)
     gen = torch.Generator(device="cuda").manual_seed(20)
-    s, _ = env.reset_batch(B, gen)
-    a = torch.clamp(0.5 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
+    ss, _ = senv.reset_batch(B, gen)
+    a = torch.clamp(0.5 * torch.randn(B, senv.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
     for _ in range(4):
-        s, _ = env.rollout_batch(s, a)
-    q, qd = s.physics.qpos, s.physics.qvel
-    leaves = forward.runtime_leaves(model, B)
-    kin = forward.forward_plain(model, q, qd, *leaves)[0]
-    goal, gains = env._fused_goal_fn(robot, "right", s.ctrl, kin)
-    args = (q, qd, *leaves, goal, gains, robot.gripper_ctrl("right", s.ctrl).contiguous())
-    fused = env._fused_for(model)
-    cases["K3-JP-32"] = (fused, tuple(t[:32].contiguous() for t in args), 32)
-    cases["K3-JP"] = (fused, args, B)
-    plan = model.replace(timestep=0.025, solver_iters=10)
-    cases["K3-aux-JP"] = (env._fused_for(plan, emit_aux=True), args, B)
-    cases["K1-Stack"] = (lambda *a, m=model: forward.forward_products(m, *a), (q, qd, *leaves), B)
-    cases["K2-Stack"] = (contact_solve.vel_update, _k2_args(env, s, leaves, torch), B)
+        ss, _ = senv.rollout_batch(ss, a)
+    return env, s, senv, ss
+
+
+def _widen(t, n):
+    """n rows of t (B, ...): its first n, or copies of it."""
+    B = t.shape[0]
+    return t[:n].contiguous() if n <= B else t.repeat((n // B,) + (1,) * (t.dim() - 1))
+
+
+def _k1_k4_cases(R, forward, engine, torch, states):
+    """{name: (wrapper, args, batch)} for K1 at its widths and K4, called as
+    the paths call them."""
+    from robosuite_tpu_torch.ops import fk
+
+    env, s, senv, ss = states
+    cases = {}
+    for n in K1_WIDTHS:
+        args = tuple(_widen(t, n) for t in (s.physics.qpos, s.physics.qvel))
+        cases[f"K1@{n}"] = (lambda q, qd, m=env.model: forward.forward_products(m, q, qd), args, n)
+    for n in K1_STACK_WIDTHS:
+        args = tuple(_widen(t, n) for t in (ss.physics.qpos, ss.physics.qvel))
+        cases[f"K1-Stack@{n}"] = (lambda q, qd, m=senv.model: forward.forward_products(m, q, qd), args, n)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q4 = _widen(s.physics.qpos, max(K4_WIDTHS)).clone()
+    q4[:, :7] += 0.5 * torch.randn(q4.shape[0], 7, generator=g, device="cuda")
+    for n in K1_RANDOM_WIDTHS:  # distinct scenarios: random arm poses and velocities
+        qr = _widen(s.physics.qpos, n).clone()
+        qr[:, :7] += 0.5 * torch.randn(n, 7, generator=g, device="cuda")
+        qdr = 0.2 * torch.randn(n, env.model.nv, generator=g, device="cuda")
+        cases[f"K1-random@{n}"] = (lambda q, qd, m=env.model: forward.forward_products(m, q, qd), (qr, qdr), n)
+    for n in K4_WIDTHS:
+        cases[f"K4@{n}"] = (lambda q, m=env.model: fk.fk_pose(m, q), (q4[:n],), n)
+    return cases
+
+
+def _k2_k3_cases(forward, torch, states):
+    """{name: (wrapper, args, batch)} for K2 and K3's four variants."""
+    from robosuite_tpu_torch.ops import contact_solve
+
+    env, s, senv, ss = states
+    cases = {}
+    B = s.physics.qpos.shape[0]
+    for e, st, tag in ((env, s, ""), (senv, ss, "-Stack")):
+        model, robot = e.model, e.robots[0]
+        q, qd = st.physics.qpos, st.physics.qvel
+        leaves = forward.runtime_leaves(model, B)
+        kin = forward.forward_plain(model, q, qd, *leaves)[0]
+        goal, gains = e._fused_goal_fn(robot, "right", st.ctrl, kin)
+        args = (q, qd, *leaves, goal, gains, robot.gripper_ctrl("right", st.ctrl).contiguous())
+        cases[f"K2{tag}@{B}"] = (contact_solve.vel_update, _k2_args(e, st, leaves, torch), B)
+        if not tag:
+            cases[f"K3@{B}"] = (e._fused_for(model), args, B)
+            plan = model.replace(timestep=0.025, solver_iters=10, pair_points_cap=2)
+            cases[f"K3-aux@{8 * B}"] = (e._fused_for(plan, emit_aux=True),
+                                        tuple(t.repeat((8,) + (1,) * (t.dim() - 1)) for t in args), 8 * B)
+        else:
+            fused = e._fused_for(model)
+            cases["K3-JP@32"] = (fused, tuple(t[:32].contiguous() for t in args), 32)
+            cases[f"K3-JP@{B}"] = (fused, args, B)
+            plan = model.replace(timestep=0.025, solver_iters=10)
+            cases[f"K3-aux-JP@{B}"] = (e._fused_for(plan, emit_aux=True), args, B)
     return cases
 
 
 DIAG = ("-DRS_STAGE_CLOCKS",)
 
 
-def _sweep_defines(S):
-    return tuple(f"-DRS_S_{k}={S}" for k in ("FORWARD", "SOLVE", "SUBSTEP"))
+def _sweep_k3_defines(S):
+    return tuple(f"-DRS_S_{k}={S}" for k in ("SOLVE", "SUBSTEP"))
+
+
+def _k1_sweep_defines(S, F):
+    return (f"-DRS_S_FORWARD={S}", f"-DRS_S_FK={F}")
 
 
 def _ms(torch, fn, args, reps):
@@ -132,8 +204,9 @@ def _ms(torch, fn, args, reps):
 
 
 def _device_ms(torch, fn, args, reps):
-    """Mean ms per call of the device time of the rs_* kernels that fn
-    launches (torch.profiler), free of the host's pace."""
+    """Mean ms per launch of the device time of the rs_* kernel that fn
+    launches (torch.profiler), free of the host's pace; over the launches
+    the profiler recorded (it can miss some of a run of long kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(*args)
@@ -142,33 +215,183 @@ def _device_ms(torch, fn, args, reps):
         for _ in range(reps):
             fn(*args)
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages() if "rs_" in e.key) / 1e3 / reps
+    rows = [e for e in prof.key_averages() if "rs_" in e.key]  # each call launches one rs_ kernel
+    return sum(e.self_device_time_total for e in rows) / 1e3 / max(1, sum(e.count for e in rows))
+
+
+def _host_us(torch, fn, args, reps):
+    """Mean microseconds of host time per call, the launches queued and not
+    waited for (the wrapper's own cost where the device keeps up)."""
+    import time
+
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(*args)
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
 
 
 def _time(torch, cases, out):
-    """Both times of every case into out."""
+    """The times of every case (`<kernel>@<batch>`) into out: events,
+    device, and for K1 and K4 the wrapper's host time."""
     for name, (fn, args, n) in cases.items():
         reps = 10 if n > 1024 else 50
-        out[f"{name}_ms_B{n}"] = _ms(torch, fn, args, reps)
-        out[f"{name}_dev_ms_B{n}"] = _device_ms(torch, fn, args, reps)
+        k = name.split("@")[0]
+        out[f"{k}_ms_B{n}"] = _ms(torch, fn, args, reps)
+        out[f"{k}_dev_ms_B{n}"] = _device_ms(torch, fn, args, reps)
+        if k.startswith(("K1", "K4")) and n <= 4096:
+            out[f"{k}_host_us_B{n}"] = _host_us(torch, fn, args, reps)
+
+
+def _clock_split(torch, fn, args, read, stages):
+    """Cycles of each stage of block 0's first scenario in fn's second
+    launch (the diagnostic build's stamps 0 .. len(stages))."""
+    clocks = (ctypes.c_longlong * 16)()
+    for _ in range(2):  # the second launch is the one read
+        read(clocks)
+        fn(*args)
+        torch.cuda.synchronize()
+    if read(clocks):
+        sys.exit("reading the stage clocks failed")
+    c = list(clocks)
+    split = {stages[i - 1]: c[i] - c[i - 1] for i in range(1, len(stages) + 1)}
+    return c[len(stages)] - c[0], split
+
+
+def _aux_draw_make(R, engine, forward, torch, path):
+    """chip_smoke.py phase 9's K3-aux inputs at B*K=4096 for each draw of
+    AUX_DRAWS, saved (on the host) to path."""
+    env, s, _, _ = _states(R, engine, torch)
+    B, B4, nv = s.physics.qpos.shape[0], 4096, env.model.nv
+    plan = env.model.replace(timestep=0.025, solver_iters=10, pair_points_cap=2)
+    leaves = forward.runtime_leaves(env.model, B)
+    kin = forward.forward_plain(plan, s.physics.qpos, s.physics.qvel, *leaves)[0]
+    robot = env.robots[0]
+    goal, gains = env._fused_goal_fn(robot, "right", s.ctrl, kin)
+    args = (s.physics.qpos, s.physics.qvel, *leaves, goal, gains, robot.gripper_ctrl("right", s.ctrl).contiguous())
+    out = {}
+    for name, before in AUX_DRAWS.items():
+        g = torch.Generator(device="cuda").manual_seed(4)
+        for n, w in before:
+            torch.randn(n, nv if w == "nv" else w, generator=g, device="cuda")
+        a4 = [t.repeat((B4 // B,) + (1,) * (t.dim() - 1)) for t in args]
+        a4[1] = a4[1].clone()
+        a4[1][B:, :7] += 0.05 * torch.randn(B4 - B, 7, generator=g, device="cuda")
+        out[name] = [t.cpu() for t in a4]
+    torch.save(out, path)
+
+
+def _min_dist64(C, model, xpos, xmat, k):
+    """Pair k's minimum distance over its vertex and emitted-or-not best
+    edge candidates (chip_smoke.py box_box_branches), recomputed in float64
+    from geom poses xpos (N, ng, 3), xmat (N, ng, 3, 3); and the |a x b| of
+    its best edge pair."""
+    import torch
+
+    def operand(g):
+        return (tuple(xpos[:, g, i].double() for i in range(3)),
+                [[xmat[:, g, i, j].double() for j in range(3)] for i in range(3)],
+                tuple(model.geom_size[g, i].double() for i in range(3)))
+
+    args = operand(model.pair_geom1[k]) + operand(model.pair_geom2[k])
+    vertex = torch.stack([c[0] for c in C._np_box_box(*args)[:16]], dim=-1).amin(dim=-1)
+    _, best_e, cands = C.box_box_sat(*args)
+    seps = torch.stack([torch.where(v, sep, torch.full_like(sep, -float("inf"))) for sep, _, _, v in cands], -1)
+    i, j = divmod(int(seps[0].argmax()), 3)
+    a, b = (torch.stack([xmat[0, g, r, c].double() for r in range(3)]) for g, c in
+            ((model.pair_geom1[k], i), (model.pair_geom2[k], j)))
+    edge = torch.where(seps >= best_e[..., None] - 1e-9, seps, torch.full_like(seps, float("inf"))).amin(-1)
+    return float(torch.minimum(vertex, edge)[0]), float(torch.linalg.cross(a, b).norm())
+
+
+def _aux_draw_hold(R, forward, substep, torch, path, tree, this_root):
+    """This tree's K3-aux on the saved inputs, held against the plain
+    version; its outputs saved beside path as aux_out_<tree>.pt."""
+    import importlib.util
+
+    from robosuite_tpu_torch.physics import contact as C
+    from robosuite_tpu_torch.physics import kinematics
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(this_root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    env = R.make("Lift", robots="Panda", reward_shaping=True, seed=0)
+    plan = env.model.replace(timestep=0.025, solver_iters=10, pair_points_cap=2)
+    fused_aux = env._fused_for(plan, emit_aux=True)
+    names = ("qpos", "qvel", "f", "site_xpos", "site_xmat", "xpos", "pair_dist")
+    tols = {"qpos": 1e-5, "qvel": 1e-3, "site_xpos": 2e-5, "site_xmat": 2e-5, "xpos": 2e-5}
+    saved = {}
+    for draw, a4 in torch.load(path).items():
+        a4 = [t.cuda() for t in a4]
+        out_k, out_p = fused_aux(*a4), substep.substep_aux_plain(env, plan, *a4)
+        torch.cuda.synchronize()
+        label = f"{tree} K3-aux ({draw} draw)"
+        for name, a, b in zip(names, out_k, out_p):
+            if name in tols:
+                smoke.check(f"{label} {name}", smoke.max_err(a, b), tols[name])
+        smoke.hold_pair_dist(label, plan, out_k[-1], out_p[-1], out_k[0], out_p[0])
+        m64 = plan.replace().double()
+        # what a float64-exact kernel would give: the distances recomputed in
+        # float64 at the kernel's post-step qpos, held to the plain version's
+        d64 = C.pair_min_dists(m64, kinematics.fk(m64, out_k[0].double()))
+        smoke.hold_pair_dist(f"{label}, float64 at the kernel's qpos", plan, d64.float(), out_p[-1], out_k[0],
+                             out_p[0])
+        for b, k in torch.nonzero((out_k[-1] - out_p[-1]).abs() > 2e-5).tolist()[:16]:
+            q = out_k[0][b:b + 1]
+            kin32 = kinematics.fk(plan, q)
+            kin64 = kinematics.fk(m64, q.double())
+            k1 = forward.forward_products(plan, q, a4[1][b:b + 1])[0]
+            d = {src: _min_dist64(C, plan, kin.geom_xpos, kin.geom_xmat, k)
+                 for src, kin in (("float64", kin64), ("plain float32", kin32), ("K1", k1))}
+            print(json.dumps({"tree": tree, "draw": draw, "scenario": b, "pair": k,
+                              "kernel": float(out_k[-1][b, k]), "plain": float(out_p[-1][b, k]),
+                              "float64 min from poses of": {src: v[0] for src, v in d.items()},
+                              "best edge |a x b|": d["float64"][1]}), flush=True)
+        saved[draw] = dict(zip(names, (t.cpu() for t in out_k)))
+    torch.save(saved, os.path.join(os.path.dirname(path), f"aux_out_{tree}.pt"))
+    print(json.dumps({"tree": tree, "failed": smoke.FAILED}), flush=True)
+
+
+def _aux_draw_compare(path):
+    """The two trees' K3-aux outputs on the same inputs, bit for bit."""
+    import torch
+
+    d = os.path.dirname(path)
+    outs = {t: torch.load(os.path.join(d, f"aux_out_{t}.pt")) for t in ("parent", "this")}
+    for draw, o in outs["this"].items():
+        p = outs["parent"][draw]
+        print(json.dumps({"draw": draw, "this vs parent": {
+            k: {"equal": bool(torch.equal(o[k], p[k])), "max_abs_diff": float((o[k] - p[k]).abs().max()),
+                "scenarios_differing": int((o[k] != p[k]).flatten(1).any(1).sum())} for k in o}}), flush=True)
 
 
 def main(argv):
     me = os.path.abspath(__file__)
-    if len(argv) == 2 and argv[1] not in ("split", "sweep"):
+    if len(argv) == 3 and argv[1] == "aux-draw":
+        roots = {"parent": os.path.abspath(argv[2]), "this": os.getcwd()}
+        builds = [subprocess.Popen([sys.executable, me, "build", r], cwd=r) for r in roots.values()]
+        if any(p.wait() for p in builds):
+            sys.exit("a kernel build failed")
+        path = os.path.join(roots["this"], "_archive", "aux_draw", "inputs.pt")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        subprocess.run([sys.executable, me, "aux-draw-make", roots["this"], path], check=True)
+        for name in ("parent", "this"):
+            subprocess.run([sys.executable, me, "aux-draw-hold", roots[name], path, name, roots["this"]],
+                           cwd=roots[name], check=True)
+        _aux_draw_compare(path)
+        return
+    if len(argv) == 2 and argv[1] not in ("split", "sweep", "sweep-k3"):
         roots = {"parent": os.path.abspath(argv[1]), "this": os.getcwd()}
         builds = [subprocess.Popen([sys.executable, me, "build", r], cwd=r) for r in roots.values()]
-        builds.append(subprocess.Popen([sys.executable, me, "build", roots["this"], *DIAG], cwd=roots["this"]))
         if any(p.wait() for p in builds):
             sys.exit("a kernel build failed")
         for name in ("parent", "this", "this", "parent"):
             subprocess.run([sys.executable, me, "time", roots[name], name], cwd=roots[name], check=True)
         argv = [argv[0], "split"]
-    if len(argv) == 2:  # split or sweep: build, then run it in a process of its own, on this tree
-        variants = [DIAG] if argv[1] == "split" else [_sweep_defines(S) for S in SWEEP]
-        builds = [subprocess.Popen([sys.executable, me, "build", os.getcwd(), *d]) for d in variants]
-        if any(p.wait() for p in builds):
-            sys.exit("a kernel build failed")
+    if len(argv) == 2:  # split or a sweep, in a process of its own, on this tree
         subprocess.run([sys.executable, me, f"{argv[1]}-run", os.getcwd()], check=True)
         return
     mode, root = argv[1], argv[2]
@@ -182,51 +405,64 @@ def main(argv):
     if os.path.dirname(os.path.dirname(os.path.abspath(R.__file__))) != root:
         sys.exit(f"imported {R.__file__}, not the tree at {root}")
     if mode == "build":
-        if argv[3:]:
-            build.build(defines=tuple(argv[3:]))
-        else:  # the parent tree's build() takes no defines
-            build.build()
+        build.build()
+        return
+    if mode == "aux-draw-make":
+        _aux_draw_make(R, engine, forward, torch, argv[3])
+        return
+    if mode == "aux-draw-hold":
+        _aux_draw_hold(R, forward, substep, torch, argv[3], argv[4], argv[5])
         return
     torch.backends.cuda.matmul.allow_tf32 = False
-    if mode == "split-run":
-        diag = build.load(build.build(defines=DIAG))
-        diag.rs_stage_clocks.argtypes = [ctypes.c_void_p]
-        diag.rs_stage_clocks.restype = ctypes.c_int
-        build.library = lambda: diag  # the wrappers below launch the diagnostic build
-    cases = _cases(R, forward, engine, torch)
+    variants = {"split-run": [DIAG], "sweep-run": [_k1_sweep_defines(*v) for v in K1_SWEEP],
+                "sweep-k3-run": [_sweep_k3_defines(S) for S in SWEEP]}.get(mode, [])
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(variants))) as pool:  # all builds at once
+        paths = list(pool.map(lambda d: build.build(defines=d), variants))
+    states = _states(R, engine, torch)
     resident = getattr(substep, "resident_per_sm", None)
     if mode == "time":
         out = {"tree": argv[3]}
+        cases = {**_k1_k4_cases(R, forward, engine, torch, states), **_k2_k3_cases(forward, torch, states)}
         _time(torch, cases, out)
         if resident is not None:
             out["resident_scenarios_per_sm"] = {k: resident(fn) for k, (fn, _, _) in cases.items() if "K3" in k}
         print(json.dumps(out), flush=True)
         return
-    if mode == "sweep-run":  # each case in each build, the builds in turn
-        for S in SWEEP:
-            lib = build.load(build.build(defines=_sweep_defines(S)))
+    if mode == "sweep-run":  # K1's and K4's cases in each layout, the builds in turn
+        for v, path in zip(K1_SWEEP, paths):
+            lib = build.load(path)
             build.library = lambda lib=lib: lib
+            out = dict(zip(("k1_scenarios_per_block", "k4_scenarios_per_block"), v))
+            _time(torch, _k1_k4_cases(R, forward, engine, torch, states), out)
+            print(json.dumps(out), flush=True)
+        return
+    if mode == "sweep-k3-run":  # K2's and K3's cases in each build
+        for S, path in zip(SWEEP, paths):
+            lib = build.load(path)
+            build.library = lambda lib=lib: lib
+            cases = _k2_k3_cases(forward, torch, states)
             out = {"scenarios_per_block": S}
             _time(torch, cases, out)
             out["resident_scenarios_per_sm"] = {k: resident(fn) for k, (fn, _, _) in cases.items() if "K3" in k}
             print(json.dumps(out), flush=True)
         return
-    mhz = torch.cuda.get_device_properties(0).clock_rate / 1e3 if hasattr(
-        torch.cuda.get_device_properties(0), "clock_rate") else None
-    clocks = (ctypes.c_longlong * 16)()
-    for name in ("K3", "K3-aux", "K3-JP-32", "K3-aux-JP"):
-        fn, args, n = cases[name]
-        for _ in range(2):  # the second launch is the one read
-            diag.rs_stage_clocks(clocks)
-            fn(*args)
-            torch.cuda.synchronize()
-        if diag.rs_stage_clocks(clocks):
-            sys.exit("reading the stage clocks failed")
-        c = list(clocks)
-        last = 15 if "aux" in name else 14
-        split = {STAGES[i - 1]: c[i] - c[i - 1] for i in range(1, last + 1)}
-        total = c[last] - c[0]
-        print(json.dumps({"case": name, "B": n, "total_cycles": total,
+    diag = build.load(paths[0])
+    for fn_name in ("rs_stage_clocks", "rs_forward_stage_clocks", "rs_fk_stage_clocks"):
+        getattr(diag, fn_name).argtypes = [ctypes.c_void_p]
+        getattr(diag, fn_name).restype = ctypes.c_int
+    build.library = lambda: diag  # the wrappers below launch the diagnostic build
+    props = torch.cuda.get_device_properties(0)
+    mhz = props.clock_rate / 1e3 if hasattr(props, "clock_rate") else None
+    k3 = _k2_k3_cases(forward, torch, states)
+    k1 = _k1_k4_cases(R, forward, engine, torch, states)
+    runs = [(n, k3[n], diag.rs_stage_clocks, STAGES[:15 if "aux" in n else 14])
+            for n in ("K3@512", "K3-aux@4096", "K3-JP@32", "K3-aux-JP@512")]
+    runs += [(n, k1[n], diag.rs_forward_stage_clocks, K1_STAGES)
+             for n in ("K1@512", "K1@335872", "K1-Stack@512")]
+    runs += [(n, k1[n], diag.rs_fk_stage_clocks, K4_STAGES) for n in ("K4@8192", "K4@32768")]
+    for name, (fn, args, n), read, stages in runs:
+        total, split = _clock_split(torch, fn, args, read, stages)
+        print(json.dumps({"case": name.split("@")[0], "B": n, "total_cycles": total,
                           "total_us_at_max_clock": total / mhz if mhz else None, "cycles": split,
                           "share": {k: round(v / total, 4) for k, v in split.items()}}), flush=True)
 

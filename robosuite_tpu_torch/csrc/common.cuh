@@ -60,6 +60,20 @@ struct WarpTeam {
     return (int)__reduce_min_sync(0xffffffffu, k == m ? (unsigned)idx : 0xffffffffu);
   }
 };
+
+// The whole block as one team (K1's and K4's block-wide stages: the staged
+// loads and the output spans).
+struct BlockTeam {
+  RS_DEV int rank() const { return threadIdx.x; }
+  RS_DEV int size() const { return blockDim.x; }
+  RS_DEV void sync() const { __syncthreads(); }
+};
+#endif
+
+#ifndef __CUDACC__
+struct float4 {  // the host form of CUDA's 16-byte vector
+  float x, y, z, w;
+};
 #endif
 
 // One lane runs one scenario: the host form of the device code.
@@ -116,12 +130,20 @@ static __device__ long long rs_stage_clock[RS_NSTAGES];
 #define RS_MAXCT 800   // RS_MAXP * 25: narrowphase candidates, all pairs
 #define RS_MAXA 8      // arm dofs
 #define RS_MAXGR 4     // gripper actuators
+#define RS_MAXPR 384   // (body, dof) pairs with anc != 0
+#define RS_MAXV1 25    // RS_MAXV + 1 and RS_MAXB + 1: prefix tables over the dofs and the bodies
+#define RS_MAXB1 33
+#define RS_MAXV2 576   // RS_MAXV * RS_MAXV: the mass matrix's entries
 
-// Scenarios (one warp each) a block of K1, K2 and K3, fixed at compile
-// time; `python -m robosuite_tpu_torch.ab_kernels sweep` builds and times
-// other values with -D (PERF.md gives the sweep).
+// Scenarios a block of K1, K2 and K3 (one warp each) and K4 (one thread
+// each), fixed at compile time; `python -m robosuite_tpu_torch.ab_kernels
+// sweep` (K1, K4) and `sweep-k3` (K2, K3) build and time other values with
+// -D (PERF.md gives the sweeps).
 #ifndef RS_S_FORWARD
-#define RS_S_FORWARD 2
+#define RS_S_FORWARD 4
+#endif
+#ifndef RS_S_FK
+#define RS_S_FK 32
 #endif
 #ifndef RS_S_SOLVE
 #define RS_S_SOLVE 2
@@ -163,6 +185,15 @@ struct RsTables {
   int dof_bodyid[RS_MAXV], dof_free_trans[RS_MAXV];
   float dof_damping[RS_MAXV], dof_frictionloss[RS_MAXV];
   float anc[RS_MAXB][RS_MAXV];  // 1 if dof d moves body b
+  // the (body, dof) pairs with anc != 0, twice: dof-major (by dof, then
+  // body ascending, entry 256 b + d, dof d's run from dof_pr0[d]) and
+  // body-major (by body, then dof ascending, entry d, body b's run from
+  // body_pr0[b])
+  int npr, pr_db[RS_MAXPR], dof_pr0[RS_MAXV1], pr_bd[RS_MAXPR], body_pr0[RS_MAXB1];
+  // M[e][d] (index e nv + d, row stride nv) from CRBA's sums: 256 row + col
+  // of the (row, col) with body(col) moved by dof row, or -1 where neither
+  // dof moves the other's body
+  int m_rc[RS_MAXV2];
 
   int geom_bodyid[RS_MAXG];
   float geom_pos[RS_MAXG][3], geom_quat[RS_MAXG][4], geom_size[RS_MAXG][3];
@@ -191,16 +222,19 @@ struct RsTables {
   int grip_act[RS_MAXGR];
 };
 
-// Carves consecutive regions out of one scenario's shared memory, in
-// 4-byte words; with a null base it only counts them (the size a launch
-// asks for). ops/tables.py smem_words mirrors every carve.
+// Carves consecutive regions out of shared memory, in 4-byte words; with
+// a null base it only counts them (the size a launch asks for). A region
+// holds S scenarios' chunks one after another and hands out scenario s's,
+// so that a block's chunks of one array form one contiguous span (K1's
+// block-contiguous outputs); S = 1 carves one scenario's memory alone.
 struct Carver {
   float* base;
   int w;
+  int S = 1, s = 0;
   RS_HD float* take(int words, int align = 1) {
     w = (w + align - 1) / align * align;
-    float* p = base ? base + w : nullptr;
-    w += words;
+    float* p = base ? base + w + s * words : nullptr;
+    w += S * words;
     return p;
   }
   RS_HD double* take_d(int n) { return reinterpret_cast<double*>(take(2 * n, 2)); }

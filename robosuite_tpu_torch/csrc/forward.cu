@@ -1,54 +1,104 @@
-// K1: batched forward products, one warp per scenario.
+// K1: batched forward products, RS_S_FORWARD scenarios a block, one warp
+// each.
 //
 // Replaces robosuite_tpu/ops/pallas_forward.py _pallas_forward (body
-// forward_lane_body). What bounds it on this card: neither bytes (about
-// 9.6 KB in and out per scenario, the larger of its two bounds) nor
-// operations (about 30 kFLOP per scenario) but latency: the FK tree walk
-// is a serial chain of 26 dependent quaternion products on one lane, and
-// the later per-body / per-dof stages are short. The design runs each
-// scenario on one warp (forward.cuh forward_team, the same code K3 runs),
-// S scenarios a block, with its arrays carved from the model's own sizes
-// in dynamic shared memory (at most about 10 KB a scenario at the
-// compile-time maxima, so four fit the default 48 KB), and writes each
-// output once.
+// forward_lane_body). What bounds it on this card: latency. Its work is
+// small (Lift: 9.1 KB written and 0.1 KB read, ~30 kFLOP a scenario, half
+// in float64), so at the env's and the iLQR's widths one scenario's chain
+// of stages is the time, and at the forward-difference sweep's 335,872
+// scenarios that chain over the scenarios an SM holds (its bytes bound is
+// a fifth of its time there). The design shortens the chain (the serial
+// tree walk, CRBA, RNEA) and moves the bytes in whole lines:
+//   - the block stages the model rows the pass reads (a compact image of
+//     the table, one span copy, forward.cuh carve_tab) in shared memory, so
+//     the walk and the pair loops wait on shared loads, not on chains of
+//     dependent global ones;
+//   - the walk's parent-independent joint terms come off the chain, one
+//     joint a lane; the chain keeps the quaternion products alone, a
+//     parent's pose in registers down a chain (forward.cuh fk_walk);
+//   - CRBA's per-pair terms spread over the (body, dof) pairs with anc != 0,
+//     one a lane, summed per dof in the list's fixed order; RNEA runs over
+//     each body's or dof's run of the pair list;
+//   - the block's scenarios are carved region by region (carve_k1), so each
+//     input and output is one contiguous span for the block, loaded and
+//     stored 16 bytes a thread by consecutive threads; the geom and site
+//     poses are staged there too;
+//   - the 13 outputs are one allocation (the launcher derives the offsets,
+//     k1_offset), and the inertial leaves may have batch stride 0 (the
+//     model's own leaves, expanded without a copy).
 #include "forward.cuh"
 
-// Shared memory of one K1 scenario, in words, rounded to 4.
-static int forward_words(const RsTables& T) {
-  Carver c{nullptr, 0};
-  Fwd s;
-  carve_fwd(T, c, s);
-  carve_rnea(T, c, s);
-  return (c.w + 3) / 4 * 4;
-}
-
-__global__ void __launch_bounds__(RS_S_FORWARD * 32) rs_forward_kernel(
-    const RsTables* __restrict__ T, int words, int B, const float* qpos, const float* qvel, const float* mass,
-    const float* inertia, const float* gravity, const float* armature, float* xpos, float* xquat, float* xmat,
-    float* gxpos, float* gxmat, float* sxpos, float* sxmat, float* sdof_ang, float* sdof_lin, float* M, float* bias,
-    float* xipos, float* ximat) {
+__global__ void __launch_bounds__(RS_S_FORWARD * 32)
+    rs_forward_kernel(const RsTables* __restrict__ T, const float* __restrict__ tab, int B, K1Io io) {
   extern __shared__ __align__(16) float rs_smem[];
-  const int warp = threadIdx.x >> 5, b = blockIdx.x * RS_S_FORWARD + warp;
-  if (b >= B) return;
-  Carver c{rs_smem + (size_t)warp * words, 0};
-  Fwd s;
-  carve_fwd(*T, c, s);
-  carve_rnea(*T, c, s);
-  forward_body(WarpTeam(), *T, s, b, qpos, qvel, mass, inertia, gravity, armature, xpos, xquat, xmat, gxpos, gxmat,
-               sxpos, sxmat, sdof_ang, sdof_lin, M, bias, xipos, ximat);
+  constexpr int S = RS_S_FORWARD;
+  const size_t b0 = (size_t)blockIdx.x * S;
+  const int nS = min(S, B - (int)b0), team = threadIdx.x / 32;
+  const BlockTeam bk{};
+  FwdTab F;
+  Fwd f0, f;
+  Frames fr0, fr;
+  carve_k1(*T, rs_smem, S, 0, F, f0, fr0);
+  carve_k1(*T, rs_smem, S, team, F, f, fr);
+  const int tw = (int)(f0.q - rs_smem);  // the image's words
+  RS_STAMP(0);
+  load_rows(bk, rs_smem, tw, tab, tw, tw, 1);
+  k1_load(bk, F, f0, b0, nS, io);
+  __syncthreads();
+  RS_STAMP(1);
+  const WarpTeam tm{};
+  if (team < nS) forward_team(tm, F, f);
+  __syncthreads();  // the frames take the place of every scenario's scratch
+  if (team < nS) frames_team(tm, F, f, fr);
+  RS_STAMP(6);
+  __syncthreads();
+  k1_store(bk, F, f0, fr0, b0, nS, (size_t)B, io.out);
+  RS_STAMP(7);
 }
 
-extern "C" int rs_forward(const void* T, const void* T_host, const float* qpos, const float* qvel,
-                          const float* mass, const float* inertia, const float* gravity, const float* armature,
-                          float* xpos, float* xquat, float* xmat, float* gxpos, float* gxmat, float* sxpos,
-                          float* sxmat, float* sdof_ang, float* sdof_lin, float* M, float* bias, float* xipos,
-                          float* ximat, int B, void* stream) {
+// Bytes of shared memory a K1 block takes for the host copy of a table.
+extern "C" int rs_forward_smem_bytes(const void* T_host) {
+  FwdTab F;
+  Fwd f;
+  Frames fr;
+  return 4 * carve_k1(*(const RsTables*)T_host, nullptr, RS_S_FORWARD, 0, F, f, fr);
+}
+
+// The model image K1 and K4 stage (forward.cuh carve_tab) of the host copy
+// of a table into out (host memory; null: only counted); -> its words.
+extern "C" int rs_forward_tab(const void* T_host, float* out) {
+  return forward_tab_image(*(const RsTables*)T_host, out);
+}
+
+// K1 on B scenarios: qpos (B, nq), qvel (B, nv), the leaves mass (., nb),
+// inertia (., nb, 3), gravity (., 3), armature (., nv) with batch strides
+// (in floats; 0: one row for all), into the one output allocation out
+// (k1_offset); tab is the model image (rs_forward_tab) on the device. ->
+// the CUDA error.
+extern "C" int rs_forward(const void* T, const void* T_host, const float* tab, const float* qpos, const float* qvel,
+                          const float* mass, int mass_bs, const float* inertia, int inertia_bs, const float* gravity,
+                          int gravity_bs, const float* armature, int armature_bs, float* out, int B, void* stream) {
   constexpr int S = RS_S_FORWARD;
-  const int words = forward_words(*(const RsTables*)T_host);
-  rs_forward_kernel<<<(B + S - 1) / S, 32 * S, (size_t)S * words * 4, (cudaStream_t)stream>>>(
-      (const RsTables*)T, words, B, qpos, qvel, mass, inertia, gravity, armature, xpos, xquat, xmat, gxpos, gxmat,
-      sxpos, sxmat, sdof_ang, sdof_lin, M, bias, xipos, ximat);
+  static int opted = 48 * 1024;
+  const int bytes = rs_forward_smem_bytes(T_host);
+  if (bytes > opted) {
+    cudaError_t err = cudaFuncSetAttribute(rs_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    opted = bytes;
+  }
+  const K1Io io{qpos, qvel, mass, inertia, gravity, armature, mass_bs, inertia_bs, gravity_bs, armature_bs, out};
+  rs_forward_kernel<<<(B + S - 1) / S, 32 * S, bytes, (cudaStream_t)stream>>>((const RsTables*)T, tab, B, io);
   return (int)cudaGetLastError();
 }
 
 extern "C" int rs_tables_size() { return (int)sizeof(RsTables); }
+
+#ifdef RS_STAGE_CLOCKS
+// The diagnostic build's stage clocks (common.cuh RS_STAMP) of the last
+// K1 launch into out (RS_NSTAGES values, host memory), then zeroed.
+extern "C" int rs_forward_stage_clocks(long long* out) {
+  static const long long zero[RS_NSTAGES] = {};
+  if (cudaError_t err = cudaMemcpyFromSymbol(out, rs_stage_clock, sizeof(zero))) return (int)err;
+  return (int)cudaMemcpyToSymbol(rs_stage_clock, zero, sizeof(zero));
+}
+#endif

@@ -62,7 +62,7 @@ static cudaError_t smem_opt_in(size_t bytes) {
 }
 
 // Shared memory of one scenario of the fused substep for the host copy of
-// a table, in bytes (ops/tables.py smem_words mirrors it).
+// a table, in bytes.
 extern "C" int rs_substep_smem_bytes(const void* T_host) {
   Sub sh;
   return 4 * carve_substep(*(const RsTables*)T_host, nullptr, sh);

@@ -14,7 +14,7 @@
 // (qpos, qvel, goal, gains, grip, the runtime inertial leaves) come in and
 // (qpos', qvel', f [, aux]) go out: everything between stays in the
 // scenario's shared memory, carved by carve_substep from the model's own
-// sizes (ops/tables.py smem_words mirrors it).
+// sizes.
 #pragma once
 
 #include "contact_solve.cuh"
@@ -204,18 +204,18 @@ RS_DEV void integrate_qpos(const Team& tm, const RsTables& T, const float* q, co
   tm.sync();
 }
 
-// K3's aux tail (emit_aux): pose-only FK on the integrated qpos (the tree
-// walk, one lane), written into the forward pass's pose arrays (free once
-// the solve has run), then the post-step site poses, body positions and
-// each pair's minimum candidate depth (narrowphase.cuh pair_min_team).
+// K3's aux tail (emit_aux): pose-only FK on the integrated qpos (the walk
+// K1 and K4 run: joint terms over the lanes, the composition on one),
+// written into the forward pass's pose arrays (free once the solve has
+// run), then the post-step site poses, body positions and each pair's
+// minimum candidate depth (narrowphase.cuh pair_min_team).
 template <class Team>
 RS_DEV void aux_tail(const Team& tm, const RsTables& T, const Sub& sh, size_t b, float* sxpos, float* sxmat,
                      float* bxpos, float* pdist) {
   const int tid = tm.rank(), nt = tm.size();
   const int nb = T.nbody, ns = T.nsite;
   const Fwd& fw = sh.fw;
-  if (tid == 0) fk_pose(T, sh.qnew, fw.xpos, fw.xquat);
-  tm.sync();
+  walk_team<false>(tm, T, sh.qnew, fw);
   for (int i = tid; i < nb; i += nt) {
     quat2mat(fw.xquat[i], fw.xmat[i]);
     for (int k = 0; k < 3; ++k) bxpos[(b * nb + i) * 3 + k] = fw.xpos[i][k];

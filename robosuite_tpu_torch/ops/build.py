@@ -30,13 +30,16 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xco
 P, I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "rs_tables_size": [],
-    "rs_forward": [P] * 21 + [I, P],
+    "rs_forward": [P] * 6 + [I, P] * 3 + [I, P, I, P],
+    "rs_forward_smem_bytes": [P],
+    "rs_forward_tab": [P, P],
     "rs_contact_solve": [P] * 11 + [I] * 5 + [ctypes.c_float, P],
     "rs_substep": [P] * 14 + [I, P],
     "rs_substep_aux": [P] * 18 + [I, P],
     "rs_substep_smem_bytes": [P],
     "rs_substep_resident": [P, I],
-    "rs_fk": [P] * 4 + [I, P],
+    "rs_fk": [P] * 5 + [I, P],
+    "rs_fk_smem_bytes": [P],
 }
 
 
@@ -126,6 +129,13 @@ def check(err: int, name: str):
 
 def stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def raw_stream(device):
+    """The current CUDA stream of `device` as an int (without a Stream
+    object, where this PyTorch has the call)."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return get(device.index) if get is not None else torch.cuda.current_stream(device).cuda_stream
 
 
 def ptr(t: torch.Tensor):

@@ -7,9 +7,9 @@ against the compile-time maxima here, before anything is packed, and
 packed once per env into a device byte tensor that every launch gets by
 pointer (and a host copy, from which the launchers size shared memory).
 
-`substep_smem_bytes` mirrors the fused substep's shared-memory carve
-(csrc/substep.cuh carve_substep): the bytes one scenario takes, computed
-from the model's own sizes.
+The table also lists the (body, dof) pairs that CRBA and RNEA run over
+(`pair_lists`), in the fixed orders their sums take, and where each mass
+matrix entry comes from (`mass_matrix_sources`).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 from robosuite_tpu_torch.models import spec as S
 
 MAXB, MAXJ, MAXQ, MAXV, MAXG, MAXS, MAXU, MAXP, MAXK, MAXA, MAXGR = 32, 16, 24, 24, 96, 16, 16, 32, 96, 8, 4
+MAXPR = 384  # (body, dof) pairs with anc != 0
 MAXCT = 25 * MAXP  # narrowphase candidates, all pairs
 
 _i, _f, _u = ctypes.c_int32, ctypes.c_float, ctypes.c_uint32
@@ -49,6 +50,8 @@ class RsTables(ctypes.Structure):
         ("dof_bodyid", _a(_i, MAXV)), ("dof_free_trans", _a(_i, MAXV)),
         ("dof_damping", _a(_f, MAXV)), ("dof_frictionloss", _a(_f, MAXV)),
         ("anc", _a(_f, MAXB, MAXV)),
+        ("npr", _i), ("pr_db", _a(_i, MAXPR)), ("dof_pr0", _a(_i, MAXV + 1)), ("pr_bd", _a(_i, MAXPR)),
+        ("body_pr0", _a(_i, MAXB + 1)), ("m_rc", _a(_i, MAXV * MAXV)),
         ("geom_bodyid", _a(_i, MAXG)),
         ("geom_pos", _a(_f, MAXG, 3)), ("geom_quat", _a(_f, MAXG, 4)), ("geom_size", _a(_f, MAXG, 3)),
         ("site_bodyid", _a(_i, MAXS)), ("site_pos", _a(_f, MAXS, 3)), ("site_quat", _a(_f, MAXS, 4)),
@@ -90,6 +93,9 @@ def check_model(model):
     for name, cap in limits.items():
         if getattr(model, name) > cap:
             raise ValueError(f"{name}={getattr(model, name)} exceeds the kernels' maximum {cap}")
+    npr = int(model.ancestor_mask.count_nonzero())
+    if npr > MAXPR:
+        raise ValueError(f"{npr} (body, dof) pairs exceed the kernels' maximum {MAXPR}")
     nrows = sum(len(r) for r in C.contact_row_layout(model).values())
     if nrows > MAXK:
         raise ValueError(f"{nrows} contact rows exceed the kernels' maximum {MAXK}")
@@ -97,6 +103,37 @@ def check_model(model):
         if kind not in _ACT_KIND:
             raise NotImplementedError(f"actuator kind {kind!r} is not ported")
     return nrows
+
+
+def pair_lists(anc):
+    """The (body, dof) pairs of the 0/1 matrix anc (nbody, nv) with anc != 0,
+    as RsTables packs them: (dof-major entries 256 b + d, each dof's first
+    index (nv + 1), body-major entries d, each body's first index (nbody +
+    1)). CRBA and RNEA (f) sum each dof's run in body order, RNEA (c) and
+    (e) each body's run in dof order: the orders of a plain loop."""
+    anc = np.asarray(anc) != 0
+    nb, nv = anc.shape
+    db = [256 * b + d for d in range(nv) for b in range(nb) if anc[b, d]]
+    bd = [d for b in range(nb) for d in range(nv) if anc[b, d]]
+    dof0 = np.concatenate([[0], np.cumsum(anc.sum(0))]).astype(np.int32)
+    body0 = np.concatenate([[0], np.cumsum(anc.sum(1))]).astype(np.int32)
+    return np.array(db, dtype=np.int32), dof0, np.array(bd, dtype=np.int32), body0
+
+
+def mass_matrix_sources(anc, dof_bodyid):
+    """Each M entry's source (e nv + d): 256 row + col where dof `row` moves
+    body(col) (e moves body(d): (e, d); else d moves body(e): (d, e)), -1
+    where neither does (the entry is 0 but for armature)."""
+    anc = np.asarray(anc) != 0
+    nv = anc.shape[1]
+    out = np.full(nv * nv, -1, dtype=np.int32)
+    for e in range(nv):
+        for d in range(nv):
+            if anc[dof_bodyid[d], e]:
+                out[e * nv + d] = 256 * e + d
+            elif anc[dof_bodyid[e], d]:
+                out[e * nv + d] = 256 * d + e
+    return out
 
 
 def pack(model, arm=None, device=None) -> torch.Tensor:
@@ -142,6 +179,11 @@ def fill(model, arm=None) -> RsTables:
     anc = np.zeros((MAXB, MAXV), dtype=np.float32)
     anc[: model.nbody, : model.nv] = cpu["ancestor_mask"]
     _set(t.anc, anc)
+    pr_db, dof0, pr_bd, body0 = pair_lists(cpu["ancestor_mask"])
+    t.npr = len(pr_db)
+    for name, v in (("pr_db", pr_db), ("dof_pr0", dof0), ("pr_bd", pr_bd), ("body_pr0", body0)):
+        _set(getattr(t, name), v)
+    _set(t.m_rc, mass_matrix_sources(cpu["ancestor_mask"], model.dof_bodyid))
     _set(t.geom_bodyid, model.geom_bodyid)
     _set(t.site_bodyid, model.site_bodyid)
 
@@ -198,38 +240,3 @@ def fill(model, arm=None) -> RsTables:
                    "grip_act": "grip_actuators"}.get(n, n)
             _set(getattr(t, n), arm[src])
     return t
-
-
-OSC_WORDS = 952 * 2  # sizeof(OscScratch) / 4 (csrc/osc.cuh): 952 doubles
-PF_WORDS = 25        # a pair frame (csrc/narrowphase.cuh RS_PF)
-
-
-class _Carver:
-    """Counts words as csrc/common.cuh Carver takes them."""
-
-    def __init__(self, w=0):
-        self.w = w
-
-    def take(self, words, align=1):
-        self.w = -(-self.w // align) * align + words
-
-    def take_d(self, n):
-        self.take(2 * n, 2)
-
-
-def substep_smem_bytes(t: RsTables) -> int:
-    """Shared memory of one fused-substep scenario, in bytes, for the packed
-    table t: csrc/substep.cuh carve_substep, region for region."""
-    nq, nv, nb, K = t.nq, t.nv, t.nbody, t.nrows
-    c = _Carver()
-    for words in (nq, nv, nv, nb, 3 * nb, 4, 3 * nb, 4 * nb, 9 * nb, 3 * nb, 9 * nb, 3 * nv, 3 * nv, nv * nv, nv,
-                  t.nu, MAXA, nq, nv, PF_WORDS * t.npair, K, K):
-        c.take(words)
-    for words in (3 * K,) * 5 + (K, K, nv, nv, nv, K):  # carve_solve (rhs on aref, v on y), the active rows
-        c.take(words)
-    for n in (nv * (nv | 1), nv, nv, nv):
-        c.take_d(n)
-    u0 = -(-c.w // 2) * 2
-    union = (15 * nv + 12 * nb, nv * ((3 * K) | 1), t.ncand, OSC_WORDS if t.ctrl_type == _CTRL_TYPE["osc"] else 0)
-    w = u0 + max(union)
-    return 4 * (-(-w // 4) * 4)
