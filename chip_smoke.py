@@ -64,7 +64,35 @@ Phases (any failure exits non-zero):
  16. the Stack MPC at tools/bench_configs.py's width (B=32, H=128, K=16,
      MPPI only, 2 substeps per planned step): a warm-up tick, ticks 1-3
      timed with their launch counts, finite actions in [-1, 1], peak
-     memory and a profiled tick.
+     memory and a profiled tick;
+ 17. (after phase 7) Lift's step_batch, the RL entry point, at B=512: counts
+     zeroed, reset + 3 policy steps (K1 = 7, K3 = 75); then each step
+     against rollout_batch from the same input: the same states and
+     rewards bit for bit, finite observations, done False, the reset's
+     observation keys;
+ 18. make("Door", robots="Panda", reward_shaping=True, seed=0) on CUDA
+     (nq 11, 60 pairs, 170 rows), reset_batch(512): K1 against its plain
+     version at B=512 and 32, timed; a contact-rich state
+     (ab_kernels.door_contact_state: the gripper driven over the handle,
+     down onto it and closing on it, then the hinge past its upper limit,
+     below its lower one, the latch near +1.57 and near -1.57 in one
+     scenario in 8 each), which must reach rows past 96 (box-box, above
+     the maxima before Door) in half the scenarios and have 4 active rows
+     or more in half;
+ 19. K2 against its plain version at Door's width (nv 11, 170 rows);
+ 20. K3 (B=512) and K3-aux (B*K=512, the planning model: dt 25 ms, 10
+     solver iterations) against their plain versions at that state: every
+     coordinate and the solver forces of every scenario but those with a
+     float64 witness of a box-box contact near-tie (hold_all), the aux
+     poses, and the pair distances of every pair of every scenario
+     (hold_pair_dist's witnesses);
+ 21. the Door step slice: counts zeroed, reset + 10 step_batch policy
+     steps (K1 = 21, K3 = 250), finite observations, rewards and done,
+     host-clock rates and a profiled step; each policy step against the
+     plain path from the same input; one unfused step (K1 + K2);
+ 22. the Door MPC at tools/bench_configs.py's width (B=32, H=64, K=16,
+     MPPI only): a warm-up tick, ticks 1-3 timed with their launch counts,
+     finite actions in [-1, 1], peak memory and a profiled tick.
 Timings use CUDA events (profiler passes show one policy step's and one
 MPC tick's device time; K1's and K4's widths also print the profiler's
 kernel device time, and, at the end, each width's launches over the
@@ -129,18 +157,23 @@ def device_ms(fn, reps):
     """Mean ms per launch of the device time of the rs_* kernel fn launches
     (torch.profiler's kernel time, free of the host's pace), after one
     warm-up call; over the launches the profiler recorded (it can miss
-    some of a run of long kernels)."""
+    some of a run of long kernels); NaN where three profiled runs recorded
+    none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if "rs_" in e.key]  # each call launches one rs_ kernel
-    return sum(e.self_device_time_total for e in rows) / 1e3 / max(1, sum(e.count for e in rows))
+    for _ in range(3):  # now and then the profiler records none of a run's launches: profile again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if "rs_" in e.key]  # each call launches one rs_ kernel
+        n = sum(e.count for e in rows)
+        if n:
+            return sum(e.self_device_time_total for e in rows) / 1e3 / n
+    return float("nan")
 
 
 def time_width(tag, label, fn, plain, reps, bytes_, flops, n):
@@ -149,8 +182,9 @@ def time_width(tag, label, fn, plain, reps, bytes_, flops, n):
     ev, dev = cuda_ms(fn, reps), device_ms(fn, reps)
     bms, bby = bound(bytes_, flops, n)
     pms = cuda_ms(plain, 1 if n > 100000 else 3)
+    share = f"{100 * bms / dev:.1f}% of the device time" if dev > 0 else "device time not recorded"
     print(f"{tag} {label} B={n}: {ev:.4f} ms by events, {dev:.4f} ms device time (profiler), bound {bms:.5f} ms "
-          f"({bby}, {100 * bms / dev:.1f}% of the device time), plain {pms:.3f} ms")
+          f"({bby}, {share}), plain {pms:.3f} ms")
     return dict(B=n, ms=ev, dev_ms=dev, bound_ms=bms, bound_by=bby, plain_ms=pms)
 
 
@@ -197,6 +231,23 @@ def take_widths(world):
     from robosuite_tpu_torch.ops import fk, forward
 
     WIDTHS.append((world, {"K1": dict(forward.forward_products.by_batch), "K4": dict(fk.fk_pose.by_batch)}))
+
+
+def kcounts():
+    """Every kernel wrapper's launch count."""
+    from robosuite_tpu_torch.ops import contact_solve, fk, forward, substep
+
+    return {"K1": forward.forward_products.launches, "K2": contact_solve.vel_update.launches,
+            "K3": substep.make_fused_substep.launches, "K3-aux": substep.make_fused_substep.aux_launches,
+            "K4": fk.fk_pose.launches}
+
+
+def zero_counts():
+    from robosuite_tpu_torch.ops import contact_solve, fk, forward, substep
+
+    forward.forward_products.launches = contact_solve.vel_update.launches = 0
+    substep.make_fused_substep.launches = substep.make_fused_substep.aux_launches = fk.fk_pose.launches = 0
+    clear_widths()
 
 
 def max_err(a, b):
@@ -358,7 +409,9 @@ def op_counts(model, nrows, nact=0.0, iters=30, power_iters=8, ctrl="osc"):
     groups = {key: len(items) for key, items in C.pair_groups(model).items()}
     n_bb, n_pb = groups.get((S.BOX, S.BOX), 0), groups.get((S.PLANE, S.BOX), 0)
     n_cb = groups.get((S.CYLINDER, S.BOX), 0)
-    cands = n_bb * (16 * 90 + 9 * 110) + n_pb * 8 * 30 + n_cb * 2 * 90  # box-box, plane-box, capsule-box
+    n_pc, n_cc = groups.get((S.PLANE, S.CYLINDER), 0), groups.get((S.CYLINDER, S.CYLINDER), 0)
+    # box-box, plane-box, capsule-box, plane-cylinder, capsule-capsule
+    cands = n_bb * (16 * 90 + 9 * 110) + n_pb * 8 * 30 + n_cb * 2 * 90 + n_pc * 3 * 45 + n_cc * 110
     narrow = cands + nrows * 40
     rows = nrows * (nv * (6 + 3 * 6) + 60)
     k3 = (k1[0] - (ng + ns) * 72 + law[0] + narrow + rows + k2[0] + nv * 20, k1[1] + law[1] + k2[1])
@@ -471,14 +524,15 @@ def plain_path(env):
 _CPU64 = {}
 
 
-def cube_tie_witness(model, qpos, bodies, tie=1e-5, touch=1e-3):
-    """Float64 witnesses that the contacts of free box bodies[n] at qpos[n]
-    (N, nq) hold a decision float32 rounding can take either way: some
-    box-box pair of the body's geoms within `touch` of contact whose SAT
-    tie margin best_e - max_face is within `tie` (the edge candidate
-    emitted or not), or whose manifold cut ties (the last kept and the first
-    dropped candidate distances within `tie`). Computed on the CPU for all N
-    at once. -> one description, or None, per n."""
+def tie_witness(model, qpos, bodies, tie=1e-5, touch=1e-3):
+    """Float64 witnesses that the contacts of body bodies[n] (of any body
+    where bodies[n] is None) at qpos[n] (N, nq) hold a decision float32
+    rounding can take either way: some box-box pair of the body's geoms
+    within `touch` of contact whose SAT tie margin best_e - max_face is
+    within `tie` (the edge candidate emitted or not), or whose manifold
+    cut ties (the last kept and the first dropped candidate distances
+    within `tie`). Computed on the CPU for all N at once. -> one
+    description, or None, per n."""
     import torch
 
     from robosuite_tpu_torch.models import spec as S
@@ -500,7 +554,7 @@ def cube_tie_witness(model, qpos, bodies, tie=1e-5, touch=1e-3):
     for k in range(model.npair):
         g1, g2 = model.pair_geom1[k], model.pair_geom2[k]
         owners = (model.geom_bodyid[g1], model.geom_bodyid[g2])
-        rows = [n for n, body in enumerate(bodies) if out[n] is None and body in owners]
+        rows = [n for n, body in enumerate(bodies) if out[n] is None and (body is None or body in owners)]
         if not rows or model.geom_type[g1] != S.BOX or model.geom_type[g2] != S.BOX:
             continue
         args = operand(g1) + operand(g2)
@@ -522,7 +576,7 @@ def hold_cubes(label, model, bodies, qpos_in, out_k, out_p, tol_q=1e-5, tol_v=1e
     """Hold the free boxes `bodies` after one substep from the same input
     qpos_in (B, nq), kernel out_k vs plain out_p ((qpos, qvel) each), in
     every scenario. A (scenario, box) beyond the tolerances is set aside
-    only with cube_tie_witness at qpos_in; every case is printed. -> (the
+    only with tie_witness at qpos_in; every case is printed. -> (the
     largest qpos and qvel errors left, the number set aside); the caller
     checks them."""
     import torch
@@ -541,7 +595,7 @@ def hold_cubes(label, model, bodies, qpos_in, out_k, out_p, tol_q=1e-5, tol_v=1e
         FAILED.append(f"{label}: {len(bad)} (scenario, cube) cases beyond tolerance")
         print(f"{label}: {len(bad)} (scenario, cube) cases beyond tolerance  <-- FAILED")
     elif bad:
-        whys = cube_tie_witness(model, qpos_in[[b for b, _, _ in bad]], [body for _, body, _ in bad])
+        whys = tie_witness(model, qpos_in[[b for b, _, _ in bad]], [body for _, body, _ in bad])
         for (b, body, i), why in zip(bad, whys):
             eq, ev = errs[i]
             print(f"{label} scenario {b} body {body}: qpos err {float(eq[b]):.3e} qvel err {float(ev[b]):.3e}; "
@@ -601,18 +655,9 @@ def stack_slice(tag, results):
 
     import robosuite_tpu_torch as R
     from robosuite_tpu_torch.mpc import receding
-    from robosuite_tpu_torch.ops import contact_solve, fk, forward, substep
+    from robosuite_tpu_torch.ops import contact_solve, forward, substep
     from robosuite_tpu_torch.physics import contact as C
     from robosuite_tpu_torch.physics import engine
-
-    def kcounts():
-        return {"K1": forward.forward_products.launches, "K2": contact_solve.vel_update.launches,
-                "K3": substep.make_fused_substep.launches, "K3-aux": substep.make_fused_substep.aux_launches,
-                "K4": fk.fk_pose.launches}
-
-    def zero_counts():
-        forward.forward_products.launches = contact_solve.vel_update.launches = 0
-        substep.make_fused_substep.launches = substep.make_fused_substep.aux_launches = fk.fk_pose.launches = 0
 
     env = R.make("Stack", robots="Panda", controller_configs="JOINT_POSITION", reward_shaping=True)
     model, robot = env.model, env.robots[0]
@@ -743,7 +788,6 @@ def stack_slice(tag, results):
     # ---- 15. the Stack env-step slice: reset + 10 policy steps on the fused path
     actions = torch.clamp(0.3 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
     zero_counts()
-    clear_widths()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     states, _ = env.reset_batch(B, gen)
@@ -811,7 +855,6 @@ def stack_slice(tag, results):
     start, after = trail[STEPS // 2], trail[STEPS // 2 + 1]
     env._disable_fused = True
     zero_counts()
-    clear_widths()
     s_u, _ = env.rollout_batch(start, actions)
     torch.cuda.synchronize()
     counts_u = kcounts()
@@ -829,7 +872,7 @@ def stack_slice(tag, results):
     sub_f = env._substep_fn(model, ctrl_u, kin)
     ph, worst = start.physics, 0.0
     for j in range(env.n_substeps):
-        pf, pu = sub_f(ph), sub_u(ph)
+        (pf, _), (pu, _) = sub_f(ph), sub_u(ph)
         eq, ev = max_err(pf.qpos[:, :9], pu.qpos[:, :9]), max_err(pf.qvel[:, :9], pu.qvel[:, :9])
         cq, cv, _ = hold_cubes(f"Stack unfused vs fused substep {j + 1}", model, cubes, ph.qpos,
                                (pf.qpos, pf.qvel), (pu.qpos, pu.qvel))
@@ -859,7 +902,6 @@ def stack_slice(tag, results):
     torch.cuda.synchronize()
     print(f"{tag} Stack MPC warm-up tick s: {time.perf_counter() - t0:.3f}")
     zero_counts()
-    clear_widths()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = tick_launches(cfg, mpc, env, False)
@@ -891,6 +933,357 @@ def stack_slice(tag, results):
               f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
     phase_done("Stack MPC at full width")
     return counts, mpc_counts, counts_u
+
+
+def lift_step_batch(tag, env, gen, results):
+    """Phase 17: Lift's step_batch (the RL entry point: observations
+    through the pipeline, reward, done) at B=512 for 3 policy steps, its
+    launches counted from zero over the reset and those steps alone; then
+    each step held against a rollout_batch step from the same input: the
+    same states bit for bit (the same kernels on the same inputs), finite
+    observations and rewards, done False, the reset's observation keys
+    (but placement_valid, which only the reset reports). -> its launch
+    counts."""
+    import torch
+
+    actions = torch.clamp(0.3 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
+    zero_counts()
+    states, obs0 = env.reset_batch(B, gen)
+    steps = []
+    for _ in range(3):
+        nxt, obs, r, done, _ = env.step_batch(states, actions)
+        steps.append((states, nxt, obs, r, done))
+        states = nxt
+    torch.cuda.synchronize()
+    counts = kcounts()
+    take_widths("Lift")
+    print(f"Lift step_batch launches over the reset and 3 policy steps: {counts}")
+    want = {"K1": 1 + 2 * 3, "K2": 0, "K3": 25 * 3, "K3-aux": 0, "K4": 0}
+    if counts != want:
+        fail(f"Lift step_batch launches {counts}, expected {want}")
+    for i, (states, nxt, obs, r, done) in enumerate(steps):
+        ref, r_ref = env.rollout_batch(states, actions)
+        torch.cuda.synchronize()
+        if not (torch.equal(nxt.physics.qpos, ref.physics.qpos) and torch.equal(nxt.physics.qvel, ref.physics.qvel)
+                and torch.equal(r, r_ref)):
+            fail(f"Lift step_batch step {i + 1}: the state or reward differs from rollout_batch's")
+        if set(obs) != set(obs0) - {"placement_valid"}:
+            fail(f"Lift step_batch step {i + 1}: observation keys {sorted(set(obs) ^ set(obs0))} differ from the reset's")
+        if not (all(torch.isfinite(v).all() for v in obs.values()) and torch.isfinite(r).all()) or bool(done.any()):
+            fail(f"Lift step_batch step {i + 1}: non-finite observations or rewards, or done before the horizon")
+    print(f"Lift step_batch: 3 policy steps equal to rollout_batch's; obs keys {len(obs)}, robot0_proprio-state "
+          f"{tuple(obs['robot0_proprio-state'].shape)}")
+    results["lift_step_batch_launches"] = counts
+    phase_done("Lift step_batch")
+    return counts
+
+
+S_NAMES = {0: "plane", 2: "sphere", 3: "capsule", 5: "cylinder", 6: "box"}  # geom types (models/spec.py)
+
+# tools/bench_configs.py:24-27,44-51: the Door workload (MPPI only, H=64)
+DOOR_MPC = dict(horizon=64, n_samples=16, noise_sigma=0.4, temperature=0.2, n_knots=8, n_ilqr_iters=0,
+                plan_timestep=0.025)
+DOOR_B, DOOR_TICKS = 32, 3
+
+
+def hold_all(label, model, qpos_in, out_k, out_p, tol_q=1e-5, tol_v=1e-3, tol_f=1e-4):
+    """One substep from the same input qpos_in, kernel out_k vs plain out_p
+    ((qpos, qvel) or (qpos, qvel, f)): every coordinate of every scenario
+    (Door has no free body) and the solver forces relative to their
+    largest. A scenario beyond a tolerance is set aside only with
+    tie_witness at qpos_in (a touching box-box pair at a SAT or manifold
+    cut tie, which the float32 rounding of the two versions' poses decides
+    either way: Door's finger pads and handle parts lie flush, turning
+    about one axis); every case is printed. -> the largest error held."""
+    import torch
+
+    errs = {"qpos": ((out_k[0] - out_p[0]).abs().amax(dim=1), tol_q),
+            "qvel": ((out_k[1] - out_p[1]).abs().amax(dim=1), tol_v)}
+    if len(out_k) > 2:
+        scale = max(1.0, float(out_p[2].abs().max()))
+        errs["f (relative)"] = ((out_k[2] - out_p[2]).abs().amax(dim=1) / scale, tol_f)
+    over = torch.zeros_like(errs["qpos"][0], dtype=torch.bool)
+    for e, tol in errs.values():
+        over |= e > tol
+    bad = torch.nonzero(over).flatten().tolist()
+    witnessed = 0
+    if len(bad) > 64:
+        FAILED.append(f"{label}: {len(bad)} scenarios beyond tolerance")
+        print(f"{label}: {len(bad)} scenarios beyond tolerance  <-- FAILED")
+    elif bad:
+        for b, why in zip(bad, tie_witness(model, qpos_in[bad], [None] * len(bad))):
+            print(f"{label} scenario {b}: " + ", ".join(f"{n} err {float(e[b]):.3e}" for n, (e, _) in errs.items())
+                  + f"; {why or 'NO near-tie witness'}")
+            if why:
+                for e, _ in errs.values():
+                    e[b] = 0.0
+                witnessed += 1
+    for n, (e, tol) in errs.items():
+        check(f"{label} {n}, every scenario ({witnessed} witnessed near-ties set aside)", float(e.max()), tol)
+    return max(float(errs["qpos"][0].max()), float(errs["qvel"][0].max()))
+
+
+def door_slice(tag, results):
+    """Phases 18-22, Door-Panda with OSC_POSE. -> the launch counts of the
+    env step (reset + STEPS step_batch policy steps), of the unfused policy
+    step and of the MPC ticks."""
+    import torch
+
+    import robosuite_tpu_torch as R
+    from robosuite_tpu_torch import ab_kernels
+    from robosuite_tpu_torch.mpc import receding
+    from robosuite_tpu_torch.ops import contact_solve, forward, substep
+    from robosuite_tpu_torch.physics import contact as C
+    from robosuite_tpu_torch.physics import engine
+
+    # ---- 18. the Door world, K1 at its widths and a contact-rich state
+    env = R.make("Door", robots="Panda", reward_shaping=True, seed=SEED)
+    model, robot = env.model, env.robots[0]
+    nrows = sum(len(r) for r in C.contact_row_layout(model).values())
+    plan = model.replace(timestep=DOOR_MPC["plan_timestep"], solver_iters=10)  # MPCConfig's planning model
+    groups = {f"{S_NAMES[a]}-{S_NAMES[b]}": len(v) for (a, b), v in sorted(C.pair_groups(model).items())}
+    print(f"Door world: nq={model.nq} nv={model.nv} nbody={model.nbody} ngeom={model.ngeom} nsite={model.nsite} "
+          f"npair={model.npair} rows={nrows}; pairs by type {groups}")
+    if (model.nq, model.npair, nrows) != (11, 60, 170):
+        fail("the Door world is not nq 11, 60 pairs, 170 rows")
+    door_k = results.setdefault("door_kernels", {})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    states, obs = env.reset_batch(B, gen)
+    if not all(torch.isfinite(v.float()).all() for v in obs.values()):
+        fail("Door reset: non-finite observations")
+    flops = op_counts(model, nrows)
+    k1_err, k1_rows = 0.0, results.setdefault("k1_widths", [])
+    for n in (B, DOOR_B):
+        q, qd = states.physics.qpos[:n], states.physics.qvel[:n]
+        k1_err = max(k1_err, hold_k1(f"Door K1 (B={n})", model, q, qd))
+        k1_rows.append(dict(world="Door", **time_width(
+            tag, "K1 Door", lambda: forward.forward_products(model, q, qd),
+            lambda: forward.forward_plain(model, q, qd, *forward.model_leaves(model, n)), 20, k1_bytes(model, n),
+            flops["K1"], n)))
+    k1 = k1_rows[-2]
+    door_k["K1"] = dict(max_abs_err=k1_err, ms=k1["ms"], dev_ms=k1["dev_ms"], plain_ms=k1["plain_ms"],
+                        bound=(k1["bound_ms"], k1["bound_by"]))
+    # the gripper driven by OSC deltas onto the handle (open, then closing),
+    # then the hinge and the latch past their limits in some scenarios
+    s = ab_kernels.door_contact_state(env, states)
+    hq, lq = env.hinge_qpos_addr, env.handle_qpos_addr
+    q, qd = s.physics.qpos, s.physics.qvel
+    if not (torch.isfinite(q).all() and torch.isfinite(qd).all()):
+        fail("the Door contact state is not finite")
+    phase_done("Door world, K1, contact state")
+
+    # ---- 19. K2 at Door's width (nv 11, 170 rows), on the plain path's operands
+    leaves = forward.runtime_leaves(model, B)
+    kin, M, bias = forward.forward_plain(model, q, qd, *leaves)
+    ctrl = robot.run_controllers(kin, M, bias, q, qd, s.ctrl, torch.zeros(B, model.nu, device="cuda"))
+    qfrc, extra = engine.total_smooth_force(model, q, qd, ctrl, M, bias)
+    JfT, aref, reg3, mu, act = C.solver_inputs(model, kin, C.narrowphase(model, kin), qd, model.timestep)
+    args = (M.contiguous(), JfT, aref.contiguous(), qfrc.contiguous(), qd.contiguous(),
+            (model.dof_damping + extra).contiguous(), reg3.contiguous(), mu, act.contiguous())
+    n_act = act.sum(1)
+    handle_rows = [r for k in env._contact_pairs(sum(env.robot_models[0].grippers["right"].important_geoms.values(),
+                                                     []), env.door.contact_geoms)
+                   for r in C.contact_row_layout(model)[k]]
+    print(f"Door active contact rows per scenario: min {int(n_act.min())} median {int(n_act.median())} max "
+          f"{int(n_act.max())} (of {nrows}); scenarios with a gripper-door contact "
+          f"{int((act[:, handle_rows].sum(1) > 0).sum())}/{B}; hinge qpos from {float(q[:, hq].min()):.4f} to "
+          f"{float(q[:, hq].max()):.4f} (limits 0, 0.4), the latch past 1.5 in {int((q[:, lq].abs() > 1.5).sum())}")
+    # Door's rows past 96 are box-box rows (those of the finger pads on the
+    # handle among them), above the maxima before this world: the state must
+    # reach them and be rich in contacts
+    rows_at = torch.arange(nrows, device="cuda")
+    top = torch.where(act > 0, rows_at, -1).max(1).values
+    rich, high = int((n_act >= 4).sum()), int((top >= 96).sum())
+    print(f"Door contact state: highest active row {int(top.max())}; scenarios with an active row at index >= 96 "
+          f"{high}/{B}, with >= 4 active rows {rich}/{B}")
+    if 2 * rich < B or 2 * high < B:
+        fail(f"the Door contact state is too poor: {rich}/{B} scenarios with >= 4 active rows and {high}/{B} with "
+             f"an active row at index >= 96; each must be at least half")
+    nact = float(n_act.float().mean())
+    flops = op_counts(model, nrows, nact)
+    aux_flops = op_counts(plan, nrows, nact, iters=10)["K3-aux"]
+    solve_args = (C.APGD_ITERS, C.POWER_ITERS, model.timestep)
+    qv_k, f_k = contact_solve.vel_update(*args, *solve_args)
+    qv_p, f_p = contact_solve.vel_update_plain(*args, *solve_args)
+    torch.cuda.synchronize()
+    check("Door K2 qvel", max_err(qv_k, qv_p), 1e-4)
+    check("Door K2 f (relative)", max_err(f_k, f_p) / max(1.0, float(f_p.abs().max())), 1e-4)
+    door_k["K2"] = dict(max_abs_err=max(max_err(qv_k, qv_p), max_err(f_k, f_p)),
+                        ms=cuda_ms(lambda: contact_solve.vel_update(*args, *solve_args), 20),
+                        plain_ms=cuda_ms(lambda: contact_solve.vel_update_plain(*args, *solve_args), 3),
+                        bound=bound(nbytes(*args, qv_k, f_k), flops["K2"], B))
+    phase_done("Door K2 vs plain")
+
+    # ---- 20. K3 (B=512) and K3-aux (B*K=512, planning model) at that state, the
+    # arm driven by random deltas
+    a = torch.clamp(0.5 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
+    ctrl_s = robot.set_goals(kin, M, bias, q, qd, s.ctrl, a)
+    goal, gains = env._fused_goal_fn(robot, "right", ctrl_s, kin)
+    grip = robot.gripper_ctrl("right", ctrl_s).contiguous()
+    k3_args = (q, qd, *leaves, goal, gains, grip)
+    fused = env._fused_for(model)
+    if fused is None:
+        fail("the fused substep does not cover the Door world")
+    out_k, out_p = fused(*k3_args), substep.substep_plain(env, model, *k3_args)
+    torch.cuda.synchronize()
+    k3_err = hold_all(f"Door K3 (B={B})", model, q, out_k, out_p)
+    results["resident_per_sm"]["K3 Door"] = substep.resident_per_sm(fused)
+    results["smem_bytes"] = {"K3 Door": substep.smem_bytes(fused)}
+    door_k["K3"] = dict(max_abs_err=k3_err, ms=cuda_ms(lambda: fused(*k3_args), 20),
+                        plain_ms=cuda_ms(lambda: substep.substep_plain(env, model, *k3_args), 3),
+                        bound=bound(nbytes(*k3_args, *out_k), flops["K3"], B))
+    fused_aux = env._fused_for(plan, emit_aux=True)
+    kin_plan = forward.forward_plain(plan, q, qd, *leaves)[0]
+    goal_a, gains_a = env._fused_goal_fn(robot, "right", ctrl_s, kin_plan)
+    a_args = (q, qd, *leaves, goal_a, gains_a, grip)
+    out_k = fused_aux(*a_args)
+    out_p = substep.substep_aux_plain(env, plan, *a_args)
+    torch.cuda.synchronize()
+    aux_err = hold_all(f"Door K3-aux (B={B})", plan, q, out_k[:2], out_p[:2])
+    # the aux tail against its plain version at the kernel's own post-step qpos
+    kin2 = forward.forward_plain(plan, out_k[0], out_k[1], *leaves)[0]
+    for name, got, want in (("site_xpos", out_k[3], kin2.site_xpos), ("site_xmat", out_k[4], kin2.site_xmat),
+                            ("xpos", out_k[5], kin2.xpos)):
+        check(f"Door K3-aux (B={B}) {name}", max_err(got, want), 2e-5)
+        aux_err = max(aux_err, max_err(got, want))
+    pd_p = C.pair_min_dists(plan, kin2)
+    spread(f"Door K3-aux (B={B}) pair_dist", out_k[6], pd_p)
+    print(f"Door K3-aux: pairs touching after the step {int((pd_p < 0).sum())} over {B} scenarios; "
+          f"pair distances held for all {model.npair} pairs of every scenario")
+    aux_err = max(aux_err, hold_pair_dist(f"Door K3-aux (B={B})", plan, out_k[6], pd_p, out_k[0], out_k[0]))
+    results["resident_per_sm"]["K3-aux Door"] = substep.resident_per_sm(fused_aux)
+    results["smem_bytes"]["K3-aux Door"] = substep.smem_bytes(fused_aux)
+    print(f"Door K3 / K3-aux shared memory per scenario {results['smem_bytes']} B; resident scenarios per SM "
+          f"{results['resident_per_sm']['K3 Door']} / {results['resident_per_sm']['K3-aux Door']}")
+    door_k["K3-aux"] = dict(max_abs_err=aux_err, ms=cuda_ms(lambda: fused_aux(*a_args), 10),
+                            plain_ms=cuda_ms(lambda: substep.substep_aux_plain(env, plan, *a_args), 3),
+                            bound=bound(nbytes(*a_args, *out_k), aux_flops, B))
+    phase_done("Door K3, K3-aux vs plain")
+
+    # ---- 21. the Door step slice: reset_batch + 10 step_batch policy steps
+    actions = torch.clamp(0.3 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, obs0 = env.reset_batch(B, gen)
+    trail, rewards, dones, obs_all = [states], [], [], []
+    for _ in range(STEPS):
+        states, obs, r, done, _ = env.step_batch(states, actions)
+        trail.append(states)
+        rewards.append(r)
+        dones.append(done)
+        obs_all.append(obs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kcounts()
+    take_widths("Door")
+    print(f"Door main path launches over reset + {STEPS} step_batch policy steps: {counts}")
+    if counts != {"K1": 2 * STEPS + 1, "K2": 0, "K3": 25 * STEPS, "K3-aux": 0, "K4": 0}:
+        fail(f"unexpected Door launch counts {counts}")
+    rew = torch.stack(rewards)
+    if not (all(torch.isfinite(v).all() for o in obs_all for v in o.values()) and torch.isfinite(rew).all()):
+        fail("non-finite observations or rewards on the Door path")
+    if any(bool(d.any()) for d in dones) or set(obs_all[-1]) != set(obs0) - {"placement_valid"}:
+        fail("Door step_batch: done before the horizon, or observation keys other than the reset's")
+    f_eef = obs_all[-1]["robot0_eef_force"].norm(dim=-1)
+    print(f"{tag} Door env policy-steps/s (B={B}, reset + {STEPS} step_batch steps, host clock): {B * STEPS / dt:.1f}; "
+          f"rewards mean {float(rew.mean()):.4f} max {float(rew.max()):.4f}; |eef force| after the last step: "
+          f"max {float(f_eef.max()):.3f} N, nonzero in {int((f_eef > 0).sum())}/{B}")
+    t0 = time.perf_counter()
+    s_ss = states
+    for _ in range(STEPS):
+        s_ss, _, _, _, _ = env.step_batch(s_ss, actions)
+    torch.cuda.synchronize()
+    steady = B * STEPS / (time.perf_counter() - t0)
+    print(f"{tag} Door env policy-steps/s (B={B}, {STEPS} step_batch steps after the above, host clock): {steady:.1f}")
+    _, wall_ms, dev_ms, top, port = profile_once(tag, "one Door step_batch policy step",
+                                                 lambda: env.step_batch(states, actions), 6)
+    results.update(door_policy_steps_per_s=B * STEPS / dt, door_steady_policy_steps_per_s=steady,
+                   door_launches=counts, door_profile_wall_ms=wall_ms, door_profile_device_ms=dev_ms,
+                   door_profile_top=top, door_profile_port=port)
+    # each policy step against the plain path from the same input: plain
+    # forward products and 25 plain substeps; the reward on the plain poses
+    worst_r = 0.0
+    for i in range(STEPS):
+        st, nxt = trail[i], trail[i + 1]
+        kin, M, bias = forward.forward_plain(model, st.physics.qpos, st.physics.qvel, *leaves)
+        ctrl_i = robot.set_goals(kin, M, bias, st.physics.qpos, st.physics.qvel, st.ctrl, actions)
+        goal, gains = env._fused_goal_fn(robot, "right", ctrl_i, kin)
+        grip = robot.gripper_ctrl("right", ctrl_i).contiguous()
+        qp, qv = st.physics.qpos, st.physics.qvel
+        for _ in range(env.n_substeps):
+            qp, qv, _ = substep.substep_plain(env, model, qp, qv, *leaves, goal, gains, grip)
+        hold_step(f"Door policy step {i + 1} (kernel vs plain)", nxt, qp, qv)
+        kin_p = forward.forward_plain(model, qp, qv, *leaves)[0]
+        worst_r = max(worst_r, max_err(rewards[i], env.reward(engine.State(qpos=qp, qvel=qv, time=nxt.physics.time),
+                                                              kin_p)))
+    torch.cuda.synchronize()
+    check(f"Door {STEPS} policy steps: reward (kernel path vs plain path)", worst_r, 1e-4)
+    # one step with the fused path disabled: K1 every substep + K2 at nv 11 / 170 rows
+    start, after = trail[STEPS // 2], trail[STEPS // 2 + 1]
+    env._disable_fused = True
+    zero_counts()
+    s_u, _, _, _, _ = env.step_batch(start, actions)
+    torch.cuda.synchronize()
+    env._disable_fused = False
+    counts_u = kcounts()
+    take_widths("Door")
+    print(f"Door unfused policy step launches: {counts_u}")
+    if counts_u != {"K1": env.n_substeps + 2, "K2": env.n_substeps, "K3": 0, "K3-aux": 0, "K4": 0}:
+        fail(f"unexpected Door unfused launch counts {counts_u}")
+    hold_step("Door unfused vs fused policy step", s_u, after.physics.qpos, after.physics.qvel)
+    phase_done("Door step slice (reset + step_batch steps, profile, kernel vs plain, unfused)")
+
+    # ---- 22. the Door MPC at tools/bench_configs.py's width: B=32, H=64, K=16, MPPI only
+    cfg = receding.MPCConfig(**DOOR_MPC)
+    mpc = receding.RecedingMPC(env, cfg)
+    solve = mpc.make_solve_batch()
+    gm = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    mstates, _ = env.reset_batch(DOOR_B, gm)
+    ms = mpc.init_state(DOOR_B, torch.Generator(device="cuda").manual_seed(SEED + 32))
+
+    def tick(states_, ms_):
+        acts, ms2, met = solve(states_, ms_)
+        states2, rewards_ = env.rollout_batch(states_, acts)
+        return states2, ms2, met, acts, rewards_
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mstates, ms, met, acts, rew = tick(mstates, ms)
+    torch.cuda.synchronize()
+    print(f"{tag} Door MPC warm-up tick s: {time.perf_counter() - t0:.3f}")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = tick_launches(cfg, mpc, env, False)
+    for i in range(DOOR_TICKS):
+        before = kcounts()
+        mstates, ms, met, acts, rew = tick(mstates, ms)
+        after = kcounts()
+        got = {k: after[k] - before[k] for k in after}
+        print(f"Door MPC tick {i + 1} launches: {got}")
+        if got != want:
+            fail(f"Door MPC tick {i + 1}: launches {got}, the config implies {want}")
+        if not (torch.isfinite(acts).all() and acts.abs().max() <= 1.0 and torch.isfinite(rew).all()):
+            fail(f"Door MPC tick {i + 1}: non-finite or out-of-range actions, or non-finite rewards")
+    torch.cuda.synchronize()
+    mpc_dt = time.perf_counter() - t0
+    mpc_counts = kcounts()
+    take_widths("Door")
+    solves = DOOR_B * DOOR_TICKS / mpc_dt
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{tag} Door MPC solves/s (B={DOOR_B}, H={cfg.horizon}, K={cfg.n_samples}, MPPI only; ticks "
+          f"1-{DOOR_TICKS}, host clock): {solves:.1f}; mean executed reward {float(rew.mean()):.4f}; "
+          f"peak device memory {peak_gb:.2f} GB")
+    _, wall_ms, dev_ms, top, port = profile_once(tag, "one Door MPC tick", lambda: tick(mstates, ms), 8)
+    results.update(door_mpc_solves_per_s=solves, door_mpc_launches=mpc_counts, door_mpc_peak_gb=peak_gb,
+                   door_mpc_profile_wall_ms=wall_ms, door_mpc_profile_device_ms=dev_ms,
+                   door_mpc_profile_top=top, door_mpc_profile_port=port)
+    for k, r in door_k.items():
+        print(f"{tag} Door {k}: {r['ms']:.4f} ms/launch at B={B}, plain {r['plain_ms']:.3f} ms, "
+              f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    phase_done("Door MPC at full width")
+    return counts, counts_u, mpc_counts
 
 
 def main():
@@ -1024,10 +1417,7 @@ def main():
 
     # ---- 7. the slice ------------------------------------------------------------
     actions = 0.1 * torch.randn(B, env.action_dim, generator=gen, device="cuda")
-    forward.forward_products.launches = 0
-    contact_solve.vel_update.launches = 0
-    substep.make_fused_substep.launches = substep.make_fused_substep.aux_launches = fk.fk_pose.launches = 0
-    clear_widths()
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     states, _ = env.reset_batch(B, gen)
@@ -1039,9 +1429,7 @@ def main():
             start = states  # the cube has landed and rests: no contact onset in the compared step
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {"K1": forward.forward_products.launches, "K2": contact_solve.vel_update.launches,
-              "K3": substep.make_fused_substep.launches, "K3-aux": substep.make_fused_substep.aux_launches,
-              "K4": fk.fk_pose.launches}
+    counts = kcounts()
     take_widths("Lift")
     print(f"main path launches over reset + {STEPS} policy steps: {counts}")
     if (counts["K3"] != 25 * STEPS or counts["K1"] != 2 * STEPS + 1 or counts["K2"] != 0
@@ -1092,21 +1480,19 @@ def main():
 
     # one step with the fused path disabled: K1 every substep + K2
     env._disable_fused = True
-    forward.forward_products.launches = contact_solve.vel_update.launches = 0
-    substep.make_fused_substep.launches = 0
-    clear_widths()
+    zero_counts()
     s2, r2 = env.rollout_batch(start, actions)
     torch.cuda.synchronize()
     env._disable_fused = False
-    counts_u = {"K1": forward.forward_products.launches, "K2": contact_solve.vel_update.launches,
-                "K3": substep.make_fused_substep.launches}
+    counts_u = kcounts()
     take_widths("Lift")
     print(f"unfused policy step launches: {counts_u}")
-    if counts_u != {"K1": env.n_substeps + 2, "K2": env.n_substeps, "K3": 0}:
+    if counts_u != {"K1": env.n_substeps + 2, "K2": env.n_substeps, "K3": 0, "K3-aux": 0, "K4": 0}:
         fail(f"unexpected unfused launch counts {counts_u}")
     hold_step("unfused vs fused policy step", s2, s1.physics.qpos, s1.physics.qvel)
     check("unfused vs fused policy step reward", max_err(r2, r1), 1e-4)
     phase_done("env-step slice (reset + policy steps, profile, kernel vs plain, unfused)")
+    sb_counts = lift_step_batch(tag, env, gen, results)
 
     # ---- 8. K1 at the MPC path's widths and K4 (pose-only FK) vs plain, at
     # random arm poses. K1: 32 (Stack's executed step, here on Lift), 128 (the
@@ -1305,14 +1691,7 @@ def main():
     torch.cuda.synchronize()
     print(f"{tag} MPC warm-up tick (full relinearization) s: {time.perf_counter() - t0:.3f}")
 
-    def kcounts():
-        return {"K1": forward.forward_products.launches, "K2": contact_solve.vel_update.launches,
-                "K3": substep.make_fused_substep.launches, "K3-aux": substep.make_fused_substep.aux_launches,
-                "K4": fk.fk_pose.launches}
-
-    forward.forward_products.launches = contact_solve.vel_update.launches = 0
-    substep.make_fused_substep.launches = substep.make_fused_substep.aux_launches = fk.fk_pose.launches = 0
-    clear_widths()
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     per_tick, finite, improved, fulls = [], [], [], []
@@ -1357,12 +1736,14 @@ def main():
     phase_done("MPC slice at full width")
 
     stack_counts, stack_mpc_counts, stack_counts_u = stack_slice(tag, results)
+    door_counts, door_counts_u, door_mpc_counts = door_slice(tag, results)
 
     # ---- report ------------------------------------------------------------------
     # launches on each path, counted from zero just before it: Lift's env step
     # and MPC ticks run K3 / K3-aux with the OSC law, Stack's with JOINT_POSITION
-    every = (counts, counts_u, mpc_counts, stack_counts, stack_counts_u, stack_mpc_counts)
-    paths = {"K1": every, "K2": every, "K3": (counts, mpc_counts), "K3-aux": (counts, mpc_counts), "K4": every}
+    osc = (counts, sb_counts, mpc_counts, door_counts, door_mpc_counts)  # K3 / K3-aux with the OSC law
+    every = osc + (counts_u, door_counts_u, stack_counts, stack_counts_u, stack_mpc_counts)
+    paths = {"K1": every, "K2": every, "K3": osc, "K3-aux": osc, "K4": every}
     launches = {k: sum(c.get(k, 0) for c in cs) for k, cs in paths.items()}
     launches["K3-JP"] = stack_counts["K3"] + stack_mpc_counts["K3"]
     launches["K3-aux-JP"] = stack_counts["K3-aux"] + stack_mpc_counts["K3-aux"]
@@ -1378,9 +1759,11 @@ def main():
     names = {"K1": "forward_products", "K2": "contact_solve", "K3": "fused_substep",
              "K3-aux": "fused_substep_aux", "K4": "fk_pose", "K3-JP": "fused_substep_joint_pos",
              "K3-aux-JP": "fused_substep_aux_joint_pos"}
-    print(f"launches over Lift reset + {STEPS} policy steps {counts}, one unfused step {counts_u}, MPC ticks "
-          f"1-{TICKS} {mpc_counts}; over Stack reset + {STEPS} policy steps {stack_counts}, one unfused step "
-          f"{stack_counts_u}, MPC ticks 1-{STACK_TICKS} {stack_mpc_counts}")
+    print(f"launches over Lift reset + {STEPS} policy steps {counts}, one unfused step {counts_u}, step_batch "
+          f"{sb_counts}, MPC ticks 1-{TICKS} {mpc_counts}; over Stack reset + {STEPS} policy steps {stack_counts}, "
+          f"one unfused step {stack_counts_u}, MPC ticks 1-{STACK_TICKS} {stack_mpc_counts}; over Door reset + "
+          f"{STEPS} step_batch steps {door_counts}, one unfused step {door_counts_u}, MPC ticks 1-{DOOR_TICKS} "
+          f"{door_mpc_counts}")
     # K1 and K4 at each width: the launches there over every path (each
     # counted from zero), beside the times of phases 4, 8, 10 and 12
     by_width = {}

@@ -22,8 +22,12 @@ forward-difference sweep; Stack: 32 and 512), called as the paths call it
 poses and velocities (`K1-random`); K4 at 8192 and 32768 (the iLQR costs) at random
 arm poses; K3-JP at B=32 and 512, K2 at B=512 and K3-aux-JP at B=512 on
 Stack's planning model (dt 25 ms, 10 solver iterations) at a Stack state
-after a reset and four policy steps; and, where the tree reports it, each
-K3 variant's resident scenarios per SM. K2's operands are the plain
+after a reset and four policy steps; K2, K3 (OSC) at B=512 and K3-aux
+at B*K=512 on Door's planning model (dt 25 ms, 10 solver iterations) at
+chip_smoke.py's Door contact state (the gripper driven onto the handle,
+the hinge past its limits and the latch near its stops in some
+scenarios), where the tree has the Door env; and, where the tree reports
+it, each K3 variant's resident scenarios per SM. K2's operands are the plain
 path's at each state. Each case is timed two ways after a warm-up: by CUDA
 events around its calls (`<case>_ms_B<n>`, which includes any wait for the
 wrapper on the host) and by the profiler's device time of its rs_* kernels
@@ -34,7 +38,7 @@ Split: a diagnostic build of this tree's kernels (nvcc -DRS_STAGE_CLOCKS,
 its own build directory; the port never loads it) records clock64() at the
 end of each stage of block 0's first scenario (csrc/common.cuh RS_STAMP).
 One launch per case (K3 at B=512, K3-aux at B=4096, K3-JP at B=32,
-K3-aux-JP at B=512; K1 on Lift at 512 and 335,872 and on Stack at 512;
+K3-aux-JP at B=512, K3 and K3-aux on Door at B=512; K1 on Lift at 512 and 335,872 and on Stack at 512;
 K4 at 8192 and 32768) prints the cycles of each stage and their share.
 
 Sweep: this tree's kernels built with each pair of K1_SWEEP (K1's and
@@ -98,9 +102,73 @@ def _k2_args(env, s, leaves, torch):
         C.APGD_ITERS, C.POWER_ITERS, model.timestep)
 
 
+# door_drive: policy steps (gripper open) to 8 cm above the handle, (open)
+# down onto it, and closing on it
+DOOR_DRIVE = ((16, 0.08, -1.0), (12, 0.0, -1.0), (12, 0.0, 1.0))
+
+
+def door_drive(env, s):
+    """Door states s after DOOR_DRIVE's policy steps of OSC deltas: the
+    gripper open over the handle, down onto it and closing, its yaw turned
+    onto the handle's all along, so that both finger pads close on the
+    handle's faces (box-box rows 118-121 and 138-141 of Door's 170) and
+    not on each other (rows 102-105, whose faces lie flush at zero depth,
+    a SAT tie float32 rounding decides either way)."""
+    import math
+
+    import torch
+
+    from robosuite_tpu_torch.physics import engine
+
+    m, B = env.model, s.physics.qpos.shape[0]
+    handle = m.geom_name2id(env.door.naming_prefix + "handle")
+    pad = m.geom_name2id(env.robot_models[0].grippers["right"].important_geoms["left_fingerpad"][0])
+    for n, dz, grip in DOOR_DRIVE:
+        for _ in range(n):
+            kin = engine.forward_products(m, s.physics.qpos, s.physics.qvel)[0]
+            h, p = kin.geom_xmat[:, handle], kin.geom_xmat[:, pad]
+            yaw = torch.atan2(h[:, 1, 0], h[:, 0, 0]) - torch.atan2(p[:, 1, 0], p[:, 0, 0])
+            to = env._get_observations(s.physics, kin)["handle_to_eef_pos"]
+            a = torch.zeros(B, env.action_dim, device=s.physics.qpos.device)
+            a[:, :3] = torch.clamp(40.0 * (to + torch.tensor([0.0, 0.0, dz], device=to.device)), -1.0, 1.0)
+            a[:, 5] = torch.clamp(4.0 * (torch.remainder(yaw + math.pi / 2, math.pi) - math.pi / 2), -1.0, 1.0)
+            a[:, 6] = grip
+            s, _ = env.rollout_batch(s, a)
+    return s
+
+
+def door_contact_state(env, s):
+    """The contact-rich Door state that chip_smoke.py phases 19-20 hold the
+    kernels on and the Door A/B times: door_drive (the handle between the
+    finger pads), then one scenario in 8 each with the hinge past its upper
+    limit 0.4, one below its lower limit 0, one with the latch near +1.57
+    and one near -1.57."""
+    import torch
+
+    s = door_drive(env, s)
+    qpos = s.physics.qpos.clone()
+    b = torch.arange(qpos.shape[0], device=qpos.device)
+    qpos[b % 8 == 1, env.hinge_qpos_addr] = 0.42
+    qpos[b % 8 == 2, env.hinge_qpos_addr] = -0.02
+    qpos[b % 8 == 3, env.handle_qpos_addr] = 1.56
+    qpos[b % 8 == 4, env.handle_qpos_addr] = -1.56
+    return env.state_from_flattened(torch.cat([s.physics.time[:, None], qpos, s.physics.qvel], 1).cpu())
+
+
+def _door(R, torch, B):
+    """(Door env, its door_contact_state), or None where the tree has no
+    Door env."""
+    if "Door" not in R.REGISTERED_ENVS:
+        return None
+    env = R.make("Door", robots="Panda", reward_shaping=True, seed=0)
+    s, _ = env.reset_batch(B, torch.Generator(device="cuda").manual_seed(30))
+    return env, door_contact_state(env, s)
+
+
 def _states(R, engine, torch, B=512):
     """(Lift env, its contact-rich states; Stack env, its states after a
-    reset and four policy steps), B scenarios each."""
+    reset and four policy steps; Door env and its contact-rich states, or
+    None), B scenarios each."""
     env = R.make("Lift", robots="Panda", reward_shaping=True, seed=0)
     s, _ = env.reset_batch(B, torch.Generator(device="cuda").manual_seed(0))
     for i in range(16):  # chip_smoke.py's contact-rich Lift state
@@ -116,7 +184,7 @@ def _states(R, engine, torch, B=512):
     a = torch.clamp(0.5 * torch.randn(B, senv.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
     for _ in range(4):
         ss, _ = senv.rollout_batch(ss, a)
-    return env, s, senv, ss
+    return env, s, senv, ss, _door(R, torch, B)
 
 
 def _widen(t, n):
@@ -130,7 +198,7 @@ def _k1_k4_cases(R, forward, engine, torch, states):
     the paths call them."""
     from robosuite_tpu_torch.ops import fk
 
-    env, s, senv, ss = states
+    env, s, senv, ss, _ = states
     cases = {}
     for n in K1_WIDTHS:
         args = tuple(_widen(t, n) for t in (s.physics.qpos, s.physics.qvel))
@@ -152,13 +220,14 @@ def _k1_k4_cases(R, forward, engine, torch, states):
 
 
 def _k2_k3_cases(forward, torch, states):
-    """{name: (wrapper, args, batch)} for K2 and K3's four variants."""
+    """{name: (wrapper, args, batch)} for K2 and K3's four variants, and
+    K2, K3 and K3-aux on Door where the tree has it."""
     from robosuite_tpu_torch.ops import contact_solve
 
-    env, s, senv, ss = states
+    env, s, senv, ss, door = states
     cases = {}
     B = s.physics.qpos.shape[0]
-    for e, st, tag in ((env, s, ""), (senv, ss, "-Stack")):
+    for e, st, tag in ((env, s, ""), (senv, ss, "-Stack")) + ((door + ("-Door",),) if door else ()):
         model, robot = e.model, e.robots[0]
         q, qd = st.physics.qpos, st.physics.qvel
         leaves = forward.runtime_leaves(model, B)
@@ -171,6 +240,10 @@ def _k2_k3_cases(forward, torch, states):
             plan = model.replace(timestep=0.025, solver_iters=10, pair_points_cap=2)
             cases[f"K3-aux@{8 * B}"] = (e._fused_for(plan, emit_aux=True),
                                         tuple(t.repeat((8,) + (1,) * (t.dim() - 1)) for t in args), 8 * B)
+        elif tag == "-Door":
+            cases[f"K3-Door@{B}"] = (e._fused_for(model), args, B)
+            plan = model.replace(timestep=0.025, solver_iters=10)
+            cases[f"K3-aux-Door@{B}"] = (e._fused_for(plan, emit_aux=True), args, B)
         else:
             fused = e._fused_for(model)
             cases["K3-JP@32"] = (fused, tuple(t[:32].contiguous() for t in args), 32)
@@ -264,7 +337,7 @@ def _clock_split(torch, fn, args, read, stages):
 def _aux_draw_make(R, engine, forward, torch, path):
     """chip_smoke.py phase 9's K3-aux inputs at B*K=4096 for each draw of
     AUX_DRAWS, saved (on the host) to path."""
-    env, s, _, _ = _states(R, engine, torch)
+    env, s, *_ = _states(R, engine, torch)
     B, B4, nv = s.physics.qpos.shape[0], 4096, env.model.nv
     plan = env.model.replace(timestep=0.025, solver_iters=10, pair_points_cap=2)
     leaves = forward.runtime_leaves(env.model, B)
@@ -456,7 +529,7 @@ def main(argv):
     k3 = _k2_k3_cases(forward, torch, states)
     k1 = _k1_k4_cases(R, forward, engine, torch, states)
     runs = [(n, k3[n], diag.rs_stage_clocks, STAGES[:15 if "aux" in n else 14])
-            for n in ("K3@512", "K3-aux@4096", "K3-JP@32", "K3-aux-JP@512")]
+            for n in ("K3@512", "K3-aux@4096", "K3-JP@32", "K3-aux-JP@512", "K3-Door@512", "K3-aux-Door@512")]
     runs += [(n, k1[n], diag.rs_forward_stage_clocks, K1_STAGES)
              for n in ("K1@512", "K1@335872", "K1-Stack@512")]
     runs += [(n, k1[n], diag.rs_fk_stage_clocks, K4_STAGES) for n in ("K4@8192", "K4@32768")]

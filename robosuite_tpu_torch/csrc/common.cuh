@@ -124,10 +124,10 @@ static __device__ long long rs_stage_clock[RS_NSTAGES];
 #define RS_MAXG 96     // geoms
 #define RS_MAXS 16     // sites
 #define RS_MAXU 16     // actuators
-#define RS_MAXP 32     // candidate pairs
-#define RS_MAXK 96     // contact rows (points)
-#define RS_MAXP1 33    // RS_MAXP + 1: a prefix table over the pairs
-#define RS_MAXCT 800   // RS_MAXP * 25: narrowphase candidates, all pairs
+#define RS_MAXP 64     // candidate pairs
+#define RS_MAXK 192    // contact rows (points)
+#define RS_MAXP1 65    // RS_MAXP + 1: a prefix table over the pairs
+#define RS_MAXCT 1600  // RS_MAXP * 25: narrowphase candidates, all pairs
 #define RS_MAXA 8      // arm dofs
 #define RS_MAXGR 4     // gripper actuators
 #define RS_MAXPR 384   // (body, dof) pairs with anc != 0
@@ -160,6 +160,8 @@ static __device__ long long rs_stage_clock[RS_NSTAGES];
 #define RS_PAIR_PLANE_BOX 0
 #define RS_PAIR_CAPSULE_BOX 1  // cylinder-box too: the cylinder is a capsule
 #define RS_PAIR_BOX_BOX 2
+#define RS_PAIR_PLANE_CYLINDER 3
+#define RS_PAIR_CAPSULE_CAPSULE 4  // cylinder-cylinder: both cylinders are capsules
 #define RS_ACT_MOTOR 0
 #define RS_ACT_POSITION 1
 #define RS_ACT_VELOCITY 2

@@ -4,7 +4,8 @@
 //
 // The formulas are physics/contact.py's (the JAX package's lane formulas,
 // robosuite_tpu/ops/pallas_substep.py _np_plane_box, _np_capsule_box,
-// _np_box_box, _np_box_box_edges), including their floors. Lanes go over
+// _np_box_box, _np_box_box_edges, _np_plane_cylinder, _np_capsule_capsule),
+// including their floors. Lanes go over
 // every (pair, candidate), grouped by the branch that computes it
 // (ops/tables.py cand_pi): each lane computes one candidate's depth on its
 // own, into the flat pair-major list (pair_cand). A box-box pair emits an
@@ -22,8 +23,15 @@
 #define RS_BIG 1e4f
 #define RS_PF 25  // a pair's frame: p1, R1, p2, R2, and the box-box max_face
 
-// Candidates per pair kind (plane-box, capsule-box, box-box).
-RS_DEV int pair_ncand(int kind) { return kind == RS_PAIR_PLANE_BOX ? 8 : kind == RS_PAIR_CAPSULE_BOX ? 2 : 25; }
+// Candidates per pair kind (plane-box, capsule-box, box-box,
+// plane-cylinder, capsule-capsule).
+RS_DEV int pair_ncand(int kind) {
+  return kind == RS_PAIR_PLANE_BOX ? 8
+         : kind == RS_PAIR_CAPSULE_BOX ? 2
+         : kind == RS_PAIR_BOX_BOX ? 25
+         : kind == RS_PAIR_PLANE_CYLINDER ? 3
+                                          : 1;
+}
 
 RS_DEV void mat_vec(const float* R, const float* v, float* o) {
   for (int i = 0; i < 3; ++i) o[i] = R[i * 3 + 0] * v[0] + R[i * 3 + 1] * v[1] + R[i * 3 + 2] * v[2];
@@ -133,6 +141,71 @@ RS_DEV float box_box_edge(const float* p1, const float* R1, const float* s1, con
   return valid ? sep : -INFINITY;
 }
 
+// Plane (frame p1, R1) vs cylinder (p2, R2, radius s2[0], half length
+// s2[1]), candidate i: the rim point of the +z cap (i = 0) or of the -z cap
+// (i = 1) nearest the plane, or the centre of the +z cap (i = 2). The rim
+// direction is the plane normal's descent across the cap, -(n - (a.n) a)
+// normalised, or the cylinder's x axis where the axis is parallel to the
+// normal (|n - (a.n) a| <= 1e-8). -> the depth; the point and the normal.
+RS_DEV float plane_cylinder(const float* p1, const float* R1, const float* p2, const float* R2, const float* s2,
+                            int i, float* pos, float* nrm) {
+  float axis[3], proj[3], rim[3], pt[3], t[3];
+  mat_col(R1, 2, nrm);
+  mat_col(R2, 2, axis);
+  const float an = v3_dot(axis, nrm);
+  for (int k = 0; k < 3; ++k) proj[k] = nrm[k] - an * axis[k];
+  const float pn = norm3(proj);
+  const float inv = 1.0f / fmaxf(pn, 1e-8f);
+  if (pn > 1e-8f)
+    for (int k = 0; k < 3; ++k) rim[k] = -proj[k] * inv;
+  else
+    mat_col(R2, 0, rim);
+  const float h = i == 1 ? -s2[1] : s2[1], r = i == 2 ? 0.0f : s2[0];
+  for (int k = 0; k < 3; ++k) {
+    pt[k] = p2[k] + h * axis[k];
+    if (i < 2) pt[k] += r * rim[k];
+    t[k] = pt[k] - p1[k];
+  }
+  const float d = v3_dot(t, nrm);
+  for (int k = 0; k < 3; ++k) pos[k] = pt[k] - 0.5f * d * nrm[k];
+  return d;
+}
+
+// Capsule vs capsule (a cylinder as its capsule): the closest points of the
+// two axis segments a0 + s (a1 - a0), b0 + t (b1 - b0), s from the
+// unclamped solution (0 where the segments are parallel, den <= 1e-12), t
+// from s, s again from t, each clamped to [0, 1]. -> the depth (the
+// distance less both radii); the point (half the depth from the first
+// surface) and the normal (first axis toward the second).
+RS_DEV float capsule_capsule(const float* p1, const float* R1, const float* s1, const float* p2, const float* R2,
+                             const float* s2, float* pos, float* nrm) {
+  float a0[3], da[3], b0[3], db[3], r[3], pa[3], dp[3];
+  for (int k = 0; k < 3; ++k) {
+    const float ua = s1[1] * R1[k * 3 + 2], ub = s2[1] * R2[k * 3 + 2];
+    a0[k] = p1[k] - ua;
+    b0[k] = p2[k] - ub;
+    da[k] = (p1[k] + ua) - a0[k];
+    db[k] = (p2[k] + ub) - b0[k];
+    r[k] = a0[k] - b0[k];
+  }
+  const float A = v3_dot(da, da) + 1e-12f, B = v3_dot(da, db), C = v3_dot(db, db) + 1e-12f;
+  const float D = v3_dot(da, r), E = v3_dot(db, r);
+  const float den = A * C - B * B;
+  float s = clampf(den > 1e-12f ? (B * E - C * D) / fmaxf(den, 1e-12f) : 0.0f, 0.0f, 1.0f);
+  const float t = clampf((B * s + E) / C, 0.0f, 1.0f);
+  s = clampf((B * t - D) / A, 0.0f, 1.0f);
+  for (int k = 0; k < 3; ++k) {
+    pa[k] = a0[k] + s * da[k];
+    dp[k] = (b0[k] + t * db[k]) - pa[k];
+  }
+  const float dist = norm3(dp);
+  const float inv = 1.0f / fmaxf(dist, 1e-9f);
+  for (int k = 0; k < 3; ++k) nrm[k] = inv * dp[k];
+  const float d = dist - s1[0] - s2[0];
+  for (int k = 0; k < 3; ++k) pos[k] = pa[k] + (s1[0] + 0.5f * d) * nrm[k];
+  return d;
+}
+
 // The depth a box-box edge candidate enters the cut with: its separation
 // where emitted, else RS_BIG.
 RS_DEV float edge_depth(float sep, float best, float max_face) {
@@ -165,6 +238,10 @@ RS_DEV float candidate(const RsTables& T, const float* pf, int p, int i, float* 
     for (int k = 0; k < 3; ++k) nrm[k] = -nrm[k];
     d = ds - s1[0];
     for (int k = 0; k < 3; ++k) pos[k] = e[k] + (s1[0] + 0.5f * d) * nrm[k];
+  } else if (kind == RS_PAIR_PLANE_CYLINDER) {
+    d = plane_cylinder(p1, R1, p2, R2, s2, i, pos, nrm);
+  } else if (kind == RS_PAIR_CAPSULE_CAPSULE) {
+    d = capsule_capsule(p1, R1, s1, p2, R2, s2, pos, nrm);
   } else if (i < 16) {  // a corner of box1 vs box2 (i < 8), or of box2 vs box1; one code path for both
     const bool first = i < 8;
     const float *pa = first ? p1 : p2, *Ra = first ? R1 : R2, *sa = first ? s1 : s2;

@@ -2,13 +2,17 @@
 package's envs/base.py; robosuite environments/base.py, robot_env.py,
 manipulation_env.py).
 
-Everything is batched (batch is dim 0). A policy step is `rollout_batch`:
-forward products (K1), the policy-rate controller goals, 25 substeps of
-2 ms — each ONE launch of the fused substep kernel (K3) on CUDA — then the
+Everything is batched (batch is dim 0). A policy step is forward
+products (K1), the policy-rate controller goals, 25 substeps of 2 ms —
+each ONE launch of the fused substep kernel (K3) on CUDA — then the
 end-of-step forward products (K1) and the reward. With `_disable_fused`
 set, each substep instead runs forward products (K1), the controllers,
 the contact rows and the contact-solve kernel (K2), as the JAX package's
-unfused path does. The MPC's planning hooks (`make_plan_return`,
+unfused path does. `step_batch` is the RL entry point: the step, then the
+observations through the Observable pipeline (observables.py), with the
+gripper's contact wrench from the last substep's solver forces, the
+reward and `done` at the horizon. `rollout_batch` is the planners' lean
+step (no observations). The MPC's planning hooks (`make_plan_return`,
 `make_plan_dynamics`) run the same step on a planning model.
 """
 
@@ -26,6 +30,7 @@ from robosuite_tpu_torch.controllers.parts import osc as osc_mod
 from robosuite_tpu_torch.models.bases import robot_base_factory
 from robosuite_tpu_torch.models.grippers import gripper_factory
 from robosuite_tpu_torch.models.robots import create_robot
+from robosuite_tpu_torch.observables import Observable, compute_observables, sensor
 from robosuite_tpu_torch.ops.forward import runtime_leaves
 from robosuite_tpu_torch.ops.substep import UnsupportedFused, make_fused_substep
 from robosuite_tpu_torch.physics import contact as C
@@ -56,6 +61,7 @@ class EnvState:
     physics: State
     ctrl: RobotCtrlState
     t: torch.Tensor  # (B,) int
+    obs_cache: dict = None  # the Observable pipeline's stale and delayed values, where any stage keeps them
 
 
 def map_state(fn, state):
@@ -75,7 +81,11 @@ class RobotEnv:
     """Host-side env handle: builds and compiles the world once."""
 
     def __init__(self, robots="Panda", controller_configs=None, control_freq=macros.DEFAULT_CONTROL_FREQ,
-                 reward_scale=1.0, reward_shaping=False, initialization_noise="default", device=None):
+                 horizon=macros.DEFAULT_HORIZON, reward_scale=1.0, reward_shaping=False,
+                 initialization_noise="default", use_camera_obs=False, device=None):
+        if use_camera_obs:
+            raise NotImplementedError("camera observations need the ray-cast renderer (the JAX package's "
+                                      "renderers/raycast.py), which the port does not have yet")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("no CUDA device: pass device='cpu' to run the port on the CPU")
@@ -85,6 +95,7 @@ class RobotEnv:
         if len(self.robot_names) != 1:
             raise NotImplementedError("the port covers single-robot envs")
         self.control_freq = control_freq
+        self.horizon = horizon
         self.reward_scale = reward_scale
         self.reward_shaping = reward_shaping
         self.n_substeps = int(round(1.0 / (control_freq * macros.SIMULATION_TIMESTEP)))
@@ -108,6 +119,8 @@ class RobotEnv:
         self._action_lo = torch.as_tensor(lo, device=self.device)
         self._action_hi = torch.as_tensor(hi, device=self.device)
         self._fused_cache = {}
+        self._obs_overrides = {}
+        self._wrench_cache = {}
 
     # -- subclass hooks ------------------------------------------------------
     def _load_model(self):
@@ -154,6 +167,132 @@ class RobotEnv:
         """Both fingerpads touching the object (manipulation_env.py:331-376)."""
         return self._any_contact(kin, left_pairs) & self._any_contact(kin, right_pairs)
 
+    # -- the observation pipeline (the JAX envs/base.py:216-273; robosuite
+    # utils/observables.py, environments/base.py:429-465): every raw key
+    # gets an Observable (a clean passthrough unless modify_observable
+    # overrides its stages), grouped by modality into "<modality>-state"
+    def _default_modality(self, key):
+        if key.endswith("_image") or key.endswith("_depth") or key == "placement_valid":
+            return None  # outside the pipeline
+        if key.startswith("robot0_"):
+            return "robot0_proprio"
+        return "object"
+
+    def modify_observable(self, name, **overrides):
+        """Override one observable's stages (robosuite environments/base.py
+        modify_observable): corrupter=, filter=, delay=, update_every=,
+        enabled=, active=."""
+        self._obs_overrides.setdefault(name, {}).update(overrides)
+
+    def _observables_for(self, raw_keys):
+        specs = []
+        for k in raw_keys:
+            modality = self._default_modality(k)
+            if modality is None:
+                continue
+            ov = self._obs_overrides.get(k, {})
+
+            @sensor(modality)
+            def read(ctx, key=k):
+                return ctx[key]
+
+            specs.append(Observable(name=k, sensor=read, corrupter=ov.get("corrupter"), filter=ov.get("filter"),
+                                    delay=ov.get("delay", 0), update_every=ov.get("update_every", 1),
+                                    enabled=ov.get("enabled", True), active=ov.get("active", True)))
+        return specs
+
+    def _finalize_observations(self, obs, generator, t, cache=None):
+        """The raw obs dict through the pipeline: -> (obs with the piped
+        values and the '<modality>-state' vectors, the new cache, or None
+        where no stage keeps state)."""
+        specs = self._observables_for(list(obs))
+        piped, new_cache = compute_observables(specs, obs, generator, t, cache=cache)
+        out = dict(obs)
+        out.update(piped)
+        needs_cache = any(s.delay > 0 or s.update_every > 1 for s in specs)
+        return out, (new_cache if needs_cache else None)
+
+    # -- the gripper's contact wrench (the JAX envs/base.py:341-437)
+    def _subtree_bodies(self, root_body):
+        """The bodies in root_body's subtree, itself included."""
+        m, out = self.model, []
+        for b in range(m.nbody):
+            k = b
+            while True:
+                if k == root_body:
+                    out.append(b)
+                    break
+                if k == 0:
+                    break
+                k = m.body_parentid[k]
+        return out
+
+    def _wrench_rows(self, subtree):
+        """[(row, sign, pair)]: the contact rows with exactly one side in
+        `subtree`; sign +1 where body2 is that side (the row's force acts on
+        the subtree along +normal)."""
+        sub, m = set(subtree), self.model
+        layout = C.contact_row_layout(m)
+        out = []
+        for k in range(m.npair):
+            b1, b2 = m.geom_bodyid[m.pair_geom1[k]], m.geom_bodyid[m.pair_geom2[k]]
+            if (b1 in sub) == (b2 in sub):
+                continue
+            out += [(r, 1.0 if b2 in sub else -1.0, k) for r in layout[k]]
+        return out
+
+    def _wrench_plan(self, arm):
+        """Per arm, computed once: (eef site, the subset's pairs, the rows of
+        the pairs' own narrowphase, the full-buffer rows, signs (R,), the
+        buffer's row count)."""
+        if arm not in self._wrench_cache:
+            m, robot = self.model, self.robots[0]
+            site = robot.eef_site_id[arm]
+            root = k = m.site_bodyid[site]
+            while k != 0:  # the highest gripper body above the eef site
+                if m.body_names[k].startswith("gripper0_"):
+                    root = k
+                k = m.body_parentid[k]
+            rows = self._wrench_rows(self._subtree_bodies(root))
+            layout = C.contact_row_layout(m)
+            pairs = sorted({k for _, _, k in rows}, key=lambda k: layout[k][0])
+            sub_row = {r: i for i, r in enumerate(r for k in pairs for r in layout[k])}
+            dev = self.device
+            self._wrench_cache[arm] = (
+                site, set(pairs), torch.tensor([sub_row[r] for r, _, _ in rows], dtype=torch.long, device=dev),
+                torch.tensor([r for r, _, _ in rows], dtype=torch.long, device=dev),
+                torch.tensor([s for _, s, _ in rows], dtype=torch.float32, device=dev),
+                sum(len(v) for v in layout.values()))
+        return self._wrench_cache[arm]
+
+    def eef_contact_wrench(self, kin, f, arm):
+        """(force (B, 3), torque (B, 3)) of the contact forces on the
+        gripper's subtree about the eef site: robosuite's eef force/torque
+        sensors (robots/robot.py:795-814) from the last substep's solver
+        forces f (B, 3R), rows [normals | t1 | t2] in the static row layout,
+        and the rows' frames from the end-of-step narrowphase of the
+        gripper's pairs (plain torch code). Gravity and inertial terms are
+        not included."""
+        site, pairs, ridx, fidx, signs, R = self._wrench_plan(arm)
+        B = kin.site_xpos.shape[0]
+        zero = torch.zeros(B, 3, dtype=kin.site_xpos.dtype, device=kin.site_xpos.device)
+        if not pairs:
+            return zero, zero
+        con = C.narrowphase(self.model, kin, pairs=pairs)
+        fw = (con["normal"][:, ridx] * f[:, fidx, None] + con["t1"][:, ridx] * f[:, R + fidx, None]
+              + con["t2"][:, ridx] * f[:, 2 * R + fidx, None]) * signs[:, None]
+        arm_ = con["pos"][:, ridx] - kin.site_xpos[:, site, None]
+        return fw.sum(dim=1), torch.linalg.cross(arm_, fw).sum(dim=1)
+
+    def _wrench_obs(self, obs, kin, f):
+        """Add robot0_eef_force and robot0_eef_torque, of the robot's one
+        arm; f None: zero forces (the reset)."""
+        if f is None:
+            obs["robot0_eef_force"] = obs["robot0_eef_torque"] = torch.zeros_like(kin.site_xpos[:, 0])
+        else:
+            obs["robot0_eef_force"], obs["robot0_eef_torque"] = self.eef_contact_wrench(kin, f, self.robots[0].arms[0])
+        return obs
+
     # -- action space ----------------------------------------------------------
     @property
     def action_dim(self) -> int:
@@ -177,11 +316,13 @@ class RobotEnv:
         return qpos
 
     def reset_batch(self, n: int, generator: torch.Generator):
-        """n fresh episodes: -> (EnvState, raw observation dict). The dict
-        carries "placement_valid" (n,), as the JAX reset does for every env:
-        False where an object found no free spot (robosuite raises
+        """n fresh episodes (the JAX _reset_impl): -> (EnvState, observation
+        dict through the pipeline, the eef force and torque at zero). The
+        dict carries "placement_valid" (n,), as the JAX reset does for every
+        env: False where an object found no free spot (robosuite raises
         RandomizationError there), all True where the env's sampler reports
-        no validity."""
+        no validity. Noise corrupters draw from `generator` after the
+        initial pose and the placements."""
         qpos = self._initial_qpos(n, generator)
         placement = self._sample_placements(generator, n)
         valid = None
@@ -192,11 +333,12 @@ class RobotEnv:
         physics = State(qpos=qpos, qvel=torch.zeros(n, self.model.nv, device=self.device), time=zeros)
         kin, M, bias = engine.forward_products(self.model, physics.qpos, physics.qvel)
         ctrl = self.robots[0].init_ctrl_state(kin, M, bias, physics.qpos, physics.qvel)
-        state = EnvState(physics=physics, ctrl=ctrl, t=torch.zeros(n, dtype=torch.int32, device=self.device))
-        obs = self._get_observations(physics, kin)
+        t = torch.zeros(n, dtype=torch.int32, device=self.device)
+        obs = self._wrench_obs(self._get_observations(physics, kin), kin, None)
         obs["placement_valid"] = (valid[0].to(self.device) if valid
                                   else torch.ones(n, dtype=torch.bool, device=self.device))
-        return state, obs
+        obs, cache = self._finalize_observations(obs, generator, t)
+        return EnvState(physics=physics, ctrl=ctrl, t=t, obs_cache=cache), obs
 
     def state_from_flattened(self, flat):
         """EnvState from flattened (time, qpos, qvel) rows (B, 1 + nq + nv)
@@ -237,7 +379,8 @@ class RobotEnv:
         return torch.cat([despos, desori.reshape(B, 9)], dim=-1).contiguous(), gains
 
     def _fused_substep_fn(self, model, ctrl_state, kin):
-        """substep(physics) -> physics using the fused kernel, or None."""
+        """substep(physics) -> (physics, f) using the fused kernel, or None;
+        f (B, 3R) is the substep's solver forces in the static row layout."""
         if getattr(self, "_disable_fused", False):
             return None
         fused = self._fused_for(model)
@@ -250,14 +393,15 @@ class RobotEnv:
         leaves = runtime_leaves(model, goal.shape[0])
 
         def substep(phys):
-            qpos, qvel, _f = fused(phys.qpos, phys.qvel, *leaves, goal, gains, grip)
-            return State(qpos=qpos, qvel=qvel, time=phys.time + model.timestep)
+            qpos, qvel, f = fused(phys.qpos, phys.qvel, *leaves, goal, gains, grip)
+            return State(qpos=qpos, qvel=qvel, time=phys.time + model.timestep), f
 
         return substep
 
     def _substep_fn(self, model, ctrl_state, kin):
-        """substep(physics) -> physics: the fused kernel, or (unsupported or
-        `_disable_fused`) forward products + controllers + contact solve."""
+        """substep(physics) -> (physics, f): the fused kernel, or (unsupported
+        or `_disable_fused`) forward products + controllers + contact solve.
+        Both give f in the static row layout [normals | t1 | t2]."""
         substep = self._fused_substep_fn(model, ctrl_state, kin)
         if substep is not None:
             return substep
@@ -267,19 +411,25 @@ class RobotEnv:
             k, Mk, bk = engine.forward_products(model, phys.qpos, phys.qvel)
             c = robot.run_controllers(k, Mk, bk, phys.qpos, phys.qvel, ctrl_state,
                                       torch.zeros(phys.qpos.shape[0], model.nu, device=phys.qpos.device))
-            return engine.integrate(model, phys, c, k, Mk, bk)[0]
+            return engine.integrate(model, phys, c, k, Mk, bk)
 
         return substep
+
+    def _physics_step(self, state: EnvState, action, model, n_substeps, kin, M, bias):
+        """The goals and n_substeps substeps from the start-of-step forward
+        products: -> (physics', ctrl', the last substep's f)."""
+        physics = state.physics
+        ctrl = self.robots[0].set_goals(kin, M, bias, physics.qpos, physics.qvel, state.ctrl, action)
+        substep = self._substep_fn(model, ctrl, kin)
+        f = None
+        for _ in range(n_substeps):
+            physics, f = substep(physics)
+        return physics, ctrl, f
 
     def _rollout_with_products(self, state: EnvState, action, model, n_substeps, kin, M, bias):
         """One policy step given the start-of-step forward products; returns
         (state', reward, end-of-step products)."""
-        physics = state.physics
-        robot = self.robots[0]
-        ctrl = robot.set_goals(kin, M, bias, physics.qpos, physics.qvel, state.ctrl, action)
-        substep = self._substep_fn(model, ctrl, kin)
-        for _ in range(n_substeps):
-            physics = substep(physics)
+        physics, ctrl, _ = self._physics_step(state, action, model, n_substeps, kin, M, bias)
         kin2, M2, bias2 = engine.forward_products(model, physics.qpos, physics.qvel)
         reward = self.reward(physics, kin2)
         return EnvState(physics=physics, ctrl=ctrl, t=state.t + 1), reward, (kin2, M2, bias2)
@@ -290,6 +440,25 @@ class RobotEnv:
         kin, M, bias = engine.forward_products(self.model, states.physics.qpos, states.physics.qvel)
         new, reward, _ = self._rollout_with_products(states, actions, self.model, self.n_substeps, kin, M, bias)
         return new, reward
+
+    def step_batch(self, states: EnvState, actions, generator: torch.Generator = None):
+        """Batched policy step (the JAX _step_impl / step_batch): goals,
+        substeps, the end-of-step forward products, the observations through
+        the pipeline (with the eef wrench of the last substep's solver
+        forces), the reward, then done = t >= horizon. -> (states', obs,
+        reward (B,), done (B,) bool, {}). Noise corrupters draw from
+        `generator`."""
+        actions = self._clip(torch.as_tensor(actions, dtype=torch.float32, device=self.device))
+        model = self.model
+        kin, M, bias = engine.forward_products(model, states.physics.qpos, states.physics.qvel)
+        physics, ctrl, f = self._physics_step(states, actions, model, self.n_substeps, kin, M, bias)
+        kin2 = engine.forward_products(model, physics.qpos, physics.qvel)[0]
+        obs = self._wrench_obs(self._get_observations(physics, kin2), kin2, f)
+        obs, cache = self._finalize_observations(obs, generator, states.t, cache=states.obs_cache)
+        reward = self.reward(physics, kin2)
+        t = states.t + 1
+        done = t >= self.horizon
+        return EnvState(physics=physics, ctrl=ctrl, t=t, obs_cache=cache), obs, reward, done, {}
 
     # -- MPC planning hooks (the JAX envs/base.py make_plan_return / make_plan_dynamics)
     def _clip(self, actions):
@@ -366,15 +535,11 @@ class RobotEnv:
         `model`, with no reward and no end-of-step forward products (the
         linearizer reads only the next state). Fused: one K1 launch, then
         n_substeps fused-substep launches."""
-        robot = self.robots[0]
 
         def dyn(state, action):
             physics = state.physics
             kin, M, bias = engine.forward_products(model, physics.qpos, physics.qvel)
-            ctrl = robot.set_goals(kin, M, bias, physics.qpos, physics.qvel, state.ctrl, self._clip(action))
-            substep = self._substep_fn(model, ctrl, kin)
-            for _ in range(n_substeps):
-                physics = substep(physics)
+            physics, ctrl, _ = self._physics_step(state, self._clip(action), model, n_substeps, kin, M, bias)
             return EnvState(physics=physics, ctrl=ctrl, t=state.t + 1)
 
         return dyn

@@ -7,3 +7,6 @@ SIMULATION_TIMESTEP = 0.002
 
 # Default policy frequency (robosuite environments/base.py:102).
 DEFAULT_CONTROL_FREQ = 20
+
+# Default episode length in policy steps (robosuite environments/base.py:99).
+DEFAULT_HORIZON = 1000

@@ -1,0 +1,103 @@
+"""Card-backed objects (the JAX package's models/objects/xml_objects.py;
+robosuite models/objects/xml_objects.py), trimmed to the door.
+
+Each wraps a committed model card (models/cards/<name>.json) extracted
+from robosuite's primitive-geometry object MJCF. The object's articulated
+joints live inside the card; no free joint is added.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import List
+
+import numpy as np
+
+from robosuite_tpu_torch.models import spec as S
+from robosuite_tpu_torch.models.cards import spec_from_card
+from robosuite_tpu_torch.models.objects import MujocoObject
+
+
+class CardObject(MujocoObject):
+    """robosuite's MujocoXMLObject: an object built from a committed card
+    (objects.py:332-520), its one root renamed "<name>_main"."""
+
+    card_name: str = None
+
+    def _build(self) -> S.BodySpec:
+        ms = spec_from_card(self.card_name)
+        children = ms.worldbody.children
+        assert len(children) == 1, f"object card {self.card_name} must have one root"
+        root = copy.deepcopy(children[0])
+        root.name = "main"
+        root.apply_prefix(self.naming_prefix)
+        root.add_site(S.SiteSpec(self.default_site, size=(0.002,), rgba=(1, 0, 0, 0)))
+        return root
+
+    @property
+    def contact_geoms(self) -> List[str]:
+        return [g.name for b in self.get_obj().walk() for g in b.geoms if g.contype or g.conaffinity]
+
+
+class DoorObject(CardObject):
+    """robosuite xml_objects.py:236-290: a door in its frame with a handle;
+    lock=True adds the latch joint on the handle. friction and damping
+    override the hinge's (xml_objects.py:268-290)."""
+
+    def __init__(self, name, friction=None, damping=None, lock=False):
+        self.lock = lock
+        self.card_name = "door_lock" if lock else "door"
+        super().__init__(name)
+        self._friction = friction
+        self._damping = damping
+
+    def _build(self):
+        root = super()._build()
+        for b in root.walk():
+            for j in b.joints:
+                if j.name.endswith("hinge"):
+                    if self._friction is not None:
+                        j.frictionloss = float(self._friction)
+                    if self._damping is not None:
+                        j.damping = float(self._damping)
+        return root
+
+    @property
+    def door_body(self):
+        return self.naming_prefix + "door"
+
+    @property
+    def frame_body(self):
+        return self.naming_prefix + "frame"
+
+    @property
+    def latch_body(self):
+        return self.naming_prefix + "latch"
+
+    @property
+    def hinge_joint(self):
+        return self.naming_prefix + "hinge"
+
+    @property
+    def latch_joint(self):
+        return self.naming_prefix + "latch_joint"
+
+    @property
+    def important_sites(self):
+        return {"handle": self.naming_prefix + "handle"}
+
+    @property
+    def joint_names(self):
+        return [j.name for b in self.get_obj().walk() for j in b.joints]
+
+    @property
+    def bottom_offset(self):
+        return np.array([0, 0, -0.3])
+
+    @property
+    def top_offset(self):
+        return np.array([0, 0, 0.3])
+
+    @property
+    def horizontal_radius(self):
+        return 0.3

@@ -1,5 +1,5 @@
 """Planning residuals (the JAX package's mpc/residuals.py and
-receding.lift_residual), for Lift and Stack.
+receding.lift_residual), for Lift, Stack and Door.
 
 A residual r(env, plan_model, qpos, qvel, u, poses) -> (N, m) defines the
 stage cost 0.5 ||r||^2 of the iLQR refinement: a smooth least-squares
@@ -40,7 +40,21 @@ def stack_residual(env, plan_model, qpos, qvel, u, poses=kinematics.body_poses):
     return torch.cat([r_reach, r_lift, r_align, 0.02 * qvel], dim=-1)
 
 
-_RESIDUALS = {"Lift": lift_residual, "Stack": stack_residual}
+def door_residual(env, plan_model, qpos, qvel, u, poses=kinematics.body_poses):
+    """Reach the handle, turn the latch, open the hinge past the success
+    angle (robosuite door.py:219-268 reward terms as residuals)."""
+    xpos, xquat = poses(plan_model, qpos)
+    eef = kinematics.site_pos(plan_model, xpos, xquat, env.eef_site)
+    handle = kinematics.site_pos(plan_model, xpos, xquat, env.handle_site_id)
+    hinge = qpos[:, env.hinge_qpos_addr:env.hinge_qpos_addr + 1]
+    parts = [2.0 * (eef - handle), 4.0 * torch.clamp_max(hinge - 0.35, 0.0)]
+    if env.use_latch:
+        latch = qpos[:, env.handle_qpos_addr:env.handle_qpos_addr + 1]
+        parts.append(1.5 * torch.clamp_max(latch - 1.0, 0.0))
+    return torch.cat(parts + [0.02 * qvel], dim=-1)
+
+
+_RESIDUALS = {"Lift": lift_residual, "Stack": stack_residual, "Door": door_residual}
 
 
 def residual_for(env):

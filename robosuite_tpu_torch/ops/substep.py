@@ -28,7 +28,7 @@ import torch
 from robosuite_tpu_torch.controllers.parts import joint_pos as jp_mod
 from robosuite_tpu_torch.controllers.parts import osc as osc_mod
 from robosuite_tpu_torch.ops import build as _b
-from robosuite_tpu_torch.ops import contact_solve
+from robosuite_tpu_torch.ops import contact_solve, tables
 from robosuite_tpu_torch.ops.forward import forward_plain, model_tables
 from robosuite_tpu_torch.physics import contact as C
 from robosuite_tpu_torch.physics import engine, kinematics
@@ -58,6 +58,7 @@ def extract_spec(env, model) -> dict:
         raise UnsupportedFused(f"arm controller {type(cfg).__name__}")
     for key in C.pair_groups(model):
         C.pair_points(*key)  # raises NotImplementedError on pair types not ported
+    tables.check_model(model)  # raises ValueError above the kernels' maxima
     lo, hi = robot.torque_limits[arm]
     return dict(
         qv_idx=[int(i) for i in robot.arm_qvel_idx[arm]],
@@ -159,6 +160,13 @@ def resident_per_sm(fused) -> int:
     n = _b.library().rs_substep_resident(_b.ptr(T_host), int(fused.emit_aux))
     _b.check(max(0, -n), "rs_substep_resident")
     return n
+
+
+def smem_bytes(fused) -> int:
+    """Shared memory per scenario of a fused wrapper's kernel (the carve
+    of its model, csrc/substep.cuh carve_substep)."""
+    _, T_host = model_tables(fused.model, arm=fused.spec, key="fused")
+    return _b.library().rs_substep_smem_bytes(_b.ptr(T_host))
 
 
 make_fused_substep.launches = 0

@@ -21,7 +21,7 @@ import torch
 
 from robosuite_tpu_torch.models import spec as S
 
-MAXB, MAXJ, MAXQ, MAXV, MAXG, MAXS, MAXU, MAXP, MAXK, MAXA, MAXGR = 32, 16, 24, 24, 96, 16, 16, 32, 96, 8, 4
+MAXB, MAXJ, MAXQ, MAXV, MAXG, MAXS, MAXU, MAXP, MAXK, MAXA, MAXGR = 32, 16, 24, 24, 96, 16, 16, 64, 192, 8, 4
 MAXPR = 384  # (body, dof) pairs with anc != 0
 MAXCT = 25 * MAXP  # narrowphase candidates, all pairs
 
@@ -73,8 +73,16 @@ class RsTables(ctypes.Structure):
     ]
 
 
-_PAIR_KIND = {(S.PLANE, S.BOX): 0, (S.CYLINDER, S.BOX): 1, (S.BOX, S.BOX): 2}
-_NCAND = {0: 8, 1: 2, 2: 25}  # narrowphase candidates per pair kind (csrc/narrowphase.cuh pair_ncand)
+_PAIR_KIND = {(S.PLANE, S.BOX): 0, (S.CYLINDER, S.BOX): 1, (S.BOX, S.BOX): 2, (S.PLANE, S.CYLINDER): 3,
+              (S.CYLINDER, S.CYLINDER): 4}
+_NCAND = {0: 8, 1: 2, 2: 25, 3: 3, 4: 1}  # narrowphase candidates per pair kind (csrc/narrowphase.cuh pair_ncand)
+
+
+def _path(kind, k):
+    """The code path of candidate k of a pair of `kind` in
+    csrc/narrowphase.cuh candidate(): box-box's vertex tests (k < 16) and
+    edge crosses apart."""
+    return {0: 0, 1: 1, 2: 2 + (k >= 16), 3: 4, 4: 5}[kind]
 _ACT_KIND = {"motor": 0, "position": 1, "velocity": 2}
 _CTRL_TYPE = {"osc": 0, "joint_pos": 1}
 
@@ -86,7 +94,8 @@ def _set(field, values):
 
 
 def check_model(model):
-    """Raise when the model exceeds the kernels' compile-time maxima."""
+    """Raise when the model exceeds the kernels' compile-time maxima or has
+    an actuator kind they do not take; -> its contact rows."""
     from robosuite_tpu_torch.physics import contact as C
 
     limits = dict(nbody=MAXB, njnt=MAXJ, nq=MAXQ, nv=MAXV, ngeom=MAXG, nsite=MAXS, nu=MAXU, npair=MAXP)
@@ -220,9 +229,8 @@ def fill(model, arm=None) -> RsTables:
     t.ncand = t.pair_cand[i]
     # the candidates grouped by the code path that computes them (stable, so
     # pair order within a path), so a warp's lanes mostly take one path
-    path = lambda kind, k: kind if kind != 2 else 2 + (k >= 16)  # noqa: E731
     order = sorted(((p, k) for p in range(i) for k in range(_NCAND[t.pair_kind[p]])),
-                   key=lambda pk: path(t.pair_kind[pk[0]], pk[1]))
+                   key=lambda pk: _path(t.pair_kind[pk[0]], pk[1]))
     _set(t.cand_pi, np.array([32 * p + k for p, k in order] + [0] * (MAXCT - len(order)), dtype=np.int32))
     _set(t.row_pair, row_pair)
 

@@ -1,6 +1,7 @@
 """Contact: static pair layout, narrowphase and the solver's row assembly,
 on batched tensors (the JAX package's physics/contact.py, for the pair
-types of the Lift world: plane-box, box-box, cylinder-box).
+types of the Lift, Stack and Door worlds: plane-box, plane-cylinder,
+box-box, cylinder-box and cylinder-cylinder).
 
 The narrowphase formulas are the JAX package's lane formulas
 (ops/pallas_substep.py _np_* — what its narrowphase runs for primitive
@@ -25,7 +26,9 @@ _BIG = 1e4
 
 # candidate points per pair, by (type1, type2) with type1 <= type2
 _PAIR_POINTS = {
+    (S.PLANE, S.CYLINDER): 3,
     (S.PLANE, S.BOX): 8,
+    (S.CYLINDER, S.CYLINDER): 1,
     (S.CYLINDER, S.BOX): 2,
     (S.BOX, S.BOX): 25,  # 16 two-way vertex tests + 9 SAT edge-cross rows
 }
@@ -158,6 +161,62 @@ def _np_plane_box(p1, R1, s1, p2, R2, s2):
     return out
 
 
+def _np_plane_cylinder(p1, R1, s1, p2, R2, s2):
+    """Plane vs cylinder: both cap rims at their point nearest the plane
+    (the rim direction is the plane normal's descent across the cap, the
+    cylinder's x axis where its axis is parallel to the normal) and the
+    centre of the +z cap."""
+    n = _matcol(R1, 2)
+    axis = _matcol(R2, 2)
+    an = _dot(axis, n)
+    proj = _sub(n, _scale(an, axis))
+    pn = _norm3(proj)
+    good = pn > 1e-8
+    inv = 1.0 / torch.clamp_min(pn, 1e-8)
+    rx = _matcol(R2, 0)
+    rim = tuple(torch.where(good, -proj[i] * inv, rx[i]) for i in range(3))
+    pts = [
+        _add(_add(p2, _scale(s2[1], axis)), _scale(s2[0], rim)),
+        _add(_sub(p2, _scale(s2[1], axis)), _scale(s2[0], rim)),
+        _add(p2, _scale(s2[1], axis)),
+    ]
+    out = []
+    for pt in pts:
+        d = _dot(_sub(pt, p1), n)
+        out.append((d, _sub(pt, _scale(0.5 * d, n)), n))
+    return out
+
+
+def _np_capsule_capsule(p1, R1, s1, p2, R2, s2):
+    """Capsule vs capsule (cylinder-cylinder runs as it): the closest points
+    of the two axis segments, the segment parameters clamped to [0, 1]
+    (s from the unclamped solution, t from s, s again from t)."""
+    a0 = _sub(p1, _scale(s1[1], _matcol(R1, 2)))
+    a1 = _add(p1, _scale(s1[1], _matcol(R1, 2)))
+    b0 = _sub(p2, _scale(s2[1], _matcol(R2, 2)))
+    b1 = _add(p2, _scale(s2[1], _matcol(R2, 2)))
+    da = _sub(a1, a0)
+    db = _sub(b1, b0)
+    r = _sub(a0, b0)
+    A = _dot(da, da) + 1e-12
+    B = _dot(da, db)
+    Cc = _dot(db, db) + 1e-12
+    D = _dot(da, r)
+    E = _dot(db, r)
+    den = A * Cc - B * B
+    s = torch.clamp(torch.where(den > 1e-12, (B * E - Cc * D) / torch.clamp_min(den, 1e-12), torch.zeros_like(den)),
+                    0.0, 1.0)
+    t = torch.clamp((B * s + E) / Cc, 0.0, 1.0)
+    s = torch.clamp((B * t - D) / A, 0.0, 1.0)
+    pa = _add(a0, _scale(s, da))
+    pb = _add(b0, _scale(t, db))
+    dp = _sub(pb, pa)
+    dist = _norm3(dp)
+    n = _scale(1.0 / torch.clamp_min(dist, 1e-9), dp)
+    d = dist - s1[0] - s2[0]
+    return [(d, _add(pa, _scale(s1[0] + 0.5 * d, n)), n)]
+
+
 def _np_capsule_box(p1, R1, s1, p2, R2, s2):
     """Capsule (or cylinder, as a capsule) vs box: both segment ends
     against the box."""
@@ -262,7 +321,9 @@ def box_box_sat(p1, R1, s1, p2, R2, s2):
 
 
 _LANE_DISPATCH = {
+    (S.PLANE, S.CYLINDER): _np_plane_cylinder,
     (S.PLANE, S.BOX): _np_plane_box,
+    (S.CYLINDER, S.CYLINDER): _np_capsule_capsule,
     (S.CYLINDER, S.BOX): _np_capsule_box,
     (S.BOX, S.BOX): _np_box_box,
 }

@@ -78,8 +78,10 @@ def test_three_policy_steps_arm_matches_jax(setup):
 
 
 def test_reset_batch_and_fused_unfused_agree(setup):
-    """reset_batch gives finite states and the raw Lift observations (with
-    placement_valid, see test_reset_reports_placement_valid); the fused
+    """reset_batch gives finite states and the Lift observations through
+    the Observable pipeline, as the JAX reset gives them (the eef force and
+    torque, the '<modality>-state' vectors, and placement_valid, see
+    test_reset_reports_placement_valid); the fused
     substep path and the unfused one (forward products + contact solve per
     substep) agree on the CPU."""
     _, penv, _, _ = setup
@@ -89,6 +91,7 @@ def test_reset_batch_and_fused_unfused_agree(setup):
         "robot0_joint_pos", "robot0_joint_pos_cos", "robot0_joint_pos_sin", "robot0_joint_vel",
         "robot0_eef_pos", "robot0_eef_quat", "robot0_gripper_qpos", "robot0_gripper_qvel",
         "cube_pos", "cube_quat", "gripper_to_cube_pos", "placement_valid",
+        "robot0_eef_force", "robot0_eef_torque", "robot0_proprio-state", "object-state",
     }
     assert all(torch.isfinite(v).all() for v in obs.values())
     a = torch.as_tensor(_actions(2, penv.action_dim))
