@@ -92,7 +92,33 @@ Phases (any failure exits non-zero):
      plain path from the same input; one unfused step (K1 + K2);
  22. the Door MPC at tools/bench_configs.py's width (B=32, H=64, K=16,
      MPPI only): a warm-up tick, ticks 1-3 timed with their launch counts,
-     finite actions in [-1, 1], peak memory and a profiled tick.
+     finite actions in [-1, 1], peak memory and a profiled tick;
+ 23. make("PickPlaceCan", robots="Sawyer", controller_configs=
+     "JOINT_POSITION", reward_shaping=True) on CUDA (nq 37, nv 33, 40
+     bodies, 105 geoms, 606 pairs, 1326 candidate points), reset_batch(512):
+     the fused substep's gate refuses the world for its row compaction;
+     K1's and K2's shared memory a block; K1 against its plain version at
+     B=512 and 32, timed;
+ 24. a contact-rich state (ab_kernels.pickplace_contact_state: the arm
+     moved so that the open pads stand about the can, the gripper closing
+     on it, the objects resting in bin 1), at least 4 active rows in half
+     the scenarios; the active rows' median and maximum and the scenarios
+     where the 96-slot cap drops rows;
+ 25. K2 against its plain version at nv 33 and 96 compacted slots; the
+     contact rows' CUDA graph (C.contact_rows) against the eager code, bit
+     for bit, at the reset and the contact state (B=512);
+ 26. the step slice on the unfused path: counts zeroed, reset + 10
+     step_batch policy steps (K1 = 1 + 27 a step, K2 = 25 a step, K3 = 0),
+     finite observations, rewards and done, the eef wrench zero, host-clock
+     rate and a profiled step; each policy step substep by substep, the
+     kernel substep (K1 + K2) and the plain one from the same input under
+     hold_all's rule, the last substep being step_batch's next state bit
+     for bit;
+ 27. the PickPlaceCan MPC at tools/bench_configs.py's width (B=32, H=128,
+     K=16, MPPI only, unfused planning rollouts): a warm-up tick, ticks
+     1-3 timed with their launch counts, finite actions in [-1, 1], peak
+     memory and a profiled tick; the planning rollouts' rows graph (B K =
+     512, dt 0.025) against the eager code, bit for bit, as in 25.
 Timings use CUDA events (profiler passes show one policy step's and one
 MPC tick's device time; K1's and K4's widths also print the profiler's
 kernel device time, and, at the end, each width's launches over the
@@ -457,25 +483,53 @@ def ptxas_report(log_path):
     return {v: next(r for fn, r in per_fn.items() if k in fn) for v, k in VARIANT_KERNEL.items()}
 
 
-def profile_once(tag, label, fn, top):
+def kernel_rows(prof):
+    """[(kernel, ms, launches)] of the device activities a profiler run
+    recorded, each counted once, by device time (straight from the trace's
+    events: a few seconds for a million, where key_averages takes
+    minutes)."""
+    from torch.autograd import DeviceType
+
+    acc = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            r = acc.setdefault(e.name(), [0.0, 0])
+            r[0] += e.duration_ns() / 1e6
+            r[1] += 1
+    return sorted(((k, ms, n) for k, (ms, n) in acc.items()), key=lambda r: -r[1])
+
+
+def profile_once(tag, label, fn, top, kernels_only=False):
     """fn() once under torch.profiler; prints the wall time, the device's
     busy time, the `top` kernels by device time and the device time of
-    every kernel of the port (rs_*). -> (fn's result, wall ms, busy ms, the
-    top rows, the port's rows), each row (kernel, ms, launches)."""
+    every kernel of the port (rs_*). "Device busy" sums key_averages' rows
+    with device time (an aten op's row and its kernels' rows both count),
+    and beside it the kernels' time counted once (kernel_rows); with
+    `kernels_only` the profiler records the device alone and only the
+    latter is computed (a window of a million kernels). -> (fn's result,
+    wall ms, busy ms, the top rows, the port's rows), each row (kernel,
+    ms, launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] if kernels_only else [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-                   if e.self_device_time_total > 0), key=lambda r: -r[1])
-    dev_ms = sum(r[1] for r in rows)
+    kern = kernel_rows(prof)
+    kern_ms = sum(r[1] for r in kern)
+    if kernels_only:
+        rows, dev_ms = kern, kern_ms
+    else:
+        rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                       if e.self_device_time_total > 0), key=lambda r: -r[1])
+        dev_ms = sum(r[1] for r in rows)
     print(f"{tag} {label} under the profiler: wall {wall_ms:.2f} ms, device busy {dev_ms:.2f} ms "
-          f"({100 * dev_ms / wall_ms:.1f}%)")
+          f"({100 * dev_ms / wall_ms:.1f}%); the kernels counted once {kern_ms:.2f} ms "
+          f"({100 * kern_ms / wall_ms:.1f}%, {sum(r[2] for r in kern)} launches)")
     for key, ms, n in rows[:top]:
         print(f"{tag}   {ms:8.3f} ms  x{n:<5d} {key[:90]}")
     port = [(k.split("(")[0].split()[-1], ms, n) for k, ms, n in rows if "rs_" in k]
@@ -569,6 +623,58 @@ def tie_witness(model, qpos, bodies, tie=1e-5, touch=1e-3):
             elif abs(float(d[n, npts] - d[n, npts - 1])) <= tie and float(d[n, npts - 1]) <= touch:
                 out[n] = (f"pair {k}: manifold cut tie, kept {float(d[n, npts - 1]):.6e} "
                           f"dropped {float(d[n, npts]):.6e}")
+    return out
+
+
+def contact_tie_witness(model, qpos, bodies, tie=1e-5, touch=1e-3):
+    """tie_witness, and besides it the discrete choices of the plain
+    contact rows that float32 rounding can take either way, recomputed in
+    float64 at qpos[n] (N, nq) on the CPU, for the pairs of body bodies[n]
+    (of any body where None): a selection of the k deepest candidates (a
+    hull's deepest vertices, a pair's manifold cut) whose last kept and
+    first dropped depths lie within `tie`, the kept one within `touch` of
+    contact (a hull resting flat ties its bottom vertices); or a row
+    within `tie` of its activation threshold (dist = margin), which moves
+    every later row's compacted slot. -> one description, or None, per n."""
+    import torch
+
+    from robosuite_tpu_torch.physics import contact as C
+    from robosuite_tpu_torch.physics import kinematics
+
+    out = tie_witness(model, qpos, bodies, tie, touch)
+    m64 = _CPU64[id(model)][1]
+    kin = kinematics.fk(m64, qpos.detach().to("cpu", m64.geom_size.dtype))
+    select, cuts = C.select_deepest, []
+
+    def recording(d, k):  # d (N, P, n): a (scenario, pair) flag of each near-tie cut
+        if d.shape[-1] > k:
+            ds = torch.sort(d, dim=-1).values
+            cuts.append((ds[..., k] - ds[..., k - 1] <= tie) & (ds[..., k - 1] <= touch))
+        return select(d, k)
+
+    def owners(k):
+        return model.geom_bodyid[model.pair_geom1[k]], model.geom_bodyid[model.pair_geom2[k]]
+
+    C.select_deepest = recording
+    try:
+        for key, items in sorted(C.pair_groups(m64).items()):
+            cuts.clear()
+            C.narrowphase(m64, kin, pairs={k for _, _, k, _ in items})
+            for flags in cuts:
+                flags = flags.reshape(flags.shape[0], len(items), -1).any(dim=-1)
+                for n in range(len(out)):
+                    for p, (_, _, k, _) in enumerate(items):
+                        if out[n] is None and bool(flags[n, p]) and (bodies[n] is None or bodies[n] in owners(k)):
+                            out[n] = f"pair {k}: a k-deepest selection within {tie:.0e} of a tie, touching (float64)"
+        con = C.narrowphase(m64, kin)
+    finally:
+        C.select_deepest = select
+    near = (con["dist"] - con["margin"]).abs() <= tie
+    for k, rows in C.contact_row_layout(m64).items():
+        hit = near[:, rows].any(dim=-1)
+        for n in range(len(out)):
+            if out[n] is None and bool(hit[n]) and (bodies[n] is None or bodies[n] in owners(k)):
+                out[n] = f"pair {k}: a row within {tie:.0e} of its activation threshold (float64)"
     return out
 
 
@@ -978,7 +1084,7 @@ def lift_step_batch(tag, env, gen, results):
     return counts
 
 
-S_NAMES = {0: "plane", 2: "sphere", 3: "capsule", 5: "cylinder", 6: "box"}  # geom types (models/spec.py)
+S_NAMES = {0: "plane", 2: "sphere", 3: "capsule", 5: "cylinder", 6: "box", 7: "hull"}  # geom types (models/spec.py)
 
 # tools/bench_configs.py:24-27,44-51: the Door workload (MPPI only, H=64)
 DOOR_MPC = dict(horizon=64, n_samples=16, noise_sigma=0.4, temperature=0.2, n_knots=8, n_ilqr_iters=0,
@@ -986,15 +1092,18 @@ DOOR_MPC = dict(horizon=64, n_samples=16, noise_sigma=0.4, temperature=0.2, n_kn
 DOOR_B, DOOR_TICKS = 32, 3
 
 
-def hold_all(label, model, qpos_in, out_k, out_p, tol_q=1e-5, tol_v=1e-3, tol_f=1e-4):
+def hold_all(label, model, qpos_in, out_k, out_p, tol_q=1e-5, tol_v=1e-3, tol_f=1e-4, quiet=False):
     """One substep from the same input qpos_in, kernel out_k vs plain out_p
     ((qpos, qvel) or (qpos, qvel, f)): every coordinate of every scenario
-    (Door has no free body) and the solver forces relative to their
-    largest. A scenario beyond a tolerance is set aside only with
-    tie_witness at qpos_in (a touching box-box pair at a SAT or manifold
-    cut tie, which the float32 rounding of the two versions' poses decides
-    either way: Door's finger pads and handle parts lie flush, turning
-    about one axis); every case is printed. -> the largest error held."""
+    and the solver forces relative to their largest. A scenario beyond a
+    tolerance is set aside only with contact_tie_witness at qpos_in, at
+    the pairs of the body whose velocity differs most: a row decision
+    (a box-box SAT or manifold cut tie, a k-deepest selection, a row at
+    its activation threshold) that the float32 rounding of the two
+    versions' poses takes either way (Door's finger pads and handle parts
+    lie flush, turning about one axis; an upright can's bottom ring ties).
+    Every case is printed, and every check unless `quiet` (then only the
+    failed ones). -> the largest error held."""
     import torch
 
     errs = {"qpos": ((out_k[0] - out_p[0]).abs().amax(dim=1), tol_q),
@@ -1011,7 +1120,9 @@ def hold_all(label, model, qpos_in, out_k, out_p, tol_q=1e-5, tol_v=1e-3, tol_f=
         FAILED.append(f"{label}: {len(bad)} scenarios beyond tolerance")
         print(f"{label}: {len(bad)} scenarios beyond tolerance  <-- FAILED")
     elif bad:
-        for b, why in zip(bad, tie_witness(model, qpos_in[bad], [None] * len(bad))):
+        worst = (out_k[1] - out_p[1]).abs().argmax(dim=1).tolist()
+        bodies = [model.dof_bodyid[worst[b]] for b in bad]
+        for b, why in zip(bad, contact_tie_witness(model, qpos_in[bad], bodies)):
             print(f"{label} scenario {b}: " + ", ".join(f"{n} err {float(e[b]):.3e}" for n, (e, _) in errs.items())
                   + f"; {why or 'NO near-tie witness'}")
             if why:
@@ -1019,7 +1130,8 @@ def hold_all(label, model, qpos_in, out_k, out_p, tol_q=1e-5, tol_v=1e-3, tol_f=
                     e[b] = 0.0
                 witnessed += 1
     for n, (e, tol) in errs.items():
-        check(f"{label} {n}, every scenario ({witnessed} witnessed near-ties set aside)", float(e.max()), tol)
+        if not (quiet and float(e.max()) <= tol):
+            check(f"{label} {n}, every scenario ({witnessed} witnessed near-ties set aside)", float(e.max()), tol)
     return max(float(errs["qpos"][0].max()), float(errs["qvel"][0].max()))
 
 
@@ -1284,6 +1396,321 @@ def door_slice(tag, results):
               f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
     phase_done("Door MPC at full width")
     return counts, counts_u, mpc_counts
+
+
+# tools/bench_configs.py:25,44-51: the PickPlaceCan workload (MPPI only, H=128; unfused)
+PICK_MPC = dict(horizon=128, n_samples=16, noise_sigma=0.4, temperature=0.2, n_knots=8, n_ilqr_iters=0,
+                plan_timestep=0.025)
+PICK_B, PICK_TICKS = 32, 3
+
+
+def hold_rows_graph(label, model, states, dt):
+    """The contact rows as the unfused path builds them on the card
+    (C.contact_rows: a CUDA graph of the narrowphase and solver_inputs,
+    captured once per model, batch and dt, replayed on copies of its
+    inputs) against the eager code on the same kin and qvel, all five
+    operands bit for bit, at each (kin, qvel) of `states` in turn."""
+    import torch
+
+    from robosuite_tpu_torch.physics import contact as C
+
+    names = ("JfT", "aref", "reg3", "mu", "active")
+    for i, (kin, qd) in enumerate(states):
+        got = C.contact_rows(model, kin, qd, dt)
+        want = C.solver_inputs(model, kin, C.narrowphase(model, kin), qd, dt)
+        differ = [n for n, a, b in zip(names, got, want) if not torch.equal(a, b)]
+        print(f"{label} contact rows, graph replay vs eager at state {i + 1} of {len(states)} (B={qd.shape[0]}, "
+              f"dt={dt}): {'identical' if not differ else 'DIFFER in ' + ', '.join(differ)}")
+        if differ:
+            fail(f"{label}: the contact rows' graph replay differs from the eager code in {differ}")
+
+
+def plain_unfused_substep(env, model, ctrl_state, phys):
+    """One substep of the unfused path on the plain versions: forward_plain,
+    the controllers, the smooth forces, the plain narrowphase and row
+    compaction, vel_update_plain and the integration. -> (State, f)."""
+    import torch
+
+    from robosuite_tpu_torch.ops import contact_solve, forward
+    from robosuite_tpu_torch.physics import engine
+
+    q, qd = phys.qpos, phys.qvel
+    kin, M, bias = forward.forward_plain(model, q, qd, *forward.runtime_leaves(model, q.shape[0]))
+    c = env.robots[0].run_controllers(kin, M, bias, q, qd, ctrl_state,
+                                      torch.zeros(q.shape[0], model.nu, device=q.device))
+    return engine.integrate(model, phys, c, kin, M, bias, solve=contact_solve.vel_update_plain)
+
+
+def held_unfused_substep(env, model, ctrl_state, phys, err):
+    """One substep of the unfused path on the kernels (K1, K2), each launch
+    held against its plain version on the same operands: K1's poses (2e-5),
+    M and bias (relative to their largest), K2's qvel (relative to max(1,
+    its largest)) and f (relative); the largest of each kept in `err`. The same operations as
+    engine.integrate, so the result is the main path's, bit for bit.
+    -> (State, f)."""
+    import torch
+
+    from robosuite_tpu_torch.ops import contact_solve, forward
+    from robosuite_tpu_torch.physics import contact as C
+    from robosuite_tpu_torch.physics import engine
+
+    q, qd, dt = phys.qpos, phys.qvel, model.timestep
+    kin, M, bias = forward.forward_products(model, q, qd)
+    kin_p, M_p, bias_p = forward.forward_plain(model, q, qd, *forward.model_leaves(model, q.shape[0]))
+    rel = lambda a, b: max_err(a, b) / max(1.0, float(b.abs().max()))  # noqa: E731
+    err["K1 poses"] = max(err["K1 poses"], max(max_err(getattr(kin, f), getattr(kin_p, f))
+                                               for f, v in kin_p.__dict__.items() if v is not None))
+    err["K1 M"], err["K1 bias"] = max(err["K1 M"], rel(M, M_p)), max(err["K1 bias"], rel(bias, bias_p))
+    c = env.robots[0].run_controllers(kin, M, bias, q, qd, ctrl_state, torch.zeros(q.shape[0], model.nu, device=q.device))
+    qfrc, extra = engine.total_smooth_force(model, q, qd, c, M, bias)
+    JfT, aref, reg3, mu, active = C.contact_rows(model, kin, qd, dt)
+    args = (M.contiguous(), JfT, aref.contiguous(), qfrc.contiguous(), qd.contiguous(),
+            (model.dof_damping + extra).contiguous(), reg3.contiguous(), mu, active.contiguous(),
+            *C.solver_iterations(model), dt)
+    qv, f = contact_solve.vel_update(*args)
+    qv_p, f_p = contact_solve.vel_update_plain(*args)
+    err["K2 qvel"], err["K2 f"] = max(err["K2 qvel"], rel(qv, qv_p)), max(err["K2 f"], rel(f, f_p))
+    return engine.State(qpos=engine.integrate_qpos(model, q, qv, dt), qvel=qv, time=phys.time + dt), f
+
+
+def pickplace_slice(tag, results):
+    """Phases 23-27, Sawyer + PickPlaceCan with the JOINT_POSITION arm, on
+    the unfused path (K1, the plain narrowphase over 606 pairs and the row
+    compaction into 96 slots, K2; no K3). -> the launch counts of the env
+    step (reset + STEPS step_batch policy steps) and of the MPC ticks."""
+    import torch
+
+    import robosuite_tpu_torch as R
+    from robosuite_tpu_torch import ab_kernels
+    from robosuite_tpu_torch.mpc import receding
+    from robosuite_tpu_torch.ops import build, contact_solve, forward, substep
+    from robosuite_tpu_torch.physics import contact as C
+    from robosuite_tpu_torch.physics import engine
+
+    # ---- 23. the world, the fused gate, K1 at its widths
+    env = R.make("PickPlaceCan", robots="Sawyer", controller_configs="JOINT_POSITION", reward_shaping=True)
+    model, robot = env.model, env.robots[0]
+    nrows = sum(len(r) for r in C.contact_row_layout(model).values())
+    groups = {f"{S_NAMES[a]}-{S_NAMES[b]}": len(v) for (a, b), v in sorted(C.pair_groups(model).items())}
+    print(f"PickPlaceCan world: nq={model.nq} nv={model.nv} nbody={model.nbody} ngeom={model.ngeom} "
+          f"nsite={model.nsite} npair={model.npair} candidate points (rows)={nrows}, compacted into "
+          f"{C.ROW_CAP} slots; pairs by type {groups}")
+    if (model.nq, model.nv, model.nbody, model.ngeom, model.npair, nrows) != (37, 33, 40, 105, 606, 1326):
+        fail("the PickPlaceCan world is not nq 37, nv 33, 40 bodies, 105 geoms, 606 pairs, 1326 rows")
+    try:
+        substep.extract_spec(env, model)
+        fail("the fused substep's gate takes PickPlaceCan")
+    except substep.UnsupportedFused as e:
+        print(f"PickPlaceCan fused gate: UnsupportedFused({e}); uses_row_compaction "
+              f"{C.uses_row_compaction(model)} (nv * 3 * rows = {model.nv * 3 * nrows} > {C.ROW_VMEM_BUDGET})")
+        if not C.uses_row_compaction(model) or "compacts" not in str(e):
+            fail("the fused gate does not refuse PickPlaceCan by its row compaction")
+    if env._fused_for(model) is not None:
+        fail("the PickPlaceCan env has a fused substep")
+    lib = build.library()
+    k1_smem = lib.rs_forward_smem_bytes(forward.model_tables(model)[1].data_ptr())
+    k2_smem = lib.rs_contact_solve_smem_bytes(model.nv, C.ROW_CAP)
+    print(f"PickPlaceCan shared memory a block: K1 {k1_smem} B ({k1_smem // 4} words, 4 scenarios), K2 {k2_smem} B "
+          f"(2 scenarios at nv {model.nv}, {C.ROW_CAP} slots)")
+    results["smem_bytes"].update({"K1 PickPlaceCan block": k1_smem, "K2 PickPlaceCan block": k2_smem})
+    pick_k = results.setdefault("pick_kernels", {})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    states, obs = env.reset_batch(B, gen)
+    if not all(torch.isfinite(v.float()).all() for v in obs.values()):
+        fail("PickPlaceCan reset: non-finite observations")
+    flops = op_counts(model, C.ROW_CAP)
+    k1_err, k1_rows = 0.0, results.setdefault("k1_widths", [])
+    for n in (B, PICK_B):
+        q, qd = states.physics.qpos[:n], states.physics.qvel[:n]
+        k1_err = max(k1_err, hold_k1(f"PickPlaceCan K1 (B={n})", model, q, qd))
+        k1_rows.append(dict(world="PickPlaceCan", **time_width(
+            tag, "K1 PickPlaceCan", lambda: forward.forward_products(model, q, qd),
+            lambda: forward.forward_plain(model, q, qd, *forward.model_leaves(model, n)), 20, k1_bytes(model, n),
+            flops["K1"], n)))
+    k1 = k1_rows[-2]
+    pick_k["K1"] = dict(max_abs_err=k1_err, ms=k1["ms"], dev_ms=k1["dev_ms"], plain_ms=k1["plain_ms"],
+                        bound=(k1["bound_ms"], k1["bound_by"]))
+    phase_done("PickPlaceCan world, gate, K1")
+
+    # ---- 24. the contact state: the pads closed on the can, the objects in bin 1
+    s = ab_kernels.pickplace_contact_state(env, states)
+    q, qd = s.physics.qpos, s.physics.qvel
+    if not (torch.isfinite(q).all() and torch.isfinite(qd).all()):
+        fail("the PickPlaceCan contact state is not finite")
+    leaves = forward.runtime_leaves(model, B)
+    kin, M, bias = forward.forward_plain(model, q, qd, *leaves)
+    con = C.narrowphase(model, kin)
+    n_act = (con["dist"] < con["margin"]).sum(1)
+    grip = sum(env.robot_models[0].grippers["right"].important_geoms.values(), [])
+    can_rows = [r for k in env._contact_pairs(grip, env.objects[3].contact_geoms) for r in C.contact_row_layout(model)[k]]
+    rich, dropped = int((n_act >= 4).sum()), int((n_act > C.ROW_CAP).sum())
+    print(f"PickPlaceCan contact state: active rows per scenario min {int(n_act.min())} median "
+          f"{int(n_act.median())} max {int(n_act.max())} (of {nrows}); >= 4 active in {rich}/{B}; the "
+          f"{C.ROW_CAP}-slot cap drops rows in {dropped}/{B}; a pad or finger on the can in "
+          f"{int(((con['dist'][:, can_rows] < 0).sum(1) > 0).sum())}/{B}")
+    if 2 * rich < B:
+        fail(f"the PickPlaceCan contact state is too poor: {rich}/{B} scenarios with >= 4 active rows")
+    phase_done("PickPlaceCan contact state")
+
+    # ---- 25. K2 at nv 33 and 96 compacted slots, on the plain path's operands
+    ctrl = robot.run_controllers(kin, M, bias, q, qd, s.ctrl, torch.zeros(B, model.nu, device="cuda"))
+    qfrc, extra = engine.total_smooth_force(model, q, qd, ctrl, M, bias)
+    JfT, aref, reg3, mu, act = C.solver_inputs(model, kin, con, qd, model.timestep)
+    if JfT.shape != (B, model.nv, 3 * C.ROW_CAP):
+        fail(f"PickPlaceCan solver operands {tuple(JfT.shape)}, not ({B}, {model.nv}, {3 * C.ROW_CAP})")
+    kin0 = forward.forward_plain(model, states.physics.qpos, states.physics.qvel, *leaves)[0]
+    hold_rows_graph("PickPlaceCan", model, [(kin0, states.physics.qvel), (kin, qd)], model.timestep)
+    args = (M.contiguous(), JfT, aref.contiguous(), qfrc.contiguous(), qd.contiguous(),
+            (model.dof_damping + extra).contiguous(), reg3.contiguous(), mu, act.contiguous())
+    nact = float(act.sum(1).float().mean())
+    flops = op_counts(model, C.ROW_CAP, nact)
+    solve_args = (C.APGD_ITERS, C.POWER_ITERS, model.timestep)
+    qv_k, f_k = contact_solve.vel_update(*args, *solve_args)
+    qv_p, f_p = contact_solve.vel_update_plain(*args, *solve_args)
+    torch.cuda.synchronize()
+    # qvel relative to max(1, its largest): the can weighs 14 g (the hull at
+    # its card's density), so f's float32 rounding moves its velocity most
+    v_scale = max(1.0, float(qv_p.abs().max()))
+    print(f"PickPlaceCan K2: qvel max_abs_err {max_err(qv_k, qv_p):.3e}, largest |qvel| {v_scale:.3f}")
+    check("PickPlaceCan K2 qvel (relative to max(1, |qvel|))", max_err(qv_k, qv_p) / v_scale, 1e-4)
+    check("PickPlaceCan K2 f (relative)", max_err(f_k, f_p) / max(1.0, float(f_p.abs().max())), 1e-4)
+    pick_k["K2"] = dict(max_abs_err=max(max_err(qv_k, qv_p), max_err(f_k, f_p)),
+                        ms=cuda_ms(lambda: contact_solve.vel_update(*args, *solve_args), 20),
+                        dev_ms=device_ms(lambda: contact_solve.vel_update(*args, *solve_args), 20),
+                        plain_ms=cuda_ms(lambda: contact_solve.vel_update_plain(*args, *solve_args), 3),
+                        bound=bound(nbytes(*args, qv_k, f_k), flops["K2"], B))
+    phase_done("PickPlaceCan K2 vs plain")
+
+    # ---- 26. the step slice: reset_batch + 10 step_batch policy steps, unfused
+    actions = torch.clamp(0.3 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, obs0 = env.reset_batch(B, gen)
+    trail, rewards, dones, obs_all = [states], [], [], []
+    for _ in range(STEPS):
+        states, obs, r, done, _ = env.step_batch(states, actions)
+        trail.append(states)
+        rewards.append(r)
+        dones.append(done)
+        obs_all.append(obs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kcounts()
+    take_widths("PickPlaceCan")
+    print(f"PickPlaceCan main path launches over reset + {STEPS} step_batch policy steps: {counts}")
+    # a step: K1 for its goals, one per substep, one for its observations; K2 one per substep
+    if counts != {"K1": 1 + (env.n_substeps + 2) * STEPS, "K2": env.n_substeps * STEPS, "K3": 0, "K3-aux": 0,
+                  "K4": 0}:
+        fail(f"unexpected PickPlaceCan launch counts {counts}")
+    rew = torch.stack(rewards)
+    if not (all(torch.isfinite(v.float()).all() for o in obs_all for v in o.values()) and torch.isfinite(rew).all()):
+        fail("non-finite observations or rewards on the PickPlaceCan path")
+    if any(bool(d.any()) for d in dones) or set(obs_all[-1]) != set(obs0) - {"placement_valid"}:
+        fail("PickPlaceCan step_batch: done before the horizon, or observation keys other than the reset's")
+    if any(bool(o["robot0_eef_force"].any()) for o in obs_all):
+        fail("PickPlaceCan step_batch: an eef force on a world that compacts its rows (the JAX package's is 0)")
+    print(f"{tag} PickPlaceCan env policy-steps/s (B={B}, reset + {STEPS} step_batch steps, host clock): "
+          f"{B * STEPS / dt:.1f}; rewards mean {float(rew.mean()):.4f} max {float(rew.max()):.4f}")
+    _, wall_ms, dev_ms, top, port = profile_once(tag, "one PickPlaceCan step_batch policy step",
+                                                 lambda: env.step_batch(states, actions), 8)
+    results.update(pick_policy_steps_per_s=B * STEPS / dt, pick_launches=counts, pick_profile_wall_ms=wall_ms,
+                   pick_profile_device_ms=dev_ms, pick_profile_top=top, pick_profile_port=port)
+    # each policy step substep by substep: its K1 and K2 launches against their
+    # plain versions on the same operands, and the kernel substep against the
+    # plain one (forward_plain + vel_update_plain) from the same input under
+    # hold_all's rule, then on from the kernel's output, whose last substep is
+    # step_batch's next state bit for bit
+    worst, worst_r, k_err = 0.0, 0.0, {"K1 poses": 0.0, "K1 M": 0.0, "K1 bias": 0.0, "K2 qvel": 0.0, "K2 f": 0.0}
+    for i in range(STEPS):
+        st = trail[i]
+        kin, M, bias = engine.forward_products(model, st.physics.qpos, st.physics.qvel)
+        ctrl_i = robot.set_goals(kin, M, bias, st.physics.qpos, st.physics.qvel, st.ctrl, actions)
+        ph = st.physics
+        for j in range(env.n_substeps):
+            pk, fk_ = held_unfused_substep(env, model, ctrl_i, ph, k_err)
+            pp, fp_ = plain_unfused_substep(env, model, ctrl_i, ph)
+            worst = max(worst, hold_all(f"PickPlaceCan step {i + 1} substep {j + 1}", model, ph.qpos,
+                                        (pk.qpos, pk.qvel, fk_), (pp.qpos, pp.qvel, fp_), quiet=True))
+            ph = pk
+        nxt = trail[i + 1]
+        if not (torch.equal(ph.qpos, nxt.physics.qpos) and torch.equal(ph.qvel, nxt.physics.qvel)):
+            fail(f"PickPlaceCan policy step {i + 1}: step_batch differs from its substep-by-substep kernel run")
+        kin_p = forward.forward_plain(model, ph.qpos, ph.qvel, *leaves)[0]
+        worst_r = max(worst_r, max_err(rewards[i], env.reward(nxt.physics, kin_p)))
+    torch.cuda.synchronize()
+    print(f"PickPlaceCan {STEPS} policy steps x {env.n_substeps} substeps, kernel vs plain from the same input: "
+          f"largest qpos / qvel error held {worst:.3e}")
+    for name, tol in (("K1 poses", 2e-5), ("K1 M", 1e-5), ("K1 bias", 1e-4), ("K2 qvel", 1e-4), ("K2 f", 1e-4)):
+        check(f"PickPlaceCan {STEPS} policy steps: every {name[:2]} launch against its plain version on its own "
+              f"operands, {name[3:]}{' (relative)' if name != 'K1 poses' else ''}", k_err[name], tol)
+    check(f"PickPlaceCan {STEPS} policy steps: reward (K1 vs plain poses of the same state)", worst_r, 1e-4)
+    phase_done("PickPlaceCan step slice (reset + step_batch steps, profile, kernel vs plain)")
+
+    # ---- 27. the MPC at tools/bench_configs.py's width: B=32, H=128, K=16, MPPI only
+    cfg = receding.MPCConfig(**PICK_MPC)
+    mpc = receding.RecedingMPC(env, cfg)
+    solve = mpc.make_solve_batch()
+    gm = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    mstates, _ = env.reset_batch(PICK_B, gm)
+    ms = mpc.init_state(PICK_B, torch.Generator(device="cuda").manual_seed(SEED + 42))
+
+    def tick(states_, ms_):
+        acts, ms2, met = solve(states_, ms_)
+        states2, rewards_ = env.rollout_batch(states_, acts)
+        return states2, ms2, met, acts, rewards_
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mstates, ms, met, acts, rew = tick(mstates, ms)
+    torch.cuda.synchronize()
+    print(f"{tag} PickPlaceCan MPC warm-up tick s: {time.perf_counter() - t0:.3f}")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    H, n_plan = cfg.horizon, mpc.plan_substeps
+    # the unfused planning rollouts: K1 at the start, then per planned step one
+    # per substep and one for the step's end; the executed step as above
+    want = {"K1": 1 + H * (n_plan + 1) + env.n_substeps + 2, "K2": H * n_plan + env.n_substeps, "K3": 0,
+            "K3-aux": 0, "K4": 0}
+    for i in range(PICK_TICKS):
+        before = kcounts()
+        mstates, ms, met, acts, rew = tick(mstates, ms)
+        after = kcounts()
+        got = {k: after[k] - before[k] for k in after}
+        print(f"PickPlaceCan MPC tick {i + 1} launches: {got}")
+        if got != want:
+            fail(f"PickPlaceCan MPC tick {i + 1}: launches {got}, the config implies {want}")
+        if not (torch.isfinite(acts).all() and acts.abs().max() <= 1.0 and torch.isfinite(rew).all()):
+            fail(f"PickPlaceCan MPC tick {i + 1}: non-finite or out-of-range actions, or non-finite rewards")
+    torch.cuda.synchronize()
+    mpc_dt = time.perf_counter() - t0
+    mpc_counts = kcounts()
+    take_widths("PickPlaceCan")
+    # the planning rollouts' rows graph (batch B K, the planning dt), held
+    # at the reset and the contact state after the ticks replayed it
+    plan, n_roll = mpc.plan_model, PICK_B * cfg.n_samples
+    if (str(plan.device), ("rows_graph", n_roll, float(plan.timestep))) not in plan.__dict__.get("_derived", {}):
+        fail(f"the PickPlaceCan planning rollouts built no contact rows graph at B={n_roll}, dt={plan.timestep}")
+    pleaves = forward.runtime_leaves(plan, n_roll)
+    hold_rows_graph("PickPlaceCan planning", plan,
+                    [(forward.forward_plain(plan, st.physics.qpos[:n_roll], st.physics.qvel[:n_roll], *pleaves)[0],
+                      st.physics.qvel[:n_roll]) for st in (states, s)], plan.timestep)
+    solves = PICK_B * PICK_TICKS / mpc_dt
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{tag} PickPlaceCan MPC solves/s (B={PICK_B}, H={cfg.horizon}, K={cfg.n_samples}, MPPI only, unfused; "
+          f"ticks 1-{PICK_TICKS}, host clock): {solves:.2f}; mean executed reward {float(rew.mean()):.4f}; peak "
+          f"device memory {peak_gb:.2f} GB")
+    _, wall_ms, dev_ms, top, port = profile_once(tag, "one PickPlaceCan MPC tick", lambda: tick(mstates, ms), 8,
+                                                 kernels_only=True)
+    results.update(pick_mpc_solves_per_s=solves, pick_mpc_launches=mpc_counts, pick_mpc_peak_gb=peak_gb,
+                   pick_mpc_profile_wall_ms=wall_ms, pick_mpc_profile_device_ms=dev_ms, pick_mpc_profile_top=top,
+                   pick_mpc_profile_port=port)
+    for k, r in pick_k.items():
+        print(f"{tag} PickPlaceCan {k}: {r['ms']:.4f} ms/launch at B={B} ({r['dev_ms']:.4f} ms device), plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    phase_done("PickPlaceCan MPC at full width")
+    return counts, mpc_counts
 
 
 def main():
@@ -1737,12 +2164,14 @@ def main():
 
     stack_counts, stack_mpc_counts, stack_counts_u = stack_slice(tag, results)
     door_counts, door_counts_u, door_mpc_counts = door_slice(tag, results)
+    pick_counts, pick_mpc_counts = pickplace_slice(tag, results)
 
     # ---- report ------------------------------------------------------------------
     # launches on each path, counted from zero just before it: Lift's env step
     # and MPC ticks run K3 / K3-aux with the OSC law, Stack's with JOINT_POSITION
     osc = (counts, sb_counts, mpc_counts, door_counts, door_mpc_counts)  # K3 / K3-aux with the OSC law
-    every = osc + (counts_u, door_counts_u, stack_counts, stack_counts_u, stack_mpc_counts)
+    every = osc + (counts_u, door_counts_u, stack_counts, stack_counts_u, stack_mpc_counts, pick_counts,
+                   pick_mpc_counts)
     paths = {"K1": every, "K2": every, "K3": osc, "K3-aux": osc, "K4": every}
     launches = {k: sum(c.get(k, 0) for c in cs) for k, cs in paths.items()}
     launches["K3-JP"] = stack_counts["K3"] + stack_mpc_counts["K3"]
@@ -1763,7 +2192,8 @@ def main():
           f"{sb_counts}, MPC ticks 1-{TICKS} {mpc_counts}; over Stack reset + {STEPS} policy steps {stack_counts}, "
           f"one unfused step {stack_counts_u}, MPC ticks 1-{STACK_TICKS} {stack_mpc_counts}; over Door reset + "
           f"{STEPS} step_batch steps {door_counts}, one unfused step {door_counts_u}, MPC ticks 1-{DOOR_TICKS} "
-          f"{door_mpc_counts}")
+          f"{door_mpc_counts}; over PickPlaceCan reset + {STEPS} step_batch steps {pick_counts}, MPC ticks "
+          f"1-{PICK_TICKS} {pick_mpc_counts}")
     # K1 and K4 at each width: the launches there over every path (each
     # counted from zero), beside the times of phases 4, 8, 10 and 12
     by_width = {}

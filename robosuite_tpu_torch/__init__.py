@@ -1,12 +1,13 @@
 """robosuite_tpu_torch: the PyTorch/CUDA port of robosuite_tpu.
 
 `make("Lift", robots="Panda", reward_shaping=True)` (or `make("Stack",
-robots="Panda", controller_configs="JOINT_POSITION")`, or `make("Door",
-robots="Panda", reward_shaping=True, seed=0)`) builds a batched
+robots="Panda", controller_configs="JOINT_POSITION")`, `make("Door",
+robots="Panda", reward_shaping=True, seed=0)` or `make("PickPlaceCan",
+robots="Sawyer", controller_configs="JOINT_POSITION")`) builds a batched
 env on the GPU (pass device="cpu" for the plain PyTorch path on the CPU);
 its hot loop runs hand-written CUDA kernels (csrc/) built with nvcc at
 first use.
 """
 
-from robosuite_tpu_torch.envs import door, lift, stack  # noqa: F401  (registers Door, Lift, Stack)
+from robosuite_tpu_torch.envs import door, lift, pick_place, stack  # noqa: F401  (registers the envs)
 from robosuite_tpu_torch.envs.base import REGISTERED_ENVS, make  # noqa: F401

@@ -155,6 +155,63 @@ def door_contact_state(env, s):
     return env.state_from_flattened(torch.cat([s.physics.time[:, None], qpos, s.physics.qvel], 1).cpu())
 
 
+PICK_GRASP_DZ = 0.015  # the grip site this far above the can's origin: the pads on its upper half
+PICK_CLOSE_STEPS = 3
+
+
+def pickplace_ik(env, s, target, iters=40, lam=0.05):
+    """Arm joint positions (B, na) that put the grip site at `target`
+    (B, 3) with its orientation at s unchanged: damped least squares on
+    the plain forward kinematics, the Jacobian by forward differences."""
+    import torch
+
+    from robosuite_tpu_torch.physics import kinematics
+
+    m, robot = env.model, env.robots[0]
+    site, qi = env.eef_site, torch.as_tensor(robot.arm_qpos_idx["right"], device=s.physics.qpos.device)
+    q = s.physics.qpos.clone()
+    B, na = q.shape[0], len(qi)
+    R0 = kinematics.fk(m, q).site_xmat[:, site]
+    eps = 1e-3
+
+    for _ in range(iters):
+        qq = q[:, None].repeat(1, na + 1, 1)
+        qq[:, 1:, qi] += eps * torch.eye(na, dtype=q.dtype, device=q.device)
+        k = kinematics.fk(m, qq.reshape(B * (na + 1), -1))
+        R = k.site_xmat[:, site].view(B, na + 1, 3, 3)
+        ori = 0.5 * torch.linalg.cross(R.transpose(2, 3), R0[:, None].transpose(2, 3), dim=-1).sum(dim=2)
+        e = torch.cat([target[:, None] - k.site_xpos[:, site].view(B, na + 1, 3), ori], dim=-1)  # (B, na + 1, 6)
+        J = -(e[:, 1:] - e[:, :1]).transpose(1, 2) / eps                                     # (B, 6, na)
+        JJt = J @ J.transpose(1, 2) + lam * lam * torch.eye(6, dtype=q.dtype, device=q.device)
+        dq = (J.transpose(1, 2) @ torch.linalg.solve(JJt, e[:, 0, :, None]))[..., 0]
+        q[:, qi] += torch.clamp(dq, -0.2, 0.2)
+    return q[:, qi]
+
+
+def pickplace_contact_state(env, s):
+    """The contact-rich PickPlace state that chip_smoke.py phases 24-25 hold
+    the kernels on: the four objects resting in bin 1 where the reset put
+    them, the arm moved (pickplace_ik) so that the open gripper's pads
+    stand about the can's upper half, then PICK_CLOSE_STEPS policy steps
+    of zero joint deltas and the gripper closing, so that the pads squeeze
+    the can."""
+    import torch
+
+    from robosuite_tpu_torch.physics import kinematics
+
+    m, robot = env.model, env.robots[0]
+    q = s.physics.qpos.clone()
+    can = kinematics.fk(m, q).xpos[:, env.obj_body_ids[env.object_to_id["can"]]]
+    target = can + torch.tensor([0.0, 0.0, PICK_GRASP_DZ], dtype=q.dtype, device=q.device)
+    q[:, torch.as_tensor(robot.arm_qpos_idx["right"], device=q.device)] = pickplace_ik(env, s, target)
+    s = env.state_from_flattened(torch.cat([s.physics.time[:, None], q, torch.zeros_like(s.physics.qvel)], 1).cpu())
+    a = torch.zeros(q.shape[0], env.action_dim, device=q.device)
+    a[:, -1] = 1.0
+    for _ in range(PICK_CLOSE_STEPS):
+        s, _ = env.rollout_batch(s, a)
+    return s
+
+
 def _door(R, torch, B):
     """(Door env, its door_contact_state), or None where the tree has no
     Door env."""

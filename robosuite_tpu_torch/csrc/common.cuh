@@ -117,11 +117,11 @@ static __device__ long long rs_stage_clock[RS_NSTAGES];
 
 // Compile-time maxima; the Python side checks a model against them
 // before it packs the table (ops/tables.py mirrors these numbers).
-#define RS_MAXB 32     // bodies
+#define RS_MAXB 40     // bodies
 #define RS_MAXJ 16     // joints
-#define RS_MAXQ 24     // qpos
-#define RS_MAXV 24     // dofs
-#define RS_MAXG 96     // geoms
+#define RS_MAXQ 40     // qpos
+#define RS_MAXV 36     // dofs
+#define RS_MAXG 112    // geoms
 #define RS_MAXS 16     // sites
 #define RS_MAXU 16     // actuators
 #define RS_MAXP 64     // candidate pairs
@@ -131,9 +131,9 @@ static __device__ long long rs_stage_clock[RS_NSTAGES];
 #define RS_MAXA 8      // arm dofs
 #define RS_MAXGR 4     // gripper actuators
 #define RS_MAXPR 384   // (body, dof) pairs with anc != 0
-#define RS_MAXV1 25    // RS_MAXV + 1 and RS_MAXB + 1: prefix tables over the dofs and the bodies
-#define RS_MAXB1 33
-#define RS_MAXV2 576   // RS_MAXV * RS_MAXV: the mass matrix's entries
+#define RS_MAXV1 37    // RS_MAXV + 1 and RS_MAXB + 1: prefix tables over the dofs and the bodies
+#define RS_MAXB1 41
+#define RS_MAXV2 1296  // RS_MAXV * RS_MAXV: the mass matrix's entries
 
 // Scenarios a block of K1, K2 and K3 (one warp each) and K4 (one thread
 // each), fixed at compile time; `python -m robosuite_tpu_torch.ab_kernels
@@ -176,7 +176,6 @@ struct RsTables {
   float dt, impratio;
 
   int body_parent[RS_MAXB], body_jntadr[RS_MAXB], body_jntnum[RS_MAXB];
-  uint32_t body_desc[RS_MAXB];  // bit b2 set when b is an ancestor of (or is) b2
   float body_pos[RS_MAXB][3], body_quat[RS_MAXB][4], body_ipos[RS_MAXB][3], body_iquat[RS_MAXB][4];
 
   int jnt_type[RS_MAXJ], jnt_qposadr[RS_MAXJ], jnt_dofadr[RS_MAXJ];

@@ -37,6 +37,10 @@ __global__ void __launch_bounds__(RS_S_SOLVE * 32) rs_contact_solve_kernel(
                      mu, active, qvel_out, f_out);
 }
 
+// Shared memory of one K2 block (RS_S_SOLVE scenarios) at nv dofs and K
+// rows, in bytes.
+extern "C" int rs_contact_solve_smem_bytes(int nv, int K) { return RS_S_SOLVE * solve_words(nv, K) * 4; }
+
 extern "C" int rs_contact_solve(const float* M, const float* JfT, const float* aref, const float* qfrc,
                                 const float* qvel, const float* damping, const float* reg3, const float* mu,
                                 const float* active, float* qvel_out, float* f_out, int B, int nv, int K, int iters,

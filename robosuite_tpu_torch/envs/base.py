@@ -286,8 +286,10 @@ class RobotEnv:
 
     def _wrench_obs(self, obs, kin, f):
         """Add robot0_eef_force and robot0_eef_torque, of the robot's one
-        arm; f None: zero forces (the reset)."""
-        if f is None:
+        arm; f None: zero forces (the reset). Zero too on a world that
+        compacts its rows (the JAX package's envs/base.py:408-411): f's
+        slots there follow the active rows, not the static layout."""
+        if f is None or C.uses_row_compaction(self.model):
             obs["robot0_eef_force"] = obs["robot0_eef_torque"] = torch.zeros_like(kin.site_xpos[:, 0])
         else:
             obs["robot0_eef_force"], obs["robot0_eef_torque"] = self.eef_contact_wrench(kin, f, self.robots[0].arms[0])
@@ -352,7 +354,8 @@ class RobotEnv:
                         t=torch.zeros(flat.shape[0], dtype=torch.int32, device=self.device))
 
     def _fused_for(self, model, emit_aux=False):
-        """The fused-substep wrapper for `model`, or None when unsupported.
+        """The fused-substep wrapper for `model`, or None where the
+        reference runs unfused (UnsupportedFused; any other refusal raises).
         Keyed by model identity; the cache holds the model, so an id is
         never reused while its entry lives."""
         key = (id(model), emit_aux)

@@ -1,6 +1,7 @@
-"""Arenas: procedural workspaces (robosuite models/arenas/*.py),
-trimmed to the table arena. Same geometry and names as robosuite's
-table_arena.xml, so qpos/geom layout lines up with the JAX package."""
+"""Arenas: procedural workspaces (robosuite models/arenas/*.py), trimmed
+to the table and bins arenas. Same geometry and names as robosuite's
+table_arena.xml and bins_arena.xml, so the qpos/geom layout lines up with
+the JAX package."""
 
 from __future__ import annotations
 
@@ -101,5 +102,34 @@ class TableArena(Arena):
                         contype=0, conaffinity=0, group=1,
                     )
                 )
+        self.add_standard_light()
+        self.add_standard_cameras()
+
+
+class BinsArena(Arena):
+    """robosuite arenas/bins_arena.py: two bins on pedestals (PickPlace)."""
+
+    def __init__(self, bin1_pos=(0.1, -0.25, 0.8), table_full_size=(0.39, 0.49, 0.82),
+                 table_friction=(1, 0.005, 0.0001)):
+        super().__init__()
+        self.table_full_size = np.array(table_full_size)
+        self.table_half_size = self.table_full_size / 2
+        self.bin1_pos = np.array(bin1_pos)
+        self.bin2_pos = self.bin1_pos + np.array([0.0, 0.49, 0.0])
+        wb = self.spec.worldbody
+        wb.add_geom(S.GeomSpec("floor", type="plane", size=(3, 3, 0.125), group=1, friction=(1, 0.005, 0.0001)))
+        wall_h, wall_t = 0.05, 0.01
+        for b_i, bpos in enumerate((self.bin1_pos, self.bin2_pos)):
+            body = wb.add_body(S.BodySpec(f"bin{b_i + 1}", pos=bpos))
+            hx, hy = self.table_half_size[0], self.table_half_size[1]
+            body.add_geom(S.GeomSpec(f"bin{b_i + 1}_base", type="box", size=(hx, hy, 0.01), pos=(0, 0, -0.01),
+                                     friction=np.array(table_friction)))
+            for w_i, (wx, wy, sx, sy) in enumerate(
+                    [(-hx, 0, wall_t, hy), (hx, 0, wall_t, hy), (0, -hy, hx, wall_t), (0, hy, hx, wall_t)]):
+                body.add_geom(S.GeomSpec(f"bin{b_i + 1}_wall{w_i}", type="box", size=(sx, sy, wall_h),
+                                         pos=(wx, wy, wall_h)))
+            # the pedestal under the bin (visual)
+            body.add_geom(S.GeomSpec(f"bin{b_i + 1}_pedestal", type="box", size=(hx, hy, bpos[2] / 2 - 0.02),
+                                     pos=(0, 0, -bpos[2] / 2), contype=0, conaffinity=0, group=1))
         self.add_standard_light()
         self.add_standard_cameras()

@@ -1,5 +1,5 @@
 """Gripper models (robosuite models/grippers/*.py + gripper_factory.py),
-trimmed to the Panda gripper.
+trimmed to the Panda and Rethink grippers.
 
 Each gripper wraps its model card with robosuite's metadata: dof, speed,
 init_qpos, important sites (grip_site for the OSC reference frame) and
@@ -120,3 +120,28 @@ class PandaGripper(GripperModel):
 
     def format_action_direction(self):
         return np.array([-1.0, 1.0])
+
+
+@register_gripper
+class RethinkGripper(GripperModel):
+    """robosuite rethink_gripper.py: dof=1, speed=0.2, ramped binary action."""
+
+    card_name = "rethink_gripper"
+    dof = 1
+    speed = 0.2
+
+    @property
+    def init_qpos(self):
+        return np.array([0.020833, -0.020833])
+
+    @property
+    def _important_geoms(self):
+        return {
+            "left_finger": ["l_finger_g0", "l_finger_g1", "l_fingertip_g0", "l_fingerpad_g0"],
+            "right_finger": ["r_finger_g0", "r_finger_g1", "r_fingertip_g0", "r_fingerpad_g0"],
+            "left_fingerpad": ["l_fingerpad_g0"],
+            "right_fingerpad": ["r_fingerpad_g0"],
+        }
+
+    def format_action_direction(self):
+        return np.array([1.0, -1.0])

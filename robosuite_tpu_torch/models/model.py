@@ -1,8 +1,8 @@
 """Model compiler: ModelSpec -> Model (an nn.Module of tensors).
 
 The counterpart of the JAX package's models/model.py compile_spec, trimmed
-to what a fixed-base manipulation world of primitive geoms needs (no
-tendons, equality constraints, convex hulls, cameras or lights). All name
+to what a fixed-base manipulation world of primitive geoms and convex
+hulls needs (no tendons, equality constraints, cameras or lights). All name
 resolution happens here, once: the physics sees integer-indexed tensors.
 
 Array leaves are registered buffers, so `model.to(device)` moves them;
@@ -31,6 +31,10 @@ LEAVES = (
     "actuator_gear", "actuator_ctrlrange", "actuator_forcerange", "actuator_gainprm",
     "actuator_biasprm", "actuator_ctrllimited", "actuator_forcelimited",
     "pair_friction", "pair_solref", "pair_solimp", "pair_margin",
+    # convex hulls, padded to the model-wide max V / F (vertex padding
+    # repeats vertex 0, face padding is a far plane): vertices (nmesh, V, 3),
+    # outward face normals (nmesh, F, 3), plane offsets (nmesh, F), n.x <= d
+    "mesh_verts", "mesh_fnorm", "mesh_fdist",
     "qpos0", "qpos_spring", "gravity", "ancestor_mask",
 )
 
@@ -41,6 +45,7 @@ STATIC = (
     "jnt_type", "jnt_bodyid", "jnt_qposadr", "jnt_dofadr", "dof_bodyid", "dof_jntid",
     "geom_bodyid", "geom_type", "site_bodyid",
     "actuator_kind", "actuator_jntid", "pair_geom1", "pair_geom2",
+    "nmesh", "mesh_names", "geom_meshid",  # geom_meshid -1: no hull
     "body_names", "jnt_names", "geom_names", "site_names", "actuator_names",
     "timestep", "impratio",
     # planning-model overrides, None = the execution defaults: contact
@@ -65,6 +70,17 @@ class Model(nn.Module):
     @property
     def device(self):
         return self.qpos0.device
+
+    def derived(self, key, make):
+        """make(), computed once per device and kept on this model: the index
+        tensors and constant rows the per-substep code reads, so that no
+        call copies from the host (a copy from pageable host memory waits
+        for the device). A planning model (replace) keeps its own."""
+        cache = self.__dict__.setdefault("_derived", {})
+        k = (str(self.device), key)
+        if k not in cache:
+            cache[k] = make()
+        return cache[k]
 
     def replace(self, **static) -> "Model":
         """A model with some static fields changed (a planning model: its
@@ -109,9 +125,23 @@ class Model(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _geom_mass_inertia(g: S.GeomSpec):
-    """(mass, COM-frame 3x3 inertia in the geom frame) of a primitive."""
+def _geom_mass_inertia(g: S.GeomSpec, meshes=None):
+    """(mass, COM-frame 3x3 inertia in the geom frame, COM offset in the
+    geom frame) of a primitive or a hull-backed mesh geom."""
+    m, I = _geom_mass_inertia_primitive(g, meshes)
+    if S.GEOM_TYPES[g.type] == S.MESH and meshes and g.mesh in meshes:
+        return m, I, np.asarray(meshes[g.mesh]["com"], dtype=np.float64)
+    return m, I, np.zeros(3)
+
+
+def _geom_mass_inertia_primitive(g: S.GeomSpec, meshes=None):
     t = S.GEOM_TYPES[g.type]
+    if t == S.MESH and meshes and g.mesh in meshes:
+        # the hull's exact mass properties (unit-density moments, scaled)
+        h = meshes[g.mesh]
+        vol = float(h["volume"])
+        m = g.mass if g.mass is not None else g.density * vol
+        return m, np.asarray(h["inertia"], dtype=np.float64) * ((m / vol) if vol > 0 else 0.0)
     sz = g.size
     if t == S.SPHERE:
         r = sz[0]
@@ -143,7 +173,7 @@ def _geom_mass_inertia(g: S.GeomSpec):
         a, b, c = sz
         m = g.mass if g.mass is not None else g.density * 4.0 / 3.0 * math.pi * a * b * c
         return m, np.diag([m / 5.0 * (b * b + c * c), m / 5.0 * (a * a + c * c), m / 5.0 * (a * a + b * b)])
-    # planes and meshes carry no computed inertia
+    # planes and meshes without a hull carry no computed inertia
     return 0.0, np.zeros((3, 3))
 
 
@@ -205,10 +235,10 @@ def _eig_principal(I):
     return w.copy(), v
 
 
-def _body_inertial(body: S.BodySpec):
+def _body_inertial(body: S.BodySpec, meshes=None):
     """(mass, ipos, iquat, principal diag inertia) of a body: its explicit
-    inertial, else accumulated over its group-0 primitive geoms (MuJoCo
-    compiler with robosuite's inertiagrouprange)."""
+    inertial, else accumulated over its group-0 primitive and hull geoms
+    (MuJoCo compiler with robosuite's inertiagrouprange)."""
     if body.inertial is not None:
         it = body.inertial
         if it.fullinertia is not None:
@@ -225,30 +255,34 @@ def _body_inertial(body: S.BodySpec):
     for g in body.geoms:
         if g.group != 0:
             continue
-        m, I_g = _geom_mass_inertia(g)
+        m, I_g, com_off = _geom_mass_inertia(g, meshes)
         if m <= 0:
             continue
-        contributing.append((g, m, I_g))
+        g_com = g.pos + _quat2mat_np(g.quat) @ com_off
+        contributing.append((g, m, I_g, g_com))
         total_m += m
-        com += m * g.pos
+        com += m * g_com
     if total_m <= 0:
         # MuJoCo convention for massless (welded) bodies: ipos mirrors the
         # body's own frame offset
         return 0.0, np.asarray(body.pos, dtype=np.float64).copy(), np.array([1.0, 0, 0, 0]), np.zeros(3)
     com /= total_m
     I_total = np.zeros((3, 3))
-    for g, m, I_g in contributing:
+    for g, m, I_g, g_com in contributing:
         R = _quat2mat_np(g.quat)
-        d = g.pos - com
+        d = g_com - com
         I_total += R @ I_g @ R.T + m * (np.dot(d, d) * np.eye(3) - np.outer(d, d))
     w, v = _eig_principal(I_total)
     return total_m, com, _mat2quat_np(v), w
 
 
+# a mesh geom collides only where its mesh has a hull (robot links keep
+# their primitive collision shells; their meshes are visual)
 _COLLIDABLE = {S.PLANE, S.SPHERE, S.CAPSULE, S.CYLINDER, S.BOX}
 
 
-def _enumerate_pairs(geoms, geom_bodyid, body_parentid, body_weldid, excludes, body_name_to_id):
+def _enumerate_pairs(geoms, geom_bodyid, body_parentid, body_weldid, excludes, body_name_to_id,
+                     hullbacked=frozenset()):
     """MuJoCo-style static pair list (mj_collision's filters):
     contype/conaffinity, no same-weld pairs, no parent-child weld pairs
     unless the parent is the world, explicit <exclude> pairs."""
@@ -267,15 +301,18 @@ def _enumerate_pairs(geoms, geom_bodyid, body_parentid, body_weldid, excludes, b
         else:
             weld_parent[b] = weld_parent[body_weldid[b]]
 
+    def collidable(g, t):
+        return g.mesh in hullbacked if t == S.MESH else t in _COLLIDABLE
+
     pairs = []
     for i, gi in enumerate(geoms):
         ti = S.GEOM_TYPES[gi.type]
-        if ti not in _COLLIDABLE:
+        if not collidable(gi, ti):
             continue
         for j in range(i + 1, len(geoms)):
             gj = geoms[j]
             tj = S.GEOM_TYPES[gj.type]
-            if tj not in _COLLIDABLE or (ti == S.PLANE and tj == S.PLANE):
+            if not collidable(gj, tj) or (ti == S.PLANE and tj == S.PLANE):
                 continue
             if not ((gi.contype & gj.conaffinity) or (gj.contype & gi.conaffinity)):
                 continue
@@ -308,8 +345,8 @@ def _mix_pair_params(g1: S.GeomSpec, g2: S.GeomSpec):
 
 
 def compile_spec(ms: S.ModelSpec, dtype=np.float32) -> Model:
-    if ms.tendons or ms.equalities or ms.meshes:
-        raise NotImplementedError("tendons, equality constraints and mesh hulls are not ported")
+    if ms.tendons or ms.equalities:
+        raise NotImplementedError("tendons and equality constraints are not ported")
     bodies = ms.bodies()  # DFS order, world first — MuJoCo body ordering
     nbody = len(bodies)
     body_id = {b.name: i for i, b in enumerate(bodies)}
@@ -356,7 +393,7 @@ def compile_spec(ms: S.ModelSpec, dtype=np.float32) -> Model:
     body_iquat = np.tile(np.array([1.0, 0, 0, 0]), (nbody, 1))
     body_inertia = np.zeros((nbody, 3))
     for i, b in enumerate(bodies[1:], start=1):
-        body_mass[i], body_ipos[i], body_iquat[i], body_inertia[i] = _body_inertial(b)
+        body_mass[i], body_ipos[i], body_iquat[i], body_inertia[i] = _body_inertial(b, ms.meshes)
 
     qpos0 = np.zeros(nq)
     qpos_spring = np.zeros(nq)
@@ -421,7 +458,27 @@ def compile_spec(ms: S.ModelSpec, dtype=np.float32) -> Model:
             actuator_forcelimited[a_i] = 1.0
         actuator_gainprm[a_i] = a.kp if a.kind == "position" else (a.kv if a.kind == "velocity" else 0.0)
 
-    pairs = _enumerate_pairs(geoms, geom_bodyid, body_parentid, body_weldid, ms.excludes, body_id)
+    # convex hulls (the meshes with hull data)
+    hull_names = sorted(ms.meshes)
+    mesh_id = {n: i for i, n in enumerate(hull_names)}
+    nmesh = len(hull_names)
+    V = max([len(ms.meshes[n]["verts"]) for n in hull_names], default=1)
+    F = max([len(ms.meshes[n]["face_dists"]) for n in hull_names], default=1)
+    mesh_verts = np.zeros((nmesh, V, 3))
+    mesh_fnorm = np.tile(np.array([0.0, 0.0, 1.0]), (nmesh, F, 1))
+    mesh_fdist = np.full((nmesh, F), 1e6)
+    for n, mi in mesh_id.items():
+        h = ms.meshes[n]
+        v = np.asarray(h["verts"], dtype=np.float64)
+        mesh_verts[mi, :len(v)] = v
+        mesh_verts[mi, len(v):] = v[0]
+        fd = np.asarray(h["face_dists"], dtype=np.float64)
+        mesh_fnorm[mi, :len(fd)] = np.asarray(h["face_normals"], dtype=np.float64)
+        mesh_fdist[mi, :len(fd)] = fd
+    geom_meshid = [mesh_id.get(g.mesh, -1) if S.GEOM_TYPES[g.type] == S.MESH else -1 for g in geoms]
+
+    pairs = _enumerate_pairs(geoms, geom_bodyid, body_parentid, body_weldid, ms.excludes, body_id,
+                             hullbacked=set(mesh_id))
     npair = len(pairs)
     pair_friction = np.zeros((npair, 3))
     pair_solref = np.zeros((npair, 2))
@@ -459,6 +516,7 @@ def compile_spec(ms: S.ModelSpec, dtype=np.float32) -> Model:
         geom_type=[S.GEOM_TYPES[g.type] for g in geoms], site_bodyid=site_bodyid,
         actuator_kind=[a.kind for a in ms.actuators], actuator_jntid=actuator_jntid,
         pair_geom1=[p[0] for p in pairs], pair_geom2=[p[1] for p in pairs],
+        nmesh=nmesh, mesh_names=tuple(hull_names), geom_meshid=geom_meshid,
         body_names=names_of(bodies), jnt_names=names_of(joints), geom_names=names_of(geoms),
         site_names=names_of(sites), actuator_names=tuple(a.name for a in ms.actuators),
         timestep=float(ms.option.timestep), impratio=float(ms.option.impratio),
@@ -481,7 +539,7 @@ def compile_spec(ms: S.ModelSpec, dtype=np.float32) -> Model:
         actuator_biasprm=actuator_biasprm, actuator_ctrllimited=actuator_ctrllimited,
         actuator_forcelimited=actuator_forcelimited,
         pair_friction=pair_friction, pair_solref=pair_solref, pair_solimp=pair_solimp,
-        pair_margin=pair_margin, qpos0=qpos0, qpos_spring=qpos_spring,
+        pair_margin=pair_margin, mesh_verts=mesh_verts, mesh_fnorm=mesh_fnorm, mesh_fdist=mesh_fdist, qpos0=qpos0, qpos_spring=qpos_spring,
         gravity=np.asarray(ms.option.gravity), ancestor_mask=ancestor_mask,
     )
     leaves = {k: np.asarray(v, dtype=dtype) for k, v in leaves.items()}

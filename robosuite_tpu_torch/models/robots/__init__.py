@@ -1,8 +1,9 @@
 """Robot models: spec factories + metadata for the built-in manipulators.
 
 Copy of the JAX package's robot model layer, trimmed to the fixed-mount
-single-arm case and the Panda (robosuite models/robots/robot_model.py,
-manipulators/panda_robot.py). Each robot is a thin class over its
+single-arm case, the Panda and the Sawyer (robosuite
+models/robots/robot_model.py, manipulators/panda_robot.py,
+sawyer_robot.py). Each robot is a thin class over its
 committed model card plus robosuite's published metadata (init_qpos,
 default gripper/base, placement offsets).
 """
@@ -200,3 +201,19 @@ class Panda(ManipulatorModel):
     @property
     def init_qpos(self):
         return np.array([0, np.pi / 16.0, 0.00, -np.pi / 2.0 - np.pi / 3.0, 0.00, np.pi - 0.2, np.pi / 4])
+
+
+@register_robot
+class Sawyer(ManipulatorModel):
+    """robosuite models/robots/manipulators/sawyer_robot.py."""
+
+    card_name = "sawyer"
+    arms = ["right"]
+
+    @property
+    def default_gripper(self):
+        return {"right": "RethinkGripper"}
+
+    @property
+    def init_qpos(self):
+        return np.array([0, -1.18, 0.00, 2.18, 0.00, 0.57, -1.57])

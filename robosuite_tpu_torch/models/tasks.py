@@ -69,6 +69,8 @@ class ManipulationTask:
 
         for obj in objects:
             ms.worldbody.children.append(obj.get_obj())
+            if hasattr(obj, "meshes"):
+                ms.meshes.update(obj.meshes())
 
         self.spec = ms
 

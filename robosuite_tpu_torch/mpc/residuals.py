@@ -1,5 +1,5 @@
 """Planning residuals (the JAX package's mpc/residuals.py and
-receding.lift_residual), for Lift, Stack and Door.
+receding.lift_residual), for Lift, Stack, Door and PickPlace.
 
 A residual r(env, plan_model, qpos, qvel, u, poses) -> (N, m) defines the
 stage cost 0.5 ||r||^2 of the iLQR refinement: a smooth least-squares
@@ -54,7 +54,29 @@ def door_residual(env, plan_model, qpos, qvel, u, poses=kinematics.body_poses):
     return torch.cat(parts + [0.02 * qvel], dim=-1)
 
 
-_RESIDUALS = {"Lift": lift_residual, "Stack": stack_residual, "Door": door_residual}
+def pick_place_residual(env, plan_model, qpos, qvel, u, poses=kinematics.body_poses, obj_idx=0):
+    """Reach the object, lift it, carry it over its target bin quadrant
+    (robosuite pick_place.py:274-372 staged rewards as residuals)."""
+    xpos, xquat = poses(plan_model, qpos)
+    eef = kinematics.site_pos(plan_model, xpos, xquat, env.eef_site)
+    obj = xpos[:, env.obj_body_ids[obj_idx]]
+    target = torch.as_tensor(env.target_bin_placements[obj_idx], dtype=qpos.dtype, device=qpos.device)
+    r_reach = 2.0 * (eef - obj)
+    r_lift = 5.0 * torch.clamp_max(obj[:, 2:3] - (target[2] + 0.15), 0.0)
+    r_to_bin = 2.0 * (obj[:, :2] - target[:2])
+    return torch.cat([r_reach, r_lift, r_to_bin, 0.02 * qvel], dim=-1)
+
+
+def _pick_place_can_residual(env, plan_model, qpos, qvel, u, poses=kinematics.body_poses):
+    # the JAX registry's row for PickPlaceCan passes obj_idx=0, the milk
+    # carton (objects Milk, Bread, Cereal, Can), not the can its env rewards
+    return pick_place_residual(env, plan_model, qpos, qvel, u, poses, obj_idx=0)
+
+
+_RESIDUALS = {"Lift": lift_residual, "Stack": stack_residual, "Door": door_residual,
+              "PickPlace": pick_place_residual, "PickPlaceCan": _pick_place_can_residual,
+              "PickPlaceSingle": pick_place_residual, "PickPlaceMilk": pick_place_residual,
+              "PickPlaceBread": pick_place_residual, "PickPlaceCereal": pick_place_residual}
 
 
 def residual_for(env):

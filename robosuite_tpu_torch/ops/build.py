@@ -34,6 +34,7 @@ _SIGNATURES = {
     "rs_forward_smem_bytes": [P],
     "rs_forward_tab": [P, P],
     "rs_contact_solve": [P] * 11 + [I] * 5 + [ctypes.c_float, P],
+    "rs_contact_solve_smem_bytes": [I, I],
     "rs_substep": [P] * 14 + [I, P],
     "rs_substep_aux": [P] * 18 + [I, P],
     "rs_substep_smem_bytes": [P],

@@ -19,6 +19,7 @@ import torch
 
 from robosuite_tpu_torch.ops import build as _b
 from robosuite_tpu_torch.ops import linalg
+from robosuite_tpu_torch.ops import tables as _tables
 
 
 def _apgd_plain(JfT, Lm, aref, qacc_smooth, reg3, mu, active, iters, power_iters):
@@ -71,6 +72,15 @@ def vel_update_plain(M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active,
     return qvel_new, f
 
 
+def check_sizes(nv, K):
+    """Raise ValueError where nv dofs or K contact slots exceed the kernel's
+    compile-time maxima (csrc/common.cuh RS_MAXV, RS_MAXK)."""
+    if nv > _tables.MAXV:
+        raise ValueError(f"nv={nv} exceeds the kernel's maximum {_tables.MAXV}")
+    if K > _tables.MAXK:
+        raise ValueError(f"K={K} contact slots exceed the kernel's maximum {_tables.MAXK}")
+
+
 def vel_update(M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active, iters, power_iters, dt):
     """Wrapper: the plain version on CPU tensors, the kernel on CUDA ones."""
     if M.device.type == "cpu":
@@ -78,6 +88,7 @@ def vel_update(M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active, iters
     lib = _b.library()
     B, nv, ntot = JfT.shape
     K = ntot // 3
+    check_sizes(nv, K)
     for t, shape, name in ((M, (B, nv, nv), "M"), (JfT, (B, nv, ntot), "JfT"), (aref, (B, ntot), "aref"),
                            (qfrc_smooth, (B, nv), "qfrc_smooth"), (qvel, (B, nv), "qvel"),
                            (damping, (B, nv), "damping"), (reg3, (B, ntot), "reg3"), (mu, (B, K), "mu"),

@@ -35,7 +35,9 @@ def forward_plain(model, qpos, qvel, mass, inertia, gravity, armature):
 
 def model_tables(model, arm=None, key=None):
     """(the packed model table on the model's device, its host copy), cached
-    on the model (per device and `key`, the fused substep's arm spec)."""
+    on the model (per device and `key`). With `arm` (the fused substep's
+    arm spec) the table has the contact part; without (K1, K4) it has not,
+    so K1 and K4 take a world whatever its pairs."""
     cache = model.__dict__.setdefault("_kernel_tables", {})
     k = (str(model.device), key)
     if k not in cache:

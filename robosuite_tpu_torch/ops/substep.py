@@ -27,6 +27,7 @@ import torch
 
 from robosuite_tpu_torch.controllers.parts import joint_pos as jp_mod
 from robosuite_tpu_torch.controllers.parts import osc as osc_mod
+from robosuite_tpu_torch.models import spec as S
 from robosuite_tpu_torch.ops import build as _b
 from robosuite_tpu_torch.ops import contact_solve, tables
 from robosuite_tpu_torch.ops.forward import forward_plain, model_tables
@@ -40,9 +41,25 @@ class UnsupportedFused(Exception):
     """A world/controller combination the fused substep does not cover."""
 
 
+# the pair types the reference's fused substep takes
+# (robosuite_tpu/ops/pallas_substep.py _SUPPORTED_PAIR_TYPES): a world with
+# another (a mesh) runs unfused there and here
+FUSED_PAIR_TYPES = {
+    (S.PLANE, S.SPHERE), (S.PLANE, S.CAPSULE), (S.PLANE, S.CYLINDER),
+    (S.PLANE, S.BOX), (S.SPHERE, S.SPHERE), (S.SPHERE, S.CAPSULE),
+    (S.SPHERE, S.CYLINDER), (S.SPHERE, S.BOX), (S.CAPSULE, S.CAPSULE),
+    (S.CAPSULE, S.CYLINDER), (S.CYLINDER, S.CYLINDER), (S.CAPSULE, S.BOX),
+    (S.CYLINDER, S.BOX), (S.BOX, S.BOX),
+}
+
+
 def extract_spec(env, model) -> dict:
     """Validate that the fused substep covers (env, model) and return the
-    arm's static data (robosuite_tpu/ops/pallas_substep.py extract_spec)."""
+    arm's static data (robosuite_tpu/ops/pallas_substep.py extract_spec).
+    Raises UnsupportedFused where the reference's gate refuses (it runs
+    unfused there, and the env here), and ValueError or NotImplementedError
+    where the reference fuses but the kernel cannot, so that such a world
+    fails loudly and never steps the plain path on the card."""
     if len(env.robots) != 1 or not isinstance(env.robots[0], FixedBaseRobot):
         raise UnsupportedFused("one fixed-base robot only")
     robot = env.robots[0]
@@ -56,9 +73,15 @@ def extract_spec(env, model) -> dict:
         ctrl_type = "joint_pos"
     else:
         raise UnsupportedFused(f"arm controller {type(cfg).__name__}")
+    if C.uses_row_compaction(model):
+        # the kernel solves the static row layout (pallas_substep.py:139-145)
+        raise UnsupportedFused("the world compacts its contact rows")
     for key in C.pair_groups(model):
-        C.pair_points(*key)  # raises NotImplementedError on pair types not ported
-    tables.check_model(model)  # raises ValueError above the kernels' maxima
+        if key not in FUSED_PAIR_TYPES:
+            raise UnsupportedFused(f"pair type {key}")
+    # raises ValueError above the kernels' maxima, and NotImplementedError on
+    # a pair type the reference fuses but csrc/narrowphase.cuh lacks
+    tables.check_model(model)
     lo, hi = robot.torque_limits[arm]
     return dict(
         qv_idx=[int(i) for i in robot.arm_qvel_idx[arm]],
@@ -114,9 +137,9 @@ def substep_aux_plain(env, model, qpos, qvel, mass, inertia, gravity, armature, 
 def make_fused_substep(env, model, emit_aux=False):
     """fused(qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip)
     -> (qpos', qvel', f), with emit_aux -> (qpos', qvel', f, site_xpos',
-    site_xmat', xpos', pair_dist'). Raises UnsupportedFused when not
-    covered. Kernel launches of every returned wrapper count in
-    make_fused_substep.launches (emit_aux: make_fused_substep.aux_launches)."""
+    site_xmat', xpos', pair_dist'). Raises as extract_spec does. Kernel
+    launches of every returned wrapper count in make_fused_substep.launches
+    (emit_aux: make_fused_substep.aux_launches)."""
     spec = extract_spec(env, model)
     ntot = 3 * sum(len(r) for r in C.contact_row_layout(model).values())
     ng, n_goal, n_gains = len(spec["grip_actuators"]), spec["goal_width"], spec["gains_width"]

@@ -7,6 +7,11 @@ against the compile-time maxima here, before anything is packed, and
 packed once per env into a device byte tensor that every launch gets by
 pointer (and a host copy, from which the launchers size shared memory).
 
+The contact part (pairs, rows, candidates) is packed only for the fused
+substep (K3): forward products (K1) and pose-only FK (K4) read the tree,
+the geoms and the sites, so a world with more pairs or rows than K3 takes
+(PickPlace: 606 pairs) still fits them.
+
 The table also lists the (body, dof) pairs that CRBA and RNEA run over
 (`pair_lists`), in the fixed orders their sums take, and where each mass
 matrix entry comes from (`mass_matrix_sources`).
@@ -21,11 +26,11 @@ import torch
 
 from robosuite_tpu_torch.models import spec as S
 
-MAXB, MAXJ, MAXQ, MAXV, MAXG, MAXS, MAXU, MAXP, MAXK, MAXA, MAXGR = 32, 16, 24, 24, 96, 16, 16, 64, 192, 8, 4
+MAXB, MAXJ, MAXQ, MAXV, MAXG, MAXS, MAXU, MAXP, MAXK, MAXA, MAXGR = 40, 16, 40, 36, 112, 16, 16, 64, 192, 8, 4
 MAXPR = 384  # (body, dof) pairs with anc != 0
 MAXCT = 25 * MAXP  # narrowphase candidates, all pairs
 
-_i, _f, _u = ctypes.c_int32, ctypes.c_float, ctypes.c_uint32
+_i, _f = ctypes.c_int32, ctypes.c_float
 
 
 def _a(t, *dims):
@@ -40,7 +45,6 @@ class RsTables(ctypes.Structure):
                             "solver_iters", "power_iters")],
         ("dt", _f), ("impratio", _f),
         ("body_parent", _a(_i, MAXB)), ("body_jntadr", _a(_i, MAXB)), ("body_jntnum", _a(_i, MAXB)),
-        ("body_desc", _a(_u, MAXB)),
         ("body_pos", _a(_f, MAXB, 3)), ("body_quat", _a(_f, MAXB, 4)), ("body_ipos", _a(_f, MAXB, 3)),
         ("body_iquat", _a(_f, MAXB, 4)),
         ("jnt_type", _a(_i, MAXJ)), ("jnt_qposadr", _a(_i, MAXJ)), ("jnt_dofadr", _a(_i, MAXJ)),
@@ -73,8 +77,8 @@ class RsTables(ctypes.Structure):
     ]
 
 
-_PAIR_KIND = {(S.PLANE, S.BOX): 0, (S.CYLINDER, S.BOX): 1, (S.BOX, S.BOX): 2, (S.PLANE, S.CYLINDER): 3,
-              (S.CYLINDER, S.CYLINDER): 4}
+PAIR_KIND = {(S.PLANE, S.BOX): 0, (S.CYLINDER, S.BOX): 1, (S.BOX, S.BOX): 2, (S.PLANE, S.CYLINDER): 3,
+             (S.CYLINDER, S.CYLINDER): 4}
 _NCAND = {0: 8, 1: 2, 2: 25, 3: 3, 4: 1}  # narrowphase candidates per pair kind (csrc/narrowphase.cuh pair_ncand)
 
 
@@ -93,24 +97,32 @@ def _set(field, values):
     np.ctypeslib.as_array(field).reshape(-1)[: flat.size] = flat
 
 
-def check_model(model):
+def check_model(model, contacts=True):
     """Raise when the model exceeds the kernels' compile-time maxima or has
-    an actuator kind they do not take; -> its contact rows."""
+    an actuator kind they do not take, its contacts (pairs, rows, pair
+    kinds) included where `contacts`; -> its contact rows (0 without)."""
     from robosuite_tpu_torch.physics import contact as C
 
-    limits = dict(nbody=MAXB, njnt=MAXJ, nq=MAXQ, nv=MAXV, ngeom=MAXG, nsite=MAXS, nu=MAXU, npair=MAXP)
+    limits = dict(nbody=MAXB, njnt=MAXJ, nq=MAXQ, nv=MAXV, ngeom=MAXG, nsite=MAXS, nu=MAXU)
+    if contacts:
+        limits["npair"] = MAXP
     for name, cap in limits.items():
         if getattr(model, name) > cap:
             raise ValueError(f"{name}={getattr(model, name)} exceeds the kernels' maximum {cap}")
     npr = int(model.ancestor_mask.count_nonzero())
     if npr > MAXPR:
         raise ValueError(f"{npr} (body, dof) pairs exceed the kernels' maximum {MAXPR}")
-    nrows = sum(len(r) for r in C.contact_row_layout(model).values())
-    if nrows > MAXK:
-        raise ValueError(f"{nrows} contact rows exceed the kernels' maximum {MAXK}")
     for a, kind in enumerate(model.actuator_kind):
         if kind not in _ACT_KIND:
             raise NotImplementedError(f"actuator kind {kind!r} is not ported")
+    if not contacts:
+        return 0
+    nrows = sum(len(r) for r in C.contact_row_layout(model).values())
+    if nrows > MAXK:
+        raise ValueError(f"{nrows} contact rows exceed the kernels' maximum {MAXK}")
+    for key in C.pair_groups(model):
+        if key not in PAIR_KIND:
+            raise NotImplementedError(f"pair type {key} has no CUDA narrowphase")
     return nrows
 
 
@@ -146,22 +158,25 @@ def mass_matrix_sources(anc, dof_bodyid):
 
 
 def pack(model, arm=None, device=None) -> torch.Tensor:
-    """The model (and, for the fused substep, the arm's static controller
-    data `arm`, a dict) as a uint8 tensor holding one RsTables."""
+    """The model as a uint8 tensor holding one RsTables: for the fused
+    substep, with `arm` (the arm's static controller data, a dict), also
+    its contact part; without (K1, K4), none, so that they take a world
+    whatever its pairs."""
     raw = bytes(fill(model, arm))
     return torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device or model.device)
 
 
 def fill(model, arm=None) -> RsTables:
-    """The RsTables of `model` (and `arm`, see pack)."""
+    """The RsTables of `model` (and `arm`: see pack)."""
     from robosuite_tpu_torch.physics import contact as C
-    from robosuite_tpu_torch.physics import dynamics as D
 
-    nrows = check_model(model)
+    contacts = arm is not None
+    nrows = check_model(model, contacts)
     t = RsTables()
     cpu = {name: buf.detach().cpu().numpy() for name, buf in model.named_buffers()}
-    for n in ("nq", "nv", "nbody", "njnt", "ngeom", "nsite", "nu", "npair"):
+    for n in ("nq", "nv", "nbody", "njnt", "ngeom", "nsite", "nu"):
         setattr(t, n, getattr(model, n))
+    t.npair = model.npair if contacts else 0
     t.nrows = nrows
     t.solver_iters, t.power_iters = C.solver_iterations(model)
     t.dt, t.impratio = model.timestep, model.impratio
@@ -169,8 +184,6 @@ def fill(model, arm=None) -> RsTables:
     _set(t.body_parent, model.body_parentid)
     _set(t.body_jntadr, model.body_jntadr)
     _set(t.body_jntnum, model.body_jntnum)
-    anc_b = D.body_ancestor_matrix(model)
-    _set(t.body_desc, [sum(1 << j for j in range(model.nbody) if anc_b[i, j]) for i in range(model.nbody)])
     for n in ("body_pos", "body_quat", "body_ipos", "body_iquat"):
         _set(getattr(t, n), cpu[n])
     _set(t.jnt_type, model.jnt_type)
@@ -206,6 +219,30 @@ def fill(model, arm=None) -> RsTables:
     _set(t.act_forcelimited, cpu["actuator_forcelimited"])
     _set(t.act_forcerange, cpu["actuator_forcerange"])
 
+    if contacts:
+        _fill_contacts(t, model, cpu)
+
+    if arm is not None:
+        na = len(arm["qv_idx"])
+        if na > MAXA or len(arm["grip_actuators"]) > MAXGR:
+            raise ValueError("arm or gripper exceeds the kernels' maxima")
+        t.na, t.ngrip = na, len(arm["grip_actuators"])
+        t.eef_site, t.center_site, t.uncouple = arm["eef_site"], arm["center_site"], int(arm["uncouple"])
+        t.ctrl_type = _CTRL_TYPE[arm["ctrl_type"]]
+        t.torque_comp, t.raw_pd = int(arm["use_torque_compensation"]), int(arm["raw_pd"])
+        t.goal_stride, t.gains_stride = arm["goal_width"], arm["gains_width"]
+        for n in ("arm_qv", "arm_qp", "arm_act", "torque_lo", "torque_hi", "initial_joint", "grip_act"):
+            src = {"arm_qv": "qv_idx", "arm_qp": "qp_idx", "arm_act": "actuator_ids",
+                   "grip_act": "grip_actuators"}.get(n, n)
+            _set(getattr(t, n), arm[src])
+    return t
+
+
+def _fill_contacts(t, model, cpu):
+    """The contact part of t: the pairs in the buffer's group-major order,
+    their rows and the narrowphase candidates."""
+    from robosuite_tpu_torch.physics import contact as C
+
     layout = C.contact_row_layout(model)
     i = 0
     t.pair_cand[0] = 0
@@ -213,7 +250,7 @@ def fill(model, arm=None) -> RsTables:
     for key, items in sorted(C.pair_groups(model).items()):
         for g1, g2, k, flip in items:
             rows = layout[k]
-            t.pair_kind[i] = _PAIR_KIND[key]
+            t.pair_kind[i] = PAIR_KIND[key]
             t.pair_g1[i], t.pair_g2[i], t.pair_flip[i] = g1, g2, int(flip)
             t.pair_npts[i], t.pair_row[i] = len(rows), rows[0]
             t.pair_body1[i] = model.geom_bodyid[model.pair_geom1[k]]
@@ -233,18 +270,3 @@ def fill(model, arm=None) -> RsTables:
                    key=lambda pk: _path(t.pair_kind[pk[0]], pk[1]))
     _set(t.cand_pi, np.array([32 * p + k for p, k in order] + [0] * (MAXCT - len(order)), dtype=np.int32))
     _set(t.row_pair, row_pair)
-
-    if arm is not None:
-        na = len(arm["qv_idx"])
-        if na > MAXA or len(arm["grip_actuators"]) > MAXGR:
-            raise ValueError("arm or gripper exceeds the kernels' maxima")
-        t.na, t.ngrip = na, len(arm["grip_actuators"])
-        t.eef_site, t.center_site, t.uncouple = arm["eef_site"], arm["center_site"], int(arm["uncouple"])
-        t.ctrl_type = _CTRL_TYPE[arm["ctrl_type"]]
-        t.torque_comp, t.raw_pd = int(arm["use_torque_compensation"]), int(arm["raw_pd"])
-        t.goal_stride, t.gains_stride = arm["goal_width"], arm["gains_width"]
-        for n in ("arm_qv", "arm_qp", "arm_act", "torque_lo", "torque_hi", "initial_joint", "grip_act"):
-            src = {"arm_qv": "qv_idx", "arm_qp": "qp_idx", "arm_act": "actuator_ids",
-                   "grip_act": "grip_actuators"}.get(n, n)
-            _set(getattr(t, n), arm[src])
-    return t

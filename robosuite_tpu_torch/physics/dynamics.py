@@ -149,10 +149,16 @@ def scalar_joint_index(model):
     return [model.jnt_qposadr[j] for j in jids], [model.jnt_dofadr[j] for j in jids], jids
 
 
+def scalar_joint_tensors(model):
+    """scalar_joint_index as index tensors on the model's device."""
+    return model.derived("scalar_joints", lambda: tuple(
+        torch.tensor(v, dtype=torch.long, device=model.device) for v in scalar_joint_index(model)))
+
+
 def passive_forces(model, qpos, qvel):
     """Joint springs qfrc = -stiffness (qpos - springref); damping is
     integrated implicitly by the engine."""
-    qadr, dadr, jids = scalar_joint_index(model)
+    qadr, dadr, jids = scalar_joint_tensors(model)
     qfrc = torch.zeros_like(qvel)
     qfrc[:, dadr] = -model.jnt_stiffness[jids] * (qpos[:, qadr] - model.qpos_spring[qadr])
     return qfrc
@@ -162,7 +168,7 @@ def joint_limit_forces(model, qpos, Mdiag, solref=(0.02, 1.0)):
     """Compliant joint limits as a mass-scaled spring-damper (MuJoCo
     solref/solimp semantics, d=0.9, dmax=0.95). Returns (qfrc, extra
     damping); the damping must be integrated implicitly."""
-    qadr, dadr, jids = scalar_joint_index(model)
+    qadr, dadr, jids = scalar_joint_tensors(model)
     timeconst, dampratio = solref
     q = qpos[:, qadr]
     d_lo = model.jnt_range[jids, 0] - q

@@ -23,17 +23,22 @@ def actuator_forces(model, qpos, qvel, ctrl):
     motor / position / velocity gain models; ctrl and force limits)."""
     c = torch.where(model.actuator_ctrllimited > 0,
                     torch.clamp(ctrl, model.actuator_ctrlrange[:, 0], model.actuator_ctrlrange[:, 1]), ctrl)
-    dadr = [model.jnt_dofadr[j] for j in model.actuator_jntid]
-    qadr = [model.jnt_qposadr[j] for j in model.actuator_jntid]
+    dadr, qadr, is_pos, is_vel, is_motor = model.derived("actuators", lambda: _actuator_rows(model))
     gear, g = model.actuator_gear, model.actuator_gainprm
-    kinds = model.actuator_kind
-    is_pos = torch.tensor([k == "position" for k in kinds], dtype=c.dtype, device=c.device)
-    is_vel = torch.tensor([k == "velocity" for k in kinds], dtype=c.dtype, device=c.device)
-    is_motor = torch.tensor([k == "motor" for k in kinds], dtype=c.dtype, device=c.device)
     force = (is_motor * c + is_pos * g * (c - gear * qpos[:, qadr]) + is_vel * g * (c - gear * qvel[:, dadr]))
     force = torch.where(model.actuator_forcelimited > 0,
                         torch.clamp(force, model.actuator_forcerange[:, 0], model.actuator_forcerange[:, 1]), force)
-    return torch.zeros_like(qvel).index_add(1, torch.tensor(dadr, device=c.device), gear * force)
+    return torch.zeros_like(qvel).index_add(1, dadr, gear * force)
+
+
+def _actuator_rows(model):
+    """(dof address, qpos address, position / velocity / motor 0-1 flags)
+    of each actuator, on the model's device."""
+    dev, dt, kinds = model.device, model.qpos0.dtype, model.actuator_kind
+    flag = lambda kind: torch.tensor([k == kind for k in kinds], dtype=dt, device=dev)  # noqa: E731
+    return (torch.tensor([model.jnt_dofadr[j] for j in model.actuator_jntid], dtype=torch.long, device=dev),
+            torch.tensor([model.jnt_qposadr[j] for j in model.actuator_jntid], dtype=torch.long, device=dev),
+            flag("position"), flag("velocity"), flag("motor"))
 
 
 def total_smooth_force(model, qpos, qvel, ctrl, M, bias):
@@ -50,7 +55,7 @@ def total_smooth_force(model, qpos, qvel, ctrl, M, bias):
 def integrate_qpos(model, qpos, qvel_new, dt):
     """Position update with the new velocities (MuJoCo mj_integratePos)."""
     out = qpos.clone()
-    qadr, dadr, _ = dynamics.scalar_joint_index(model)
+    qadr, dadr, _ = dynamics.scalar_joint_tensors(model)
     out[:, qadr] = out[:, qadr] + dt * qvel_new[:, dadr]
     for j in range(model.njnt):
         qa, da = model.jnt_qposadr[j], model.jnt_dofadr[j]
@@ -68,8 +73,7 @@ def integrate(model, state: State, ctrl, kin, M, bias, solve=contact_solve.vel_u
     its plain version). Returns (state', solver forces f)."""
     dt = model.timestep
     qfrc_smooth, extra_damp = total_smooth_force(model, state.qpos, state.qvel, ctrl, M, bias)
-    con = C.narrowphase(model, kin)
-    JfT, aref, reg3, mu, active = C.solver_inputs(model, kin, con, state.qvel, dt)
+    JfT, aref, reg3, mu, active = C.contact_rows(model, kin, state.qvel, dt)
     damping = (model.dof_damping + extra_damp).contiguous()
     qvel_new, f = solve(M.contiguous(), JfT, aref.contiguous(), qfrc_smooth.contiguous(), state.qvel.contiguous(),
                         damping, reg3.contiguous(), mu, active.contiguous(), *C.solver_iterations(model), dt)

@@ -81,6 +81,18 @@ class FixedBaseRobot:
             for arm in self.arms
         }
         self.init_qpos_idx = np.array([model.jnt_qposadr[model.jnt_name2id(n)] for n in card], dtype=int)
+        # the per-substep indices and constants on the model's device (an
+        # index from the host is a copy, and a copy waits for the device)
+        dev = model.device
+        idx = lambda a: torch.as_tensor(a, dtype=torch.long, device=dev)  # noqa: E731
+        self._dev = {arm: dict(
+            qp=idx(self.arm_qpos_idx[arm]), qv=idx(self.arm_qvel_idx[arm]), act=idx(self.arm_actuator_ids[arm]),
+            grip_act=idx(self.gripper_actuator_ids[arm]),
+            lo=torch.as_tensor(self.torque_limits[arm][0], device=dev),
+            hi=torch.as_tensor(self.torque_limits[arm][1], device=dev),
+            grip_range=model.actuator_ctrlrange[idx(self.gripper_actuator_ids[arm])],
+            grip_dir=torch.as_tensor(robot_model.grippers[arm].format_action_direction(), dtype=torch.float32,
+                                     device=dev)) for arm in self.arms}
 
     # -- action vector layout (robosuite composite_controller.py:86-95) ------
     @property
@@ -101,7 +113,7 @@ class FixedBaseRobot:
     # -- views ---------------------------------------------------------------
     def arm_view(self, kin, M, bias, qpos, qvel, arm: str) -> ArmView:
         """The per-substep controller view (robosuite controller.py:199-232)."""
-        qp_i, qv_i = self.arm_qpos_idx[arm], self.arm_qvel_idx[arm]
+        qp_i, qv_i = self._dev[arm]["qp"], self._dev[arm]["qv"]
         eef, cen = self.eef_site_id[arm], self.center_site_id[arm]
         jacp, jacr = kinematics.site_jacobian(self.model, kin, eef)
         lin, ang = kinematics.site_velocity(self.model, kin, qvel, eef)
@@ -144,14 +156,12 @@ class FixedBaseRobot:
     def _gripper_goal(self, arm, cur, grip_a):
         """Binary ramped gripper (robosuite panda_gripper.py:42-55): each
         policy step moves the per-actuator command by speed * sign(action)."""
-        grip = self.rm.grippers[arm]
-        direction = torch.as_tensor(grip.format_action_direction(), dtype=cur.dtype, device=cur.device)
-        return torch.clamp(cur + direction * grip.speed * torch.sign(grip_a[:, 0:1]), -1.0, 1.0)
+        direction = self._dev[arm]["grip_dir"].to(cur.dtype)
+        return torch.clamp(cur + direction * self.rm.grippers[arm].speed * torch.sign(grip_a[:, 0:1]), -1.0, 1.0)
 
     def gripper_ctrl(self, arm, ctrl_state: RobotCtrlState):
         """Actuator-space gripper ctrl (B, n) for the tick's gripper state."""
-        aid = self.gripper_actuator_ids[arm]
-        rng = self.model.actuator_ctrlrange[aid]
+        rng = self._dev[arm]["grip_range"]
         return grip_mod.run(ctrl_state.gripper_action[arm], rng[:, 0], rng[:, 1])
 
     def run_controllers(self, kin, M, bias, qpos, qvel, ctrl_state: RobotCtrlState, ctrl):
@@ -162,8 +172,7 @@ class FixedBaseRobot:
             view = self.arm_view(kin, M, bias, qpos, qvel, arm)
             cfg = self.arm_cfg[arm]
             tau = ctrl_module(cfg).run(cfg, ctrl_state.arm[arm], view)
-            lo, hi = self.torque_limits[arm]
-            ctrl[:, self.arm_actuator_ids[arm]] = torch.clamp(
-                tau, torch.as_tensor(lo, device=tau.device), torch.as_tensor(hi, device=tau.device))
-            ctrl[:, self.gripper_actuator_ids[arm]] = self.gripper_ctrl(arm, ctrl_state)
+            d = self._dev[arm]
+            ctrl[:, d["act"]] = torch.clamp(tau, d["lo"], d["hi"])
+            ctrl[:, d["grip_act"]] = self.gripper_ctrl(arm, ctrl_state)
         return ctrl

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from robosuite_tpu_torch.ops import fk, forward, substep
 from robosuite_tpu_torch.physics import contact as C
 from tests.test_torch_substep import CUBE, contact_states
+from tests.test_torch_door import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 PLAN = dict(timestep=0.025, solver_iters=10, pair_points_cap=2)
 

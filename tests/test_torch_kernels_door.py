@@ -7,8 +7,9 @@ plane-cylinder and cylinder-cylinder (csrc/narrowphase.cuh
 plane_cylinder, capsule_capsule), on small worlds with an active contact:
 every row's depth, point and normal and each pair's minimum distance
 against the plain narrowphase (physics/contact.py), over one lane and over
-a 32-thread team; and the maxima's gate (Door fits, a larger world is
-refused). Tolerances are chip_smoke.py's."""
+a 32-thread team; the maxima's gate (Door fits, a larger world is
+refused); and the fused gate's predicate, the JAX package's. Tolerances
+are chip_smoke.py's."""
 
 import ctypes
 import shutil
@@ -204,7 +205,7 @@ def test_door_substep_carve(lib, door):
 
 @pytest.mark.parametrize("nt", [1, 32])
 @pytest.mark.parametrize("world", PAIR_WORLDS, ids=[w[0] for w in PAIR_WORLDS])
-def test_new_candidate_kinds_match_plain(lib, world, nt):
+def test_new_candidate_kinds_match_plain(lib, door, world, nt):
     _, plane, cyls = world
     _, pm, qpos = pair_world_models(plane, cyls)
     # the pair world's pose and two more, the bodies nudged and turned
@@ -219,7 +220,7 @@ def test_new_candidate_kinds_match_plain(lib, world, nt):
     pd = C.pair_min_dists(pm, kin)
     assert float(con["dist"][0].min()) < 0.0  # an active contact
     B, R = q.shape[0], con["dist"].shape[1]
-    T = tables.pack(pm)
+    T = tables.pack(pm, arm=substep.extract_spec(door[0], pm))  # the fused substep's table: it has the contact part
     dist, pos, nrm, pmin = (torch.full(shape, float("nan")) for shape in ((B, R), (B, R, 3), (B, R, 3), (B, pm.npair)))
     lib.rs_narrowphase_threads(nt, _p(T), _p(q), _p(dist), _p(pos), _p(nrm), _p(pmin), B)
     np.testing.assert_allclose(dist.numpy(), con["dist"].numpy(), rtol=0, atol=1e-5)
@@ -232,8 +233,10 @@ def test_new_candidate_kinds_match_plain(lib, world, nt):
 def test_maxima_take_door_and_refuse_more(door):
     """Door (11 dofs, 60 pairs, 170 rows) fits the kernels' maxima with and
     without the latch; a world above them (three free bodies of six boxes
-    each on a plane: 126 pairs) is refused by the table and by the fused
-    substep's gate with the same ValueError."""
+    each on a plane: 126 pairs) is refused by the table with a ValueError;
+    the fused substep's gate refuses it first for its row compaction (504
+    rows at nv 18, the JAX predicate) and, with one point a pair (no
+    compaction), with the table's ValueError."""
     import robosuite_tpu_torch
     from robosuite_tpu.models import spec as JS
 
@@ -254,8 +257,41 @@ def test_maxima_take_door_and_refuse_more(door):
                                    {n: getattr(jm, n) for n in PM.STATIC}, device="cpu")
     assert big.npair == 126
     with pytest.raises(ValueError, match="npair=126"):
-        tables.fill(big)
-    with pytest.raises(ValueError, match="npair=126"):
+        tables.fill(big, arm=substep.extract_spec(env, env.model))
+    assert C.uses_row_compaction(big)
+    with pytest.raises(substep.UnsupportedFused, match="compacts"):
         substep.extract_spec(env, big)
+    assert env._fused_for(big) is None
+    one_point = big.replace(pair_points_cap=1)
+    assert not C.uses_row_compaction(one_point)
     with pytest.raises(ValueError, match="npair=126"):
-        env._fused_for(big)
+        substep.extract_spec(env, one_point)
+    with pytest.raises(ValueError, match="npair=126"):
+        env._fused_for(one_point)
+
+
+@pytest.mark.parametrize("kinds", [["sphere", "box"], ["can"]], ids=["sphere_box", "hull"])
+def test_fused_gate_follows_the_reference(door, kinds):
+    """The fused substep's gate refuses by the JAX predicate: a world that
+    does not compact its rows, with a pair type the reference fuses but
+    the kernel lacks (plane-sphere, sphere-box), fails loudly rather than
+    stepping the plain path on the card; one with a pair type the
+    reference does not fuse (a mesh) runs unfused, as there."""
+    from robosuite_tpu.ops import pallas_substep as JP
+    from tests.test_torch_contact_hull import small_world
+
+    env, _ = door
+    jm, pm = small_world(True, kinds)
+    assert not C.uses_row_compaction(pm)
+    if kinds == ["can"]:
+        with pytest.raises(JP.UnsupportedFused, match="pair type"):
+            JP._pair_meta(jm)
+        with pytest.raises(substep.UnsupportedFused, match="pair type"):
+            substep.extract_spec(env, pm)
+        assert env._fused_for(pm) is None
+        return
+    JP._pair_meta(jm)  # the reference fuses every pair type of this world
+    with pytest.raises(NotImplementedError, match="no CUDA narrowphase"):
+        substep.extract_spec(env, pm)
+    with pytest.raises(NotImplementedError, match="no CUDA narrowphase"):
+        env._fused_for(pm)

@@ -34,6 +34,7 @@ from robosuite_tpu_torch import ab_kernels
 from robosuite_tpu_torch.ops import build, contact_solve, fk, forward, substep, tables
 from robosuite_tpu_torch.physics import contact as C
 from robosuite_tpu_torch.physics import engine
+from tests.test_torch_door import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "robosuite_tpu_torch", "csrc")
 
@@ -370,7 +371,7 @@ HOST_ONLY = {"rs_forward_threads": [_I, _I] + [_V] * 5 + [_I, _V] * 3 + [_I, _V,
              "rs_fk_blocks": [_I] + [_V] * 4 + [_I], "rs_walk": [_I] + [_V] * 6 + [_I], "rs_s_substep": [],
              "rs_cut": [_V, _I, _I, _V, _V], "rs_substep_threads": [_I, _I] + [_V] * 17 + [_I],
              "rs_cut_threads": [_I, _V, _I, _I, _V, _V]}
-CARD_ONLY = ("rs_substep_resident", "rs_forward_smem_bytes", "rs_fk_smem_bytes")
+CARD_ONLY = ("rs_substep_resident", "rs_forward_smem_bytes", "rs_fk_smem_bytes", "rs_contact_solve_smem_bytes")
 
 
 @pytest.fixture(scope="module")

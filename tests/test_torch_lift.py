@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from robosuite_tpu_torch.ops import forward
+from tests.test_torch_door import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 CUBE = [0.021, 0.021, 0.021]
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "osc_probe_panda_rollout.npz")

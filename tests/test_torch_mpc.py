@@ -19,6 +19,7 @@ from robosuite_tpu_torch import convert
 from robosuite_tpu_torch.mpc import ilqr, mppi, receding
 from robosuite_tpu_torch.physics import kinematics
 from tests.test_torch_plan import resting_states
+from tests.test_torch_door import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 
 def _cfg(lib, **kw):

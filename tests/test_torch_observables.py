@@ -27,7 +27,7 @@ import jax.numpy as jnp
 
 from robosuite_tpu_torch import observables as O
 from robosuite_tpu_torch.ops import forward
-from tests.test_torch_door import hold_obs, one_thread  # noqa: F401  (an autouse fixture)
+from tests.test_torch_door import hold_obs, jax_step_batch, one_thread  # noqa: F401  (an autouse fixture)
 
 
 def _specs(lib):
@@ -147,8 +147,9 @@ def test_step_batch_matches_jax(name):
     rng = np.random.default_rng(1)
     acts = np.clip(0.5 * rng.standard_normal((5, B, penv.action_dim)), -1, 1).astype(np.float32)
     acts[:, :, -1] = 1.0
+    jstep = jax_step_batch(jenv)
     for i in range(5):
-        js, jo, jr, jd, _ = jenv.step_batch(js, jnp.asarray(acts[i]))
+        js, jo, jr, jd, _ = jstep(js, jnp.asarray(acts[i]))
         ps, po, pr, pd, _ = penv.step_batch(ps, torch.as_tensor(acts[i]))
         assert set(po) == set(jo)
         hold_obs(penv, po, jo, 1e-4 if i == 0 else 1e-3, f"{name} step {i}")

@@ -11,6 +11,7 @@ import jax
 import jax.numpy as jnp
 
 from tests.test_torch_substep import CUBE, contact_states
+from tests.test_torch_door import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 PLAN = dict(timestep=0.025, solver_iters=10, pair_points_cap=2)
 

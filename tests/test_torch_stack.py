@@ -25,6 +25,7 @@ import jax.numpy as jnp
 
 from robosuite_tpu_torch.ops import forward, substep
 from tests.test_torch_substep import INIT
+from tests.test_torch_door import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 JP = dict(robots="Panda", controller_configs="JOINT_POSITION", reward_shaping=True)
 

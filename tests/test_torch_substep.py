@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 
 from robosuite_tpu_torch.ops import forward, substep
+from tests.test_torch_door import one_thread  # noqa: F401  (an autouse fixture: one torch thread)
 
 CUBE = [0.021, 0.021, 0.021]
 INIT = np.array([0, np.pi / 16.0, 0.00, -np.pi / 2.0 - np.pi / 3.0, 0.00, np.pi - 0.2, np.pi / 4])
