@@ -110,15 +110,41 @@ Phases (any failure exits non-zero):
  26. the step slice on the unfused path: counts zeroed, reset + 10
      step_batch policy steps (K1 = 1 + 27 a step, K2 = 25 a step, K3 = 0),
      finite observations, rewards and done, the eef wrench zero, host-clock
-     rate and a profiled step; each policy step substep by substep, the
-     kernel substep (K1 + K2) and the plain one from the same input under
-     hold_all's rule, the last substep being step_batch's next state bit
-     for bit;
+     rates with the reset and over 10 more steady steps, and a profiled
+     step; each policy step substep by substep, the kernel substep (K1 +
+     K2) and the plain one from the same input under hold_all's rule (with
+     pose_rounding_witness), the last substep being step_batch's next state
+     bit for bit, and the count of cases set aside;
  27. the PickPlaceCan MPC at tools/bench_configs.py's width (B=32, H=128,
      K=16, MPPI only, unfused planning rollouts): a warm-up tick, ticks
      1-3 timed with their launch counts, finite actions in [-1, 1], peak
      memory and a profiled tick; the planning rollouts' rows graph (B K =
-     512, dt 0.025) against the eager code, bit for bit, as in 25.
+     512, dt 0.025) against the eager code, bit for bit, as in 25;
+ 28-32. make("TwoArmLift", robots=("Panda", "Panda"), env_configuration=
+     "opposed", reward_shaping=True) on CUDA (nq 25, nv 24, 47 bodies, 170
+     geoms, 19 sites, 18 actuators, 170 pairs, 620 rows compacted into 96
+     slots), the first world past the single-arm maxima, unfused (the fused
+     gate refuses two robots, as the JAX package's does): 28, the world,
+     the gate, K1's and K2's shared memory a block, K1 against its plain
+     version at B=512, 32 and 1, timed at 512 and 32; 29, a contact-rich
+     state (ab_kernels.twoarm_lift_contact_state: both grippers closed on
+     their handles, in half the scenarios at least, with 4 active rows or
+     more); 30, K2 at nv 24 and 96 slots against its plain version, the
+     rows' CUDA graph against the eager code at the reset and that state;
+     31, counts zeroed, reset + 10 step_batch policy steps (K1 = 1 + 27 a
+     step, K2 = 25 a step), finite observations and rewards, a proprio
+     modality per robot, host-clock rates with the reset and over 10 more
+     steady steps, a profiled step, and each substep held as in 26, with
+     the count of cases set aside; 32, the MPC at tools/bench_configs.py's
+     width (B=32, H=64, K=16, MPPI only) as in 27;
+ 33-37. the same for make("TwoArmPegInHole", ...) (nq 14, nv 14, 40
+     bodies, 136 geoms, 39 pairs, 117 static rows; the peg and the plate
+     welded at the eefs): its contact state (ab_kernels.peg_contact_state:
+     the peg's tip pressed into a side of the hole's mouth, an active row
+     in three quarters of the scenarios at least), K2 at nv 14 and 117
+     static rows.
+The count of (substep, scenario) cases that the holds set aside on a
+float64 near-tie witness is printed at the end.
 Timings use CUDA events (profiler passes show one policy step's and one
 MPC tick's device time; K1's and K4's widths also print the profiler's
 kernel device time, and, at the end, each width's launches over the
@@ -281,6 +307,7 @@ def max_err(a, b):
 
 
 FAILED = []
+ASIDE = []  # the label of each (substep, scenario) case a hold set aside on a float64 witness
 
 
 def check(name, err, tol):
@@ -580,7 +607,8 @@ _CPU64 = {}
 
 def tie_witness(model, qpos, bodies, tie=1e-5, touch=1e-3):
     """Float64 witnesses that the contacts of body bodies[n] (of any body
-    where bodies[n] is None) at qpos[n] (N, nq) hold a decision float32
+    in the set bodies[n], of any body where bodies[n] is None) at qpos[n]
+    (N, nq) hold a decision float32
     rounding can take either way: some box-box pair of the body's geoms
     within `touch` of contact whose SAT tie margin best_e - max_face is
     within `tie` (the edge candidate emitted or not), or whose manifold
@@ -607,8 +635,7 @@ def tie_witness(model, qpos, bodies, tie=1e-5, touch=1e-3):
     out = [None] * len(bodies)
     for k in range(model.npair):
         g1, g2 = model.pair_geom1[k], model.pair_geom2[k]
-        owners = (model.geom_bodyid[g1], model.geom_bodyid[g2])
-        rows = [n for n, body in enumerate(bodies) if out[n] is None and (body is None or body in owners)]
+        rows = [n for n, body in enumerate(bodies) if out[n] is None and _touches(body, model, k)]
         if not rows or model.geom_type[g1] != S.BOX or model.geom_type[g2] != S.BOX:
             continue
         args = operand(g1) + operand(g2)
@@ -626,11 +653,54 @@ def tie_witness(model, qpos, bodies, tie=1e-5, touch=1e-3):
     return out
 
 
+def _touches(body, model, k):
+    """Whether pair k has a geom of `body` (an index, a set of them, or
+    None: any body)."""
+    owners = (model.geom_bodyid[model.pair_geom1[k]], model.geom_bodyid[model.pair_geom2[k]])
+    if body is None:
+        return True
+    return bool(set(owners) & body) if isinstance(body, set) else body in owners
+
+
+def contact_island(model, con, n, body, touch=1e-3):
+    """The bodies whose velocities scenario n's contact solve couples with
+    `body`'s: the kinematic trees (all bodies below one child of the world)
+    that hold dofs, joined wherever a row between two of them lies within
+    `touch` of its activation in `con` (the float64 narrowphase); a tree
+    without dofs (the table) joins none. Two grippers on one pot make one
+    island of both robots and the pot: a tie at any of its rows moves every
+    body in it."""
+    parent = model.body_parentid
+
+    def root(b):
+        while parent[b] != 0:
+            b = parent[b]
+        return b
+
+    roots = [root(b) for b in range(model.nbody)]
+    moving = {roots[b] for b in model.dof_bodyid}
+    near = (con["dist"][n] - con["margin"] <= touch).tolist()
+    links = {}
+    for r, (b1, b2) in enumerate(zip(con["body1"], con["body2"])):
+        r1, r2 = roots[b1], roots[b2]
+        if near[r] and r1 != r2 and r1 in moving and r2 in moving:
+            links.setdefault(r1, set()).add(r2)
+            links.setdefault(r2, set()).add(r1)
+    seen, todo = {roots[body]}, [roots[body]]
+    while todo:
+        for x in links.get(todo.pop(), ()):
+            if x not in seen:
+                seen.add(x)
+                todo.append(x)
+    return {b for b in range(model.nbody) if roots[b] in seen}
+
+
 def contact_tie_witness(model, qpos, bodies, tie=1e-5, touch=1e-3):
     """tie_witness, and besides it the discrete choices of the plain
     contact rows that float32 rounding can take either way, recomputed in
-    float64 at qpos[n] (N, nq) on the CPU, for the pairs of body bodies[n]
-    (of any body where None): a selection of the k deepest candidates (a
+    float64 at qpos[n] (N, nq) on the CPU, for the pairs of the bodies of
+    body bodies[n]'s contact island (contact_island; of any body where
+    None): a selection of the k deepest candidates (a
     hull's deepest vertices, a pair's manifold cut) whose last kept and
     first dropped depths lie within `tie`, the kept one within `touch` of
     contact (a hull resting flat ties its bottom vertices); or a row
@@ -641,9 +711,13 @@ def contact_tie_witness(model, qpos, bodies, tie=1e-5, touch=1e-3):
     from robosuite_tpu_torch.physics import contact as C
     from robosuite_tpu_torch.physics import kinematics
 
-    out = tie_witness(model, qpos, bodies, tie, touch)
+    if id(model) not in _CPU64:  # the entry holds the model, so its id is not reused
+        _CPU64[id(model)] = (model, model.replace().double().to("cpu"))
     m64 = _CPU64[id(model)][1]
     kin = kinematics.fk(m64, qpos.detach().to("cpu", m64.geom_size.dtype))
+    con = C.narrowphase(m64, kin)
+    bodies = [None if b is None else contact_island(model, con, n, b, touch) for n, b in enumerate(bodies)]
+    out = tie_witness(model, qpos, bodies, tie, touch)
     select, cuts = C.select_deepest, []
 
     def recording(d, k):  # d (N, P, n): a (scenario, pair) flag of each near-tie cut
@@ -651,9 +725,6 @@ def contact_tie_witness(model, qpos, bodies, tie=1e-5, touch=1e-3):
             ds = torch.sort(d, dim=-1).values
             cuts.append((ds[..., k] - ds[..., k - 1] <= tie) & (ds[..., k - 1] <= touch))
         return select(d, k)
-
-    def owners(k):
-        return model.geom_bodyid[model.pair_geom1[k]], model.geom_bodyid[model.pair_geom2[k]]
 
     C.select_deepest = recording
     try:
@@ -664,16 +735,15 @@ def contact_tie_witness(model, qpos, bodies, tie=1e-5, touch=1e-3):
                 flags = flags.reshape(flags.shape[0], len(items), -1).any(dim=-1)
                 for n in range(len(out)):
                     for p, (_, _, k, _) in enumerate(items):
-                        if out[n] is None and bool(flags[n, p]) and (bodies[n] is None or bodies[n] in owners(k)):
+                        if out[n] is None and bool(flags[n, p]) and _touches(bodies[n], model, k):
                             out[n] = f"pair {k}: a k-deepest selection within {tie:.0e} of a tie, touching (float64)"
-        con = C.narrowphase(m64, kin)
     finally:
         C.select_deepest = select
     near = (con["dist"] - con["margin"]).abs() <= tie
     for k, rows in C.contact_row_layout(m64).items():
         hit = near[:, rows].any(dim=-1)
         for n in range(len(out)):
-            if out[n] is None and bool(hit[n]) and (bodies[n] is None or bodies[n] in owners(k)):
+            if out[n] is None and bool(hit[n]) and _touches(bodies[n], model, k):
                 out[n] = f"pair {k}: a row within {tie:.0e} of its activation threshold (float64)"
     return out
 
@@ -709,6 +779,7 @@ def hold_cubes(label, model, bodies, qpos_in, out_k, out_p, tol_q=1e-5, tol_v=1e
             if why:
                 eq[b] = ev[b] = 0.0
                 witnessed += 1
+                ASIDE.append(label)
     return (max(float(eq.max()) for eq, _ in errs), max(float(ev.max()) for _, ev in errs), witnessed)
 
 
@@ -1092,18 +1163,23 @@ DOOR_MPC = dict(horizon=64, n_samples=16, noise_sigma=0.4, temperature=0.2, n_kn
 DOOR_B, DOOR_TICKS = 32, 3
 
 
-def hold_all(label, model, qpos_in, out_k, out_p, tol_q=1e-5, tol_v=1e-3, tol_f=1e-4, quiet=False):
+def hold_all(label, model, qpos_in, out_k, out_p, tol_q=1e-5, tol_v=1e-3, tol_f=1e-4, quiet=False, extra=None):
     """One substep from the same input qpos_in, kernel out_k vs plain out_p
     ((qpos, qvel) or (qpos, qvel, f)): every coordinate of every scenario
     and the solver forces relative to their largest. A scenario beyond a
     tolerance is set aside only with contact_tie_witness at qpos_in, at
-    the pairs of the body whose velocity differs most: a row decision
+    the pairs of the contact island of the body whose velocity differs
+    most (the bodies one contact solve couples with it): a row decision
     (a box-box SAT or manifold cut tie, a k-deepest selection, a row at
     its activation threshold) that the float32 rounding of the two
     versions' poses takes either way (Door's finger pads and handle parts
-    lie flush, turning about one axis; an upright can's bottom ring ties).
-    Every case is printed, and every check unless `quiet` (then only the
-    failed ones). -> the largest error held."""
+    lie flush, turning about one axis; an upright can's bottom ring ties;
+    a gripper whose pads closed on each other beside the pot it and the
+    other gripper hold moves the pot). `extra` (the unfused substeps':
+    pose_rounding_witness) gives a further float64 witness, for the
+    scenarios that one leaves: a callable, their indices -> a description
+    or None each. Every case is printed, and every check unless `quiet`
+    (then only the failed ones). -> the largest error held."""
     import torch
 
     errs = {"qpos": ((out_k[0] - out_p[0]).abs().amax(dim=1), tol_q),
@@ -1122,13 +1198,19 @@ def hold_all(label, model, qpos_in, out_k, out_p, tol_q=1e-5, tol_v=1e-3, tol_f=
     elif bad:
         worst = (out_k[1] - out_p[1]).abs().argmax(dim=1).tolist()
         bodies = [model.dof_bodyid[worst[b]] for b in bad]
-        for b, why in zip(bad, contact_tie_witness(model, qpos_in[bad], bodies)):
+        whys = contact_tie_witness(model, qpos_in[bad], bodies)
+        left = [b for b, why in zip(bad, whys) if why is None]
+        if extra is not None and left:
+            more = dict(zip(left, extra(left)))
+            whys = [why or more[b] for b, why in zip(bad, whys)]
+        for b, why in zip(bad, whys):
             print(f"{label} scenario {b}: " + ", ".join(f"{n} err {float(e[b]):.3e}" for n, (e, _) in errs.items())
                   + f"; {why or 'NO near-tie witness'}")
             if why:
                 for e, _ in errs.values():
                     e[b] = 0.0
                 witnessed += 1
+                ASIDE.append(label)
     for n, (e, tol) in errs.items():
         if not (quiet and float(e.max()) <= tol):
             check(f"{label} {n}, every scenario ({witnessed} witnessed near-ties set aside)", float(e.max()), tol)
@@ -1429,15 +1511,12 @@ def plain_unfused_substep(env, model, ctrl_state, phys):
     """One substep of the unfused path on the plain versions: forward_plain,
     the controllers, the smooth forces, the plain narrowphase and row
     compaction, vel_update_plain and the integration. -> (State, f)."""
-    import torch
-
     from robosuite_tpu_torch.ops import contact_solve, forward
     from robosuite_tpu_torch.physics import engine
 
     q, qd = phys.qpos, phys.qvel
     kin, M, bias = forward.forward_plain(model, q, qd, *forward.runtime_leaves(model, q.shape[0]))
-    c = env.robots[0].run_controllers(kin, M, bias, q, qd, ctrl_state,
-                                      torch.zeros(q.shape[0], model.nu, device=q.device))
+    c = env.run_controllers(kin, M, bias, q, qd, ctrl_state)
     return engine.integrate(model, phys, c, kin, M, bias, solve=contact_solve.vel_update_plain)
 
 
@@ -1448,8 +1527,6 @@ def held_unfused_substep(env, model, ctrl_state, phys, err):
     its largest)) and f (relative); the largest of each kept in `err`. The same operations as
     engine.integrate, so the result is the main path's, bit for bit.
     -> (State, f)."""
-    import torch
-
     from robosuite_tpu_torch.ops import contact_solve, forward
     from robosuite_tpu_torch.physics import contact as C
     from robosuite_tpu_torch.physics import engine
@@ -1461,7 +1538,7 @@ def held_unfused_substep(env, model, ctrl_state, phys, err):
     err["K1 poses"] = max(err["K1 poses"], max(max_err(getattr(kin, f), getattr(kin_p, f))
                                                for f, v in kin_p.__dict__.items() if v is not None))
     err["K1 M"], err["K1 bias"] = max(err["K1 M"], rel(M, M_p)), max(err["K1 bias"], rel(bias, bias_p))
-    c = env.robots[0].run_controllers(kin, M, bias, q, qd, ctrl_state, torch.zeros(q.shape[0], model.nu, device=q.device))
+    c = env.run_controllers(kin, M, bias, q, qd, ctrl_state)
     qfrc, extra = engine.total_smooth_force(model, q, qd, c, M, bias)
     JfT, aref, reg3, mu, active = C.contact_rows(model, kin, qd, dt)
     args = (M.contiguous(), JfT, aref.contiguous(), qfrc.contiguous(), qd.contiguous(),
@@ -1473,6 +1550,309 @@ def held_unfused_substep(env, model, ctrl_state, phys, err):
     return engine.State(qpos=engine.integrate_qpos(model, q, qv, dt), qvel=qv, time=phys.time + dt), f
 
 
+def pose_rounding_witness(env, model, ctrl_state, phys, bad, out_k, out_p, tol_v=1e-3, tol_f=1e-4):
+    """A float64 witness that an unfused substep's kernel and plain results
+    differ only through their poses' float32 rounding, for the scenarios
+    `bad` of the substep from phys under ctrl_state (out_k, out_p: (qpos,
+    qvel, f) of the kernel and the plain substep): each version's solve
+    redone in float64 on the CPU from its own float32 forward products (K1's,
+    held to 2e-5 at every launch, or forward_plain's), with float64
+    controllers' forces, contact rows and velocity update, lands within
+    the hold's tolerances of that version (qvel tol_v, f tol_f of the
+    largest |f|), while the two float64 results differ beyond them: the
+    state's stiff contacts amplify a pose difference of float32 rounding
+    (a pad squeezing a handle at 60 N). -> a description or None each."""
+    import torch
+
+    from robosuite_tpu_torch.envs.base import map_state
+    from robosuite_tpu_torch.ops import contact_solve, forward
+    from robosuite_tpu_torch.physics import contact as C
+    from robosuite_tpu_torch.physics import engine
+    from robosuite_tpu_torch.physics.state import KinData
+
+    if id(model) not in _CPU64:
+        _CPU64[id(model)] = (model, model.replace().double().to("cpu"))
+    m64 = _CPU64[id(model)][1]
+    idx = torch.as_tensor(bad, device=phys.qpos.device)
+    q, qd = phys.qpos[idx].contiguous(), phys.qvel[idx].contiguous()
+    ctrl = map_state(lambda x: x[idx], ctrl_state)
+    q64, qd64 = q.double().cpu(), qd.double().cpu()
+    scale = max(1.0, float(out_p[2].abs().max()))
+    twins, pose_diff = [], None
+    for kin, M, bias in (forward.forward_products(model, q, qd),
+                         forward.forward_plain(model, q, qd, *forward.model_leaves(model, len(bad)))):
+        c = env.run_controllers(kin, M, bias, q, qd, ctrl)
+        kin64 = KinData(**{f: v.double().cpu() for f, v in kin.__dict__.items() if v is not None})
+        M64, bias64 = M.double().cpu(), bias.double().cpu()
+        qfrc, damp = engine.total_smooth_force(m64, q64, qd64, c.double().cpu(), M64, bias64)
+        rows = C.solver_inputs(m64, kin64, C.narrowphase(m64, kin64), qd64, m64.timestep)
+        twins.append(contact_solve.vel_update_plain(M64, rows[0], rows[1], qfrc, qd64, m64.dof_damping + damp,
+                                                    *rows[2:], *C.solver_iterations(m64), m64.timestep))
+        pose_diff = kin64.geom_xpos if pose_diff is None else (pose_diff - kin64.geom_xpos).abs().amax(dim=(1, 2))
+    out = []
+    for i, b in enumerate(bad):
+        own = [max(float((o[1][b].double().cpu() - t[0][i]).abs().max()) / tol_v,
+                   float((o[2][b].double().cpu() - t[1][i]).abs().max()) / scale / tol_f)
+               for o, t in zip((out_k, out_p), twins)]
+        apart = max(float((twins[0][0][i] - twins[1][0][i]).abs().max()) / tol_v,
+                    float((twins[0][1][i] - twins[1][1][i]).abs().max()) / scale / tol_f)
+        out.append(f"float64 solves from K1's and from the plain poses (apart {float(pose_diff[i]):.1e} m) differ by "
+                   f"{apart:.2f} x the tolerance, each version within {max(own):.2f} x of its own"
+                   if max(own) <= 1.0 < apart else None)
+    return out
+
+
+def hold_unfused_steps(label, env, trail, actions, rewards, leaves):
+    """Each policy step of an unfused step_batch run (trail: its states,
+    the reset's first), substep by substep: its K1 and K2 launches against
+    their plain versions on the same operands, and the kernel substep
+    against the plain one (forward_plain + vel_update_plain) from the same
+    input under hold_all's rule, then on from the kernel's output, whose
+    last substep is step_batch's next state bit for bit; the reward of the
+    plain poses of that state."""
+    import torch
+
+    from robosuite_tpu_torch.ops import forward
+    from robosuite_tpu_torch.physics import engine
+
+    model = env.model
+    worst, worst_r, k_err = 0.0, 0.0, {"K1 poses": 0.0, "K1 M": 0.0, "K1 bias": 0.0, "K2 qvel": 0.0, "K2 f": 0.0}
+    for i in range(len(trail) - 1):
+        st = trail[i]
+        kin, M, bias = engine.forward_products(model, st.physics.qpos, st.physics.qvel)
+        ctrl_i = env._set_goals(kin, M, bias, st.physics.qpos, st.physics.qvel, st.ctrl, actions)
+        ph = st.physics
+        for j in range(env.n_substeps):
+            pk, fk_ = held_unfused_substep(env, model, ctrl_i, ph, k_err)
+            pp, fp_ = plain_unfused_substep(env, model, ctrl_i, ph)
+            out_k, out_p = (pk.qpos, pk.qvel, fk_), (pp.qpos, pp.qvel, fp_)
+            worst = max(worst, hold_all(
+                f"{label} step {i + 1} substep {j + 1}", model, ph.qpos, out_k, out_p, quiet=True,
+                extra=lambda bad, c=ctrl_i, p=ph, k=out_k, q=out_p: pose_rounding_witness(env, model, c, p, bad, k, q)))
+            ph = pk
+        nxt = trail[i + 1]
+        if not (torch.equal(ph.qpos, nxt.physics.qpos) and torch.equal(ph.qvel, nxt.physics.qvel)):
+            fail(f"{label} policy step {i + 1}: step_batch differs from its substep-by-substep kernel run")
+        kin_p = forward.forward_plain(model, ph.qpos, ph.qvel, *leaves)[0]
+        worst_r = max(worst_r, max_err(rewards[i], env.reward(nxt.physics, kin_p)))
+    torch.cuda.synchronize()
+    steps = len(trail) - 1
+    print(f"{label} {steps} policy steps x {env.n_substeps} substeps, kernel vs plain from the same input: "
+          f"largest qpos / qvel error held {worst:.3e}")
+    for name, tol in (("K1 poses", 2e-5), ("K1 M", 1e-5), ("K1 bias", 1e-4), ("K2 qvel", 1e-4), ("K2 f", 1e-4)):
+        check(f"{label} {steps} policy steps: every {name[:2]} launch against its plain version on its own "
+              f"operands, {name[3:]}{' (relative)' if name != 'K1 poses' else ''}", k_err[name], tol)
+    check(f"{label} {steps} policy steps: reward (K1 vs plain poses of the same state)", worst_r, 1e-4)
+
+
+def unfused_k1(tag, name, model, states, widths, world_k, results):
+    """K1 on an unfused world's reset states at each of `widths` against
+    its plain version (hold_k1), timed at each width above 1 into
+    results["k1_widths"]; the first width's times into world_k["K1"]."""
+    from robosuite_tpu_torch.ops import forward
+
+    k1_err, rows = 0.0, []
+    for n in widths:
+        q, qd = states.physics.qpos[:n], states.physics.qvel[:n]
+        k1_err = max(k1_err, hold_k1(f"{name} K1 (B={n})", model, q, qd))
+        if n > 1:
+            rows.append(dict(world=name, **time_width(
+                tag, f"K1 {name}", lambda: forward.forward_products(model, q, qd),
+                lambda: forward.forward_plain(model, q, qd, *forward.model_leaves(model, n)), 20, k1_bytes(model, n),
+                op_counts(model, 0)["K1"], n)))
+    results.setdefault("k1_widths", []).extend(rows)
+    world_k["K1"] = dict(max_abs_err=k1_err, ms=rows[0]["ms"], dev_ms=rows[0]["dev_ms"], plain_ms=rows[0]["plain_ms"],
+                         bound=(rows[0]["bound_ms"], rows[0]["bound_by"]))
+
+
+def unfused_k2(name, env, states, s, kin, M, bias, con, K, world_k):
+    """K2 at an unfused world's width (K rows or compacted slots), on the
+    plain path's operands at the contact state s (kin, M, bias, con: its
+    plain forward products and narrowphase), against its plain version:
+    qvel relative to max(1, its largest) (a light body, PickPlaceCan's 14 g
+    can, turns f's float32 rounding into velocity), f relative to its
+    largest; timed into world_k["K2"]. Before it, the contact rows' CUDA
+    graph against the eager code at the reset (states) and at s."""
+    import torch
+
+    from robosuite_tpu_torch.ops import contact_solve, forward
+    from robosuite_tpu_torch.physics import contact as C
+    from robosuite_tpu_torch.physics import engine
+
+    model = env.model
+    q, qd = s.physics.qpos, s.physics.qvel
+    ctrl = env.run_controllers(kin, M, bias, q, qd, s.ctrl)
+    qfrc, extra = engine.total_smooth_force(model, q, qd, ctrl, M, bias)
+    JfT, aref, reg3, mu, act = C.solver_inputs(model, kin, con, qd, model.timestep)
+    if JfT.shape != (B, model.nv, 3 * K):
+        fail(f"{name} solver operands {tuple(JfT.shape)}, not ({B}, {model.nv}, {3 * K})")
+    leaves = forward.runtime_leaves(model, B)
+    kin0 = forward.forward_plain(model, states.physics.qpos, states.physics.qvel, *leaves)[0]
+    hold_rows_graph(name, model, [(kin0, states.physics.qvel), (kin, qd)], model.timestep)
+    args = (M.contiguous(), JfT, aref.contiguous(), qfrc.contiguous(), qd.contiguous(),
+            (model.dof_damping + extra).contiguous(), reg3.contiguous(), mu, act.contiguous())
+    nact = float(act.sum(1).float().mean())
+    solve_args = (C.APGD_ITERS, C.POWER_ITERS, model.timestep)
+    qv_k, f_k = contact_solve.vel_update(*args, *solve_args)
+    qv_p, f_p = contact_solve.vel_update_plain(*args, *solve_args)
+    torch.cuda.synchronize()
+    v_scale = max(1.0, float(qv_p.abs().max()))
+    print(f"{name} K2 (nv {model.nv}, {K} rows, {nact:.1f} active on average): qvel max_abs_err "
+          f"{max_err(qv_k, qv_p):.3e}, largest |qvel| {v_scale:.3f}")
+    check(f"{name} K2 qvel (relative to max(1, |qvel|))", max_err(qv_k, qv_p) / v_scale, 1e-4)
+    check(f"{name} K2 f (relative)", max_err(f_k, f_p) / max(1.0, float(f_p.abs().max())), 1e-4)
+    world_k["K2"] = dict(max_abs_err=max(max_err(qv_k, qv_p), max_err(f_k, f_p)),
+                         ms=cuda_ms(lambda: contact_solve.vel_update(*args, *solve_args), 20),
+                         dev_ms=device_ms(lambda: contact_solve.vel_update(*args, *solve_args), 20),
+                         plain_ms=cuda_ms(lambda: contact_solve.vel_update_plain(*args, *solve_args), 3),
+                         bound=bound(nbytes(*args, qv_k, f_k), op_counts(model, K, nact)["K2"], B))
+    phase_done(f"{name} K2 vs plain")
+
+
+def unfused_step_slice(tag, name, env, gen, results, key):
+    """The step slice of an unfused world: counts zeroed, reset_batch + STEPS
+    step_batch policy steps at B (K1 for the goals, one a substep and one
+    for the observations; K2 one a substep; no K3), finite observations and
+    rewards, the reset's keys, a proprio modality per robot, the eef force
+    zero on a world that compacts its rows (the JAX package's is 0 there);
+    host-clock rates with the reset and over STEPS more steady steps, a
+    profiled step; then every substep held (hold_unfused_steps), with the
+    count of cases set aside. -> the launch counts of the reset + steps."""
+    import torch
+
+    from robosuite_tpu_torch.ops import forward
+    from robosuite_tpu_torch.physics import contact as C
+
+    actions = torch.clamp(0.3 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, obs0 = env.reset_batch(B, gen)
+    trail, rewards, dones, obs_all = [states], [], [], []
+    for _ in range(STEPS):
+        states, obs, r, done, _ = env.step_batch(states, actions)
+        trail.append(states)
+        rewards.append(r)
+        dones.append(done)
+        obs_all.append(obs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kcounts()
+    take_widths(name)
+    print(f"{name} main path launches over reset + {STEPS} step_batch policy steps: {counts}")
+    if counts != {"K1": 1 + (env.n_substeps + 2) * STEPS, "K2": env.n_substeps * STEPS, "K3": 0, "K3-aux": 0,
+                  "K4": 0}:
+        fail(f"unexpected {name} launch counts {counts}")
+    rew = torch.stack(rewards)
+    if not (all(torch.isfinite(v.float()).all() for o in obs_all for v in o.values()) and torch.isfinite(rew).all()):
+        fail(f"non-finite observations or rewards on the {name} path")
+    if any(bool(d.any()) for d in dones) or set(obs_all[-1]) != set(obs0) - {"placement_valid"}:
+        fail(f"{name} step_batch: done before the horizon, or observation keys other than the reset's")
+    for i in range(len(env.robots)):
+        if obs_all[-1][f"robot{i}_proprio-state"].shape[0] != B:
+            fail(f"{name} step_batch: no robot{i}_proprio-state")
+        if C.uses_row_compaction(env.model) and any(bool(o[f"robot{i}_eef_force"].any()) for o in obs_all):
+            fail(f"{name} step_batch: an eef force on a world that compacts its rows (the JAX package's is 0)")
+    t1 = time.perf_counter()
+    steady = states
+    for _ in range(STEPS):
+        steady = env.step_batch(steady, actions)[0]
+    torch.cuda.synchronize()
+    dt_steady = time.perf_counter() - t1
+    print(f"{tag} {name} env policy-steps/s (B={B}, host clock): {B * STEPS / dt_steady:.1f} steady ({STEPS} "
+          f"step_batch steps after the run), {B * STEPS / dt:.1f} with the reset (reset + {STEPS} steps); "
+          f"rewards mean {float(rew.mean()):.4f} max {float(rew.max()):.4f}")
+    _, wall_ms, dev_ms, top, port = profile_once(tag, f"one {name} step_batch policy step",
+                                                 lambda: env.step_batch(states, actions), 8)
+    results.update({f"{key}_policy_steps_per_s": B * STEPS / dt_steady,
+                    f"{key}_policy_steps_per_s_with_reset": B * STEPS / dt, f"{key}_launches": counts,
+                    f"{key}_profile_wall_ms": wall_ms, f"{key}_profile_device_ms": dev_ms,
+                    f"{key}_profile_top": top, f"{key}_profile_port": port})
+    before = len(ASIDE)
+    hold_unfused_steps(name, env, trail, actions, rewards, forward.runtime_leaves(env.model, B))
+    print(f"{name} step slice: {len(ASIDE) - before} (substep, scenario) cases set aside on a float64 witness, "
+          f"of {STEPS * env.n_substeps * B}")
+    results[f"{key}_set_aside"] = len(ASIDE) - before
+    phase_done(f"{name} step slice (reset + step_batch steps, profile, kernel vs plain)")
+    return counts, states
+
+
+def unfused_mpc(tag, name, env, mpc_cfg, batch, ticks, gm, gs, results, key, held_states, world_k):
+    """The MPPI-only MPC of an unfused world at tools/bench_configs.py's
+    width (mpc_cfg, `batch` solves): a warm-up tick, then `ticks` ticks
+    timed with the launches the config implies (the planning rollouts: K1
+    at the start, then per planned step one a substep and one for the
+    step's end; the executed step as in the step slice), finite actions in
+    [-1, 1], peak memory and a profiled tick (the device alone); the
+    planning rollouts' rows graph (batch x samples, the planning dt)
+    against the eager code at each of held_states; then world_k's kernel
+    times. gm draws the reset, gs the MPPI noise. -> the launch counts."""
+    import torch
+
+    from robosuite_tpu_torch.mpc import receding
+    from robosuite_tpu_torch.ops import forward
+
+    cfg = receding.MPCConfig(**mpc_cfg)
+    mpc = receding.RecedingMPC(env, cfg)
+    solve = mpc.make_solve_batch()
+    mstates, _ = env.reset_batch(batch, gm)
+    ms = mpc.init_state(batch, gs)
+
+    def tick(states_, ms_):
+        acts, ms2, met = solve(states_, ms_)
+        states2, rewards_ = env.rollout_batch(states_, acts)
+        return states2, ms2, met, acts, rewards_
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mstates, ms, met, acts, rew = tick(mstates, ms)
+    torch.cuda.synchronize()
+    print(f"{tag} {name} MPC warm-up tick s: {time.perf_counter() - t0:.3f}")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    H, n_plan = cfg.horizon, mpc.plan_substeps
+    want = {"K1": 1 + H * (n_plan + 1) + env.n_substeps + 2, "K2": H * n_plan + env.n_substeps, "K3": 0,
+            "K3-aux": 0, "K4": 0}
+    for i in range(ticks):
+        before = kcounts()
+        mstates, ms, met, acts, rew = tick(mstates, ms)
+        after = kcounts()
+        got = {k: after[k] - before[k] for k in after}
+        print(f"{name} MPC tick {i + 1} launches: {got}")
+        if got != want:
+            fail(f"{name} MPC tick {i + 1}: launches {got}, the config implies {want}")
+        if not (torch.isfinite(acts).all() and acts.abs().max() <= 1.0 and torch.isfinite(rew).all()):
+            fail(f"{name} MPC tick {i + 1}: non-finite or out-of-range actions, or non-finite rewards")
+    torch.cuda.synchronize()
+    mpc_dt = time.perf_counter() - t0
+    mpc_counts = kcounts()
+    take_widths(name)
+    plan, n_roll = mpc.plan_model, batch * cfg.n_samples
+    if (str(plan.device), ("rows_graph", n_roll, float(plan.timestep))) not in plan.__dict__.get("_derived", {}):
+        fail(f"the {name} planning rollouts built no contact rows graph at B={n_roll}, dt={plan.timestep}")
+    pleaves = forward.runtime_leaves(plan, n_roll)
+    hold_rows_graph(f"{name} planning", plan,
+                    [(forward.forward_plain(plan, st.physics.qpos[:n_roll], st.physics.qvel[:n_roll], *pleaves)[0],
+                      st.physics.qvel[:n_roll]) for st in held_states], plan.timestep)
+    solves = batch * ticks / mpc_dt
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{tag} {name} MPC solves/s (B={batch}, H={cfg.horizon}, K={cfg.n_samples}, MPPI only, unfused; "
+          f"ticks 1-{ticks}, host clock): {solves:.2f}; mean executed reward {float(rew.mean()):.4f}; peak "
+          f"device memory {peak_gb:.2f} GB")
+    _, wall_ms, dev_ms, top, port = profile_once(tag, f"one {name} MPC tick", lambda: tick(mstates, ms), 8,
+                                                 kernels_only=True)
+    results.update({f"{key}_mpc_solves_per_s": solves, f"{key}_mpc_launches": mpc_counts,
+                    f"{key}_mpc_peak_gb": peak_gb, f"{key}_mpc_profile_wall_ms": wall_ms,
+                    f"{key}_mpc_profile_device_ms": dev_ms, f"{key}_mpc_profile_top": top,
+                    f"{key}_mpc_profile_port": port})
+    for k, r in world_k.items():
+        print(f"{tag} {name} {k}: {r['ms']:.4f} ms/launch at B={B} ({r['dev_ms']:.4f} ms device), plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    phase_done(f"{name} MPC at full width")
+    return mpc_counts
+
+
 def pickplace_slice(tag, results):
     """Phases 23-27, Sawyer + PickPlaceCan with the JOINT_POSITION arm, on
     the unfused path (K1, the plain narrowphase over 606 pairs and the row
@@ -1482,14 +1862,12 @@ def pickplace_slice(tag, results):
 
     import robosuite_tpu_torch as R
     from robosuite_tpu_torch import ab_kernels
-    from robosuite_tpu_torch.mpc import receding
-    from robosuite_tpu_torch.ops import build, contact_solve, forward, substep
+    from robosuite_tpu_torch.ops import build, forward, substep
     from robosuite_tpu_torch.physics import contact as C
-    from robosuite_tpu_torch.physics import engine
 
     # ---- 23. the world, the fused gate, K1 at its widths
     env = R.make("PickPlaceCan", robots="Sawyer", controller_configs="JOINT_POSITION", reward_shaping=True)
-    model, robot = env.model, env.robots[0]
+    model = env.model
     nrows = sum(len(r) for r in C.contact_row_layout(model).values())
     groups = {f"{S_NAMES[a]}-{S_NAMES[b]}": len(v) for (a, b), v in sorted(C.pair_groups(model).items())}
     print(f"PickPlaceCan world: nq={model.nq} nv={model.nv} nbody={model.nbody} ngeom={model.ngeom} "
@@ -1518,18 +1896,7 @@ def pickplace_slice(tag, results):
     states, obs = env.reset_batch(B, gen)
     if not all(torch.isfinite(v.float()).all() for v in obs.values()):
         fail("PickPlaceCan reset: non-finite observations")
-    flops = op_counts(model, C.ROW_CAP)
-    k1_err, k1_rows = 0.0, results.setdefault("k1_widths", [])
-    for n in (B, PICK_B):
-        q, qd = states.physics.qpos[:n], states.physics.qvel[:n]
-        k1_err = max(k1_err, hold_k1(f"PickPlaceCan K1 (B={n})", model, q, qd))
-        k1_rows.append(dict(world="PickPlaceCan", **time_width(
-            tag, "K1 PickPlaceCan", lambda: forward.forward_products(model, q, qd),
-            lambda: forward.forward_plain(model, q, qd, *forward.model_leaves(model, n)), 20, k1_bytes(model, n),
-            flops["K1"], n)))
-    k1 = k1_rows[-2]
-    pick_k["K1"] = dict(max_abs_err=k1_err, ms=k1["ms"], dev_ms=k1["dev_ms"], plain_ms=k1["plain_ms"],
-                        bound=(k1["bound_ms"], k1["bound_by"]))
+    unfused_k1(tag, "PickPlaceCan", model, states, (B, PICK_B), pick_k, results)
     phase_done("PickPlaceCan world, gate, K1")
 
     # ---- 24. the contact state: the pads closed on the can, the objects in bin 1
@@ -1553,163 +1920,120 @@ def pickplace_slice(tag, results):
     phase_done("PickPlaceCan contact state")
 
     # ---- 25. K2 at nv 33 and 96 compacted slots, on the plain path's operands
-    ctrl = robot.run_controllers(kin, M, bias, q, qd, s.ctrl, torch.zeros(B, model.nu, device="cuda"))
-    qfrc, extra = engine.total_smooth_force(model, q, qd, ctrl, M, bias)
-    JfT, aref, reg3, mu, act = C.solver_inputs(model, kin, con, qd, model.timestep)
-    if JfT.shape != (B, model.nv, 3 * C.ROW_CAP):
-        fail(f"PickPlaceCan solver operands {tuple(JfT.shape)}, not ({B}, {model.nv}, {3 * C.ROW_CAP})")
-    kin0 = forward.forward_plain(model, states.physics.qpos, states.physics.qvel, *leaves)[0]
-    hold_rows_graph("PickPlaceCan", model, [(kin0, states.physics.qvel), (kin, qd)], model.timestep)
-    args = (M.contiguous(), JfT, aref.contiguous(), qfrc.contiguous(), qd.contiguous(),
-            (model.dof_damping + extra).contiguous(), reg3.contiguous(), mu, act.contiguous())
-    nact = float(act.sum(1).float().mean())
-    flops = op_counts(model, C.ROW_CAP, nact)
-    solve_args = (C.APGD_ITERS, C.POWER_ITERS, model.timestep)
-    qv_k, f_k = contact_solve.vel_update(*args, *solve_args)
-    qv_p, f_p = contact_solve.vel_update_plain(*args, *solve_args)
-    torch.cuda.synchronize()
-    # qvel relative to max(1, its largest): the can weighs 14 g (the hull at
-    # its card's density), so f's float32 rounding moves its velocity most
-    v_scale = max(1.0, float(qv_p.abs().max()))
-    print(f"PickPlaceCan K2: qvel max_abs_err {max_err(qv_k, qv_p):.3e}, largest |qvel| {v_scale:.3f}")
-    check("PickPlaceCan K2 qvel (relative to max(1, |qvel|))", max_err(qv_k, qv_p) / v_scale, 1e-4)
-    check("PickPlaceCan K2 f (relative)", max_err(f_k, f_p) / max(1.0, float(f_p.abs().max())), 1e-4)
-    pick_k["K2"] = dict(max_abs_err=max(max_err(qv_k, qv_p), max_err(f_k, f_p)),
-                        ms=cuda_ms(lambda: contact_solve.vel_update(*args, *solve_args), 20),
-                        dev_ms=device_ms(lambda: contact_solve.vel_update(*args, *solve_args), 20),
-                        plain_ms=cuda_ms(lambda: contact_solve.vel_update_plain(*args, *solve_args), 3),
-                        bound=bound(nbytes(*args, qv_k, f_k), flops["K2"], B))
-    phase_done("PickPlaceCan K2 vs plain")
+    unfused_k2("PickPlaceCan", env, states, s, kin, M, bias, con, C.ROW_CAP, pick_k)
 
     # ---- 26. the step slice: reset_batch + 10 step_batch policy steps, unfused
-    actions = torch.clamp(0.3 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
-    zero_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    states, obs0 = env.reset_batch(B, gen)
-    trail, rewards, dones, obs_all = [states], [], [], []
-    for _ in range(STEPS):
-        states, obs, r, done, _ = env.step_batch(states, actions)
-        trail.append(states)
-        rewards.append(r)
-        dones.append(done)
-        obs_all.append(obs)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = kcounts()
-    take_widths("PickPlaceCan")
-    print(f"PickPlaceCan main path launches over reset + {STEPS} step_batch policy steps: {counts}")
-    # a step: K1 for its goals, one per substep, one for its observations; K2 one per substep
-    if counts != {"K1": 1 + (env.n_substeps + 2) * STEPS, "K2": env.n_substeps * STEPS, "K3": 0, "K3-aux": 0,
-                  "K4": 0}:
-        fail(f"unexpected PickPlaceCan launch counts {counts}")
-    rew = torch.stack(rewards)
-    if not (all(torch.isfinite(v.float()).all() for o in obs_all for v in o.values()) and torch.isfinite(rew).all()):
-        fail("non-finite observations or rewards on the PickPlaceCan path")
-    if any(bool(d.any()) for d in dones) or set(obs_all[-1]) != set(obs0) - {"placement_valid"}:
-        fail("PickPlaceCan step_batch: done before the horizon, or observation keys other than the reset's")
-    if any(bool(o["robot0_eef_force"].any()) for o in obs_all):
-        fail("PickPlaceCan step_batch: an eef force on a world that compacts its rows (the JAX package's is 0)")
-    print(f"{tag} PickPlaceCan env policy-steps/s (B={B}, reset + {STEPS} step_batch steps, host clock): "
-          f"{B * STEPS / dt:.1f}; rewards mean {float(rew.mean()):.4f} max {float(rew.max()):.4f}")
-    _, wall_ms, dev_ms, top, port = profile_once(tag, "one PickPlaceCan step_batch policy step",
-                                                 lambda: env.step_batch(states, actions), 8)
-    results.update(pick_policy_steps_per_s=B * STEPS / dt, pick_launches=counts, pick_profile_wall_ms=wall_ms,
-                   pick_profile_device_ms=dev_ms, pick_profile_top=top, pick_profile_port=port)
-    # each policy step substep by substep: its K1 and K2 launches against their
-    # plain versions on the same operands, and the kernel substep against the
-    # plain one (forward_plain + vel_update_plain) from the same input under
-    # hold_all's rule, then on from the kernel's output, whose last substep is
-    # step_batch's next state bit for bit
-    worst, worst_r, k_err = 0.0, 0.0, {"K1 poses": 0.0, "K1 M": 0.0, "K1 bias": 0.0, "K2 qvel": 0.0, "K2 f": 0.0}
-    for i in range(STEPS):
-        st = trail[i]
-        kin, M, bias = engine.forward_products(model, st.physics.qpos, st.physics.qvel)
-        ctrl_i = robot.set_goals(kin, M, bias, st.physics.qpos, st.physics.qvel, st.ctrl, actions)
-        ph = st.physics
-        for j in range(env.n_substeps):
-            pk, fk_ = held_unfused_substep(env, model, ctrl_i, ph, k_err)
-            pp, fp_ = plain_unfused_substep(env, model, ctrl_i, ph)
-            worst = max(worst, hold_all(f"PickPlaceCan step {i + 1} substep {j + 1}", model, ph.qpos,
-                                        (pk.qpos, pk.qvel, fk_), (pp.qpos, pp.qvel, fp_), quiet=True))
-            ph = pk
-        nxt = trail[i + 1]
-        if not (torch.equal(ph.qpos, nxt.physics.qpos) and torch.equal(ph.qvel, nxt.physics.qvel)):
-            fail(f"PickPlaceCan policy step {i + 1}: step_batch differs from its substep-by-substep kernel run")
-        kin_p = forward.forward_plain(model, ph.qpos, ph.qvel, *leaves)[0]
-        worst_r = max(worst_r, max_err(rewards[i], env.reward(nxt.physics, kin_p)))
-    torch.cuda.synchronize()
-    print(f"PickPlaceCan {STEPS} policy steps x {env.n_substeps} substeps, kernel vs plain from the same input: "
-          f"largest qpos / qvel error held {worst:.3e}")
-    for name, tol in (("K1 poses", 2e-5), ("K1 M", 1e-5), ("K1 bias", 1e-4), ("K2 qvel", 1e-4), ("K2 f", 1e-4)):
-        check(f"PickPlaceCan {STEPS} policy steps: every {name[:2]} launch against its plain version on its own "
-              f"operands, {name[3:]}{' (relative)' if name != 'K1 poses' else ''}", k_err[name], tol)
-    check(f"PickPlaceCan {STEPS} policy steps: reward (K1 vs plain poses of the same state)", worst_r, 1e-4)
-    phase_done("PickPlaceCan step slice (reset + step_batch steps, profile, kernel vs plain)")
+    counts, states = unfused_step_slice(tag, "PickPlaceCan", env, gen, results, "pick")
 
     # ---- 27. the MPC at tools/bench_configs.py's width: B=32, H=128, K=16, MPPI only
-    cfg = receding.MPCConfig(**PICK_MPC)
-    mpc = receding.RecedingMPC(env, cfg)
-    solve = mpc.make_solve_batch()
-    gm = torch.Generator(device="cuda").manual_seed(SEED + 41)
-    mstates, _ = env.reset_batch(PICK_B, gm)
-    ms = mpc.init_state(PICK_B, torch.Generator(device="cuda").manual_seed(SEED + 42))
+    mpc_counts = unfused_mpc(tag, "PickPlaceCan", env, PICK_MPC, PICK_B, PICK_TICKS,
+                             torch.Generator(device="cuda").manual_seed(SEED + 41),
+                             torch.Generator(device="cuda").manual_seed(SEED + 42), results, "pick", (states, s),
+                             pick_k)
+    return counts, mpc_counts
 
-    def tick(states_, ms_):
-        acts, ms2, met = solve(states_, ms_)
-        states2, rewards_ = env.rollout_batch(states_, acts)
-        return states2, ms2, met, acts, rewards_
 
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    mstates, ms, met, acts, rew = tick(mstates, ms)
-    torch.cuda.synchronize()
-    print(f"{tag} PickPlaceCan MPC warm-up tick s: {time.perf_counter() - t0:.3f}")
-    zero_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    H, n_plan = cfg.horizon, mpc.plan_substeps
-    # the unfused planning rollouts: K1 at the start, then per planned step one
-    # per substep and one for the step's end; the executed step as above
-    want = {"K1": 1 + H * (n_plan + 1) + env.n_substeps + 2, "K2": H * n_plan + env.n_substeps, "K3": 0,
-            "K3-aux": 0, "K4": 0}
-    for i in range(PICK_TICKS):
-        before = kcounts()
-        mstates, ms, met, acts, rew = tick(mstates, ms)
-        after = kcounts()
-        got = {k: after[k] - before[k] for k in after}
-        print(f"PickPlaceCan MPC tick {i + 1} launches: {got}")
-        if got != want:
-            fail(f"PickPlaceCan MPC tick {i + 1}: launches {got}, the config implies {want}")
-        if not (torch.isfinite(acts).all() and acts.abs().max() <= 1.0 and torch.isfinite(rew).all()):
-            fail(f"PickPlaceCan MPC tick {i + 1}: non-finite or out-of-range actions, or non-finite rewards")
-    torch.cuda.synchronize()
-    mpc_dt = time.perf_counter() - t0
-    mpc_counts = kcounts()
-    take_widths("PickPlaceCan")
-    # the planning rollouts' rows graph (batch B K, the planning dt), held
-    # at the reset and the contact state after the ticks replayed it
-    plan, n_roll = mpc.plan_model, PICK_B * cfg.n_samples
-    if (str(plan.device), ("rows_graph", n_roll, float(plan.timestep))) not in plan.__dict__.get("_derived", {}):
-        fail(f"the PickPlaceCan planning rollouts built no contact rows graph at B={n_roll}, dt={plan.timestep}")
-    pleaves = forward.runtime_leaves(plan, n_roll)
-    hold_rows_graph("PickPlaceCan planning", plan,
-                    [(forward.forward_plain(plan, st.physics.qpos[:n_roll], st.physics.qvel[:n_roll], *pleaves)[0],
-                      st.physics.qvel[:n_roll]) for st in (states, s)], plan.timestep)
-    solves = PICK_B * PICK_TICKS / mpc_dt
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"{tag} PickPlaceCan MPC solves/s (B={PICK_B}, H={cfg.horizon}, K={cfg.n_samples}, MPPI only, unfused; "
-          f"ticks 1-{PICK_TICKS}, host clock): {solves:.2f}; mean executed reward {float(rew.mean()):.4f}; peak "
-          f"device memory {peak_gb:.2f} GB")
-    _, wall_ms, dev_ms, top, port = profile_once(tag, "one PickPlaceCan MPC tick", lambda: tick(mstates, ms), 8,
-                                                 kernels_only=True)
-    results.update(pick_mpc_solves_per_s=solves, pick_mpc_launches=mpc_counts, pick_mpc_peak_gb=peak_gb,
-                   pick_mpc_profile_wall_ms=wall_ms, pick_mpc_profile_device_ms=dev_ms, pick_mpc_profile_top=top,
-                   pick_mpc_profile_port=port)
-    for k, r in pick_k.items():
-        print(f"{tag} PickPlaceCan {k}: {r['ms']:.4f} ms/launch at B={B} ({r['dev_ms']:.4f} ms device), plain "
-              f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
-    phase_done("PickPlaceCan MPC at full width")
+# tools/bench_configs.py:28,44-51: the two-arm workload (MPPI only, H=64; unfused)
+TWOARM_MPC = dict(horizon=64, n_samples=16, noise_sigma=0.4, temperature=0.2, n_knots=8, n_ilqr_iters=0,
+                  plan_timestep=0.025)
+TWOARM_B, TWOARM_TICKS = 32, 3
+# each two-arm world ("opposed"): (nq, nv, nbody, ngeom, nsite, nu, npair,
+# candidate rows), the function of ab_kernels that makes its contact
+# state, the first phase's number
+TWOARM = {"TwoArmLift": ((25, 24, 47, 170, 19, 18, 170, 620), "twoarm_lift_contact_state", 28),
+          "TwoArmPegInHole": ((14, 14, 40, 136, 19, 14, 39, 117), "peg_contact_state", 33)}
+
+
+def twoarm_slice(tag, results, name):
+    """Phases 28-32 (TwoArmLift) or 33-37 (TwoArmPegInHole), two Pandas
+    with OSC_POSE, "opposed", on the unfused path (K1, the contact rows as
+    a CUDA graph, K2; no K3: the fused gate refuses two robots, as the JAX
+    package's does). -> the launch counts of the env step (reset + STEPS
+    step_batch policy steps) and of the MPC ticks."""
+    import torch
+
+    import robosuite_tpu_torch as R
+    from robosuite_tpu_torch import ab_kernels
+    from robosuite_tpu_torch.ops import build, forward, substep
+    from robosuite_tpu_torch.physics import contact as C
+
+    sizes, state_fn, ph = TWOARM[name]
+    # ---- 28 / 33. the world, the fused gate, K1 at its widths
+    env = R.make(name, robots=("Panda", "Panda"), env_configuration="opposed", reward_shaping=True)
+    model = env.model
+    nrows = sum(len(r) for r in C.contact_row_layout(model).values())
+    compacts = C.uses_row_compaction(model)
+    K = min(C.ROW_CAP, nrows) if compacts else nrows
+    groups = {f"{S_NAMES[a]}-{S_NAMES[b]}": len(v) for (a, b), v in sorted(C.pair_groups(model).items())}
+    got = (model.nq, model.nv, model.nbody, model.ngeom, model.nsite, model.nu, model.npair, nrows)
+    print(f"{name} world (opposed): nq={got[0]} nv={got[1]} nbody={got[2]} ngeom={got[3]} nsite={got[4]} "
+          f"nu={got[5]} npair={got[6]} candidate points (rows)={nrows}, "
+          f"{f'compacted into {K} slots' if compacts else 'static rows'}; pairs by type {groups}; "
+          f"action_dim {env.action_dim}")
+    if got != sizes:
+        fail(f"the {name} world is {got}, not {sizes} (nq, nv, nbody, ngeom, nsite, nu, npair, rows)")
+    try:
+        substep.extract_spec(env, model)
+        fail(f"the fused substep's gate takes {name}")
+    except substep.UnsupportedFused as e:
+        print(f"{name} fused gate: UnsupportedFused({e})")
+        if "one fixed-base robot" not in str(e):
+            fail(f"the fused gate does not refuse {name} for its two robots")
+    if env._fused_for(model) is not None:
+        fail(f"the {name} env has a fused substep")
+    lib = build.library()
+    k1_smem = lib.rs_forward_smem_bytes(forward.model_tables(model)[1].data_ptr())
+    k2_smem = lib.rs_contact_solve_smem_bytes(model.nv, K)
+    print(f"{name} shared memory a block: K1 {k1_smem} B (4 scenarios), K2 {k2_smem} B (2 scenarios at nv "
+          f"{model.nv}, {K} rows)")
+    results["smem_bytes"].update({f"K1 {name} block": k1_smem, f"K2 {name} block": k2_smem})
+    world_k = results.setdefault("twoarm_kernels", {}).setdefault(name, {})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + ph)
+    states, obs = env.reset_batch(B, gen)
+    if not all(torch.isfinite(v.float()).all() for v in obs.values()):
+        fail(f"{name} reset: non-finite observations")
+    unfused_k1(tag, name, model, states, (B, TWOARM_B, 1), world_k, results)
+    phase_done(f"{name} world, gate, K1")
+
+    # ---- 29 / 34. the contact state: a grasp of both handles; the peg in the hole's mouth
+    s = getattr(ab_kernels, state_fn)(env, states)
+    q, qd = s.physics.qpos, s.physics.qvel
+    if not (torch.isfinite(q).all() and torch.isfinite(qd).all()):
+        fail(f"the {name} contact state is not finite")
+    leaves = forward.runtime_leaves(model, B)
+    kin, M, bias = forward.forward_plain(model, q, qd, *leaves)
+    con = C.narrowphase(model, kin)
+    n_act = (con["dist"] < con["margin"]).sum(1)
+    print(f"{name} contact state: active rows per scenario min {int(n_act.min())} median {int(n_act.median())} "
+          f"max {int(n_act.max())} (of {nrows}); the {K}-slot cap drops rows in {int((n_act > K).sum())}/{B}")
+    if name == "TwoArmLift":
+        grasps = [env.check_grasp(kin, *pairs) for pairs in env._grasp_pairs]
+        both = int((grasps[0] & grasps[1]).sum())
+        rich = int((n_act >= 4).sum())
+        print(f"{name} contact state: both grippers grasp their handles in {both}/{B}; >= 4 active rows in "
+              f"{rich}/{B}")
+        if 2 * both < B or 2 * rich < B:
+            fail(f"the {name} contact state is too poor: both grasps in {both}/{B}, >= 4 active rows in {rich}/{B}")
+    else:
+        touch = int((n_act >= 1).sum())
+        cos = env._peg_alignment(kin)[2]
+        print(f"{name} contact state: the peg's tip on the hole's side in {touch}/{B}; |cos| of the peg's axis "
+              f"with the hole's normal median {float(cos.abs().median()):.4f}")
+        if 4 * touch < 3 * B:
+            fail(f"the {name} contact state is too poor: an active row in {touch}/{B}")
+    phase_done(f"{name} contact state")
+
+    # ---- 30 / 35. K2 at the world's width, on the plain path's operands; the rows' graph
+    unfused_k2(name, env, states, s, kin, M, bias, con, K, world_k)
+
+    # ---- 31 / 36. the step slice: reset_batch + 10 step_batch policy steps, unfused
+    counts, states = unfused_step_slice(tag, name, env, gen, results, name.lower())
+
+    # ---- 32 / 37. the MPC at tools/bench_configs.py's width: B=32, H=64, K=16, MPPI only
+    mpc_counts = unfused_mpc(tag, name, env, TWOARM_MPC, TWOARM_B, TWOARM_TICKS,
+                             torch.Generator(device="cuda").manual_seed(SEED + ph + 1),
+                             torch.Generator(device="cuda").manual_seed(SEED + ph + 2), results, name.lower(),
+                             (states, s), world_k)
     return counts, mpc_counts
 
 
@@ -2165,13 +2489,14 @@ def main():
     stack_counts, stack_mpc_counts, stack_counts_u = stack_slice(tag, results)
     door_counts, door_counts_u, door_mpc_counts = door_slice(tag, results)
     pick_counts, pick_mpc_counts = pickplace_slice(tag, results)
+    twoarm = {name: twoarm_slice(tag, results, name) for name in TWOARM}
 
     # ---- report ------------------------------------------------------------------
     # launches on each path, counted from zero just before it: Lift's env step
     # and MPC ticks run K3 / K3-aux with the OSC law, Stack's with JOINT_POSITION
     osc = (counts, sb_counts, mpc_counts, door_counts, door_mpc_counts)  # K3 / K3-aux with the OSC law
     every = osc + (counts_u, door_counts_u, stack_counts, stack_counts_u, stack_mpc_counts, pick_counts,
-                   pick_mpc_counts)
+                   pick_mpc_counts) + sum(twoarm.values(), ())
     paths = {"K1": every, "K2": every, "K3": osc, "K3-aux": osc, "K4": every}
     launches = {k: sum(c.get(k, 0) for c in cs) for k, cs in paths.items()}
     launches["K3-JP"] = stack_counts["K3"] + stack_mpc_counts["K3"]
@@ -2193,7 +2518,15 @@ def main():
           f"one unfused step {stack_counts_u}, MPC ticks 1-{STACK_TICKS} {stack_mpc_counts}; over Door reset + "
           f"{STEPS} step_batch steps {door_counts}, one unfused step {door_counts_u}, MPC ticks 1-{DOOR_TICKS} "
           f"{door_mpc_counts}; over PickPlaceCan reset + {STEPS} step_batch steps {pick_counts}, MPC ticks "
-          f"1-{PICK_TICKS} {pick_mpc_counts}")
+          f"1-{PICK_TICKS} {pick_mpc_counts}; " + "; ".join(
+              f"over {n} reset + {STEPS} step_batch steps {c}, MPC ticks 1-{TWOARM_TICKS} {m}"
+              for n, (c, m) in twoarm.items()))
+    by_label = {}
+    for a in ASIDE:
+        by_label[a.split()[0]] = by_label.get(a.split()[0], 0) + 1
+    print(f"(substep, scenario) cases set aside on a float64 near-tie witness over every hold: {len(ASIDE)} "
+          f"(by the holds' first word: {by_label})")
+    results["set_aside"] = len(ASIDE)
     # K1 and K4 at each width: the launches there over every path (each
     # counted from zero), beside the times of phases 4, 8, 10 and 12
     by_width = {}

@@ -2,12 +2,14 @@
 
 `make("Lift", robots="Panda", reward_shaping=True)` (or `make("Stack",
 robots="Panda", controller_configs="JOINT_POSITION")`, `make("Door",
-robots="Panda", reward_shaping=True, seed=0)` or `make("PickPlaceCan",
-robots="Sawyer", controller_configs="JOINT_POSITION")`) builds a batched
+robots="Panda", reward_shaping=True, seed=0)`, `make("PickPlaceCan",
+robots="Sawyer", controller_configs="JOINT_POSITION")` or
+`make("TwoArmLift", robots=("Panda", "Panda"))` and `make("TwoArmPegInHole",
+robots=("Panda", "Panda"))`) builds a batched
 env on the GPU (pass device="cpu" for the plain PyTorch path on the CPU);
 its hot loop runs hand-written CUDA kernels (csrc/) built with nvcc at
 first use.
 """
 
-from robosuite_tpu_torch.envs import door, lift, pick_place, stack  # noqa: F401  (registers the envs)
+from robosuite_tpu_torch.envs import door, lift, pick_place, stack, two_arm  # noqa: F401  (registers the envs)
 from robosuite_tpu_torch.envs.base import REGISTERED_ENVS, make  # noqa: F401

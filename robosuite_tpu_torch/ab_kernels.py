@@ -26,7 +26,10 @@ after a reset and four policy steps; K2, K3 (OSC) at B=512 and K3-aux
 at B*K=512 on Door's planning model (dt 25 ms, 10 solver iterations) at
 chip_smoke.py's Door contact state (the gripper driven onto the handle,
 the hinge past its limits and the latch near its stops in some
-scenarios), where the tree has the Door env; and, where the tree reports
+scenarios), where the tree has the Door env; K1 at 512 and 32 and K2 at
+512 on each unfused world the tree has (UNFUSED: PickPlaceCan, TwoArmLift,
+TwoArmPegInHole) at its contact state (pickplace_contact_state,
+twoarm_lift_contact_state, peg_contact_state); and, where the tree reports
 it, each K3 variant's resident scenarios per SM. K2's operands are the plain
 path's at each state. Each case is timed two ways after a warm-up: by CUDA
 events around its calls (`<case>_ms_B<n>`, which includes any wait for the
@@ -95,7 +98,10 @@ def _k2_args(env, s, leaves, torch):
     model, B = env.model, s.physics.qpos.shape[0]
     q, qd = s.physics.qpos, s.physics.qvel
     kin, M, bias = forward.forward_plain(model, q, qd, *leaves)
-    ctrl = env.robots[0].run_controllers(kin, M, bias, q, qd, s.ctrl, torch.zeros(B, model.nu, device="cuda"))
+    if len(env.robots) > 1:
+        ctrl = env.run_controllers(kin, M, bias, q, qd, s.ctrl)
+    else:  # an env of a tree before the two-arm worlds has no run_controllers of its own
+        ctrl = env.robots[0].run_controllers(kin, M, bias, q, qd, s.ctrl, torch.zeros(B, model.nu, device="cuda"))
     qfrc, extra = engine.total_smooth_force(model, q, qd, ctrl, M, bias)
     JfT, aref, reg3, mu, act = C.solver_inputs(model, kin, C.narrowphase(model, kin), qd, model.timestep)
     return tuple(t.contiguous() for t in (M, JfT, aref, qfrc, qd, model.dof_damping + extra, reg3, mu, act)) + (
@@ -159,19 +165,22 @@ PICK_GRASP_DZ = 0.015  # the grip site this far above the can's origin: the pads
 PICK_CLOSE_STEPS = 3
 
 
-def pickplace_ik(env, s, target, iters=40, lam=0.05):
-    """Arm joint positions (B, na) that put the grip site at `target`
-    (B, 3) with its orientation at s unchanged: damped least squares on
-    the plain forward kinematics, the Jacobian by forward differences."""
+def site_ik(env, s, target, robot_idx=0, site=None, target_rot=None, iters=40, lam=0.05):
+    """Joint positions (B, na) of robot `robot_idx`'s arm that put `site`
+    (its eef site by default) at `target` (B, 3) with its orientation at
+    `target_rot` (B, 3, 3; by default its orientation at s): damped least
+    squares on the plain forward kinematics, the Jacobian by forward
+    differences."""
     import torch
 
     from robosuite_tpu_torch.physics import kinematics
 
-    m, robot = env.model, env.robots[0]
-    site, qi = env.eef_site, torch.as_tensor(robot.arm_qpos_idx["right"], device=s.physics.qpos.device)
+    m, robot = env.model, env.robots[robot_idx]
+    site = robot.eef_site_id["right"] if site is None else site
+    qi = torch.as_tensor(robot.arm_qpos_idx["right"], device=s.physics.qpos.device)
     q = s.physics.qpos.clone()
     B, na = q.shape[0], len(qi)
-    R0 = kinematics.fk(m, q).site_xmat[:, site]
+    R0 = kinematics.fk(m, q).site_xmat[:, site] if target_rot is None else target_rot
     eps = 1e-3
 
     for _ in range(iters):
@@ -186,6 +195,12 @@ def pickplace_ik(env, s, target, iters=40, lam=0.05):
         dq = (J.transpose(1, 2) @ torch.linalg.solve(JJt, e[:, 0, :, None]))[..., 0]
         q[:, qi] += torch.clamp(dq, -0.2, 0.2)
     return q[:, qi]
+
+
+def pickplace_ik(env, s, target, iters=40, lam=0.05):
+    """The Sawyer's arm joint positions (B, na) that put the grip site at
+    `target` (B, 3) with its orientation at s unchanged (site_ik)."""
+    return site_ik(env, s, target, site=env.eef_site, iters=iters, lam=lam)
 
 
 def pickplace_contact_state(env, s):
@@ -212,6 +227,80 @@ def pickplace_contact_state(env, s):
     return s
 
 
+TWOARM_CLOSE_STEPS = 4
+
+
+def twoarm_lift_contact_state(env, s):
+    """The contact-rich TwoArmLift state that chip_smoke.py holds the
+    kernels on: the pot where the reset put it, each robot's arm moved
+    (site_ik, its orientation kept) so that its open gripper's grip site
+    sits at its handle's crossbar, then TWOARM_CLOSE_STEPS policy steps of
+    zero arm deltas and both grippers closing on the bars."""
+    import torch
+
+    from robosuite_tpu_torch.physics import kinematics
+
+    q = s.physics.qpos.clone()
+    kin = kinematics.fk(env.model, q)
+    for i, robot in enumerate(env.robots):
+        target = kin.site_xpos[:, env.handle_site_ids[i]]
+        q[:, torch.as_tensor(robot.arm_qpos_idx["right"], device=q.device)] = site_ik(env, s, target, robot_idx=i)
+    s = env.state_from_flattened(torch.cat([s.physics.time[:, None], q, torch.zeros_like(s.physics.qvel)], 1).cpu())
+    a = torch.zeros(q.shape[0], env.action_dim, device=q.device)
+    for r in env._split_robot_actions(a):
+        r[:, -1] = 1.0
+    for _ in range(TWOARM_CLOSE_STEPS):
+        s, _ = env.rollout_batch(s, a)
+    return s
+
+
+# the peg's tip (the end of its axis, which the narrowphase tests as a
+# capsule's end) in the hole's mouth: in the plate's plane, off the middle
+# of the square between the plate's four boxes (plate frame (0.11, 0, 0),
+# 0.1 wide) by PEG_SIDE along the plate's y (and x), so that the tip
+# presses 1 mm into a side box (two of them)
+PEG_SIDE = 0.05 - 0.015 + 0.001
+
+
+def peg_contact_state(env, s):
+    """The contact-rich TwoArmPegInHole state that chip_smoke.py holds the
+    kernels on: robot0's arm moved (site_ik on the peg's centre site) so
+    that the peg's tip stands in the hole's mouth, its axis along the
+    hole's normal (from the side of the plate it faces at the reset),
+    pressed against a side of the hole (+y, -y in scenarios 0 and 1 of
+    every 4) or into a corner (+x +y, -x -y in scenarios 2 and 3); robot1
+    as the reset put it; at rest."""
+    import torch
+
+    from robosuite_tpu_torch.physics import kinematics
+
+    m = env.model
+    q = s.physics.qpos.clone()
+    kin = kinematics.fk(m, q)
+    hole_pos, hole_mat = kin.xpos[:, env.plate_body_id], kin.xmat[:, env.plate_body_id]
+    site = m.site_name2id("peg_center")
+    R0 = kin.site_xmat[:, site]
+    z = R0[..., 2]
+    n = hole_mat[..., 2] * torch.sign((z * hole_mat[..., 2]).sum(-1))[:, None]  # the side the peg faces
+    b = torch.arange(q.shape[0], device=q.device) % 4
+    dx = torch.where(b == 2, PEG_SIDE, torch.where(b == 3, -PEG_SIDE, 0.0))
+    dy = torch.where((b == 0) | (b == 2), PEG_SIDE, -PEG_SIDE)
+    target = (hole_pos + (0.11 + dx)[:, None] * hole_mat[..., 0] + dy[:, None] * hole_mat[..., 1]
+              - env.peg_length * n)
+    # the peg's frame turned by the least rotation that takes its axis to n
+    axis = torch.linalg.cross(z, n)
+    sin, cos = torch.linalg.vector_norm(axis, dim=-1), (z * n).sum(-1)
+    k = axis / torch.clamp_min(sin, 1e-9)[:, None]
+    K = torch.zeros_like(R0)
+    K[:, 0, 1], K[:, 0, 2], K[:, 1, 2] = -k[:, 2], k[:, 1], -k[:, 0]
+    K = K - K.transpose(1, 2)
+    eye = torch.eye(3, dtype=q.dtype, device=q.device)
+    rot = eye + sin[:, None, None] * K + (1.0 - cos)[:, None, None] * (K @ K)
+    qi = torch.as_tensor(env.robots[0].arm_qpos_idx["right"], device=q.device)
+    q[:, qi] = site_ik(env, s, target, robot_idx=0, site=site, target_rot=rot @ R0, iters=80)
+    return env.state_from_flattened(torch.cat([s.physics.time[:, None], q, torch.zeros_like(s.physics.qvel)], 1).cpu())
+
+
 def _door(R, torch, B):
     """(Door env, its door_contact_state), or None where the tree has no
     Door env."""
@@ -222,10 +311,29 @@ def _door(R, torch, B):
     return env, door_contact_state(env, s)
 
 
+# the unfused worlds whose K1 and K2 the A/B times where the tree has them:
+# (env name, make's keywords, the contact state's function name in this module)
+UNFUSED = (("PickPlaceCan", dict(robots="Sawyer", controller_configs="JOINT_POSITION"), "pickplace_contact_state"),
+           ("TwoArmLift", dict(robots=("Panda", "Panda")), "twoarm_lift_contact_state"),
+           ("TwoArmPegInHole", dict(robots=("Panda", "Panda")), "peg_contact_state"))
+
+
+def _unfused(R, torch, B):
+    """{env name: (env, its contact state)} of the UNFUSED worlds the tree
+    has."""
+    out = {}
+    for i, (name, kw, state_fn) in enumerate(UNFUSED):
+        if name in R.REGISTERED_ENVS:
+            env = R.make(name, reward_shaping=True, **kw)
+            s, _ = env.reset_batch(B, torch.Generator(device="cuda").manual_seed(40 + i))
+            out[name] = (env, globals()[state_fn](env, s))
+    return out
+
+
 def _states(R, engine, torch, B=512):
     """(Lift env, its contact-rich states; Stack env, its states after a
     reset and four policy steps; Door env and its contact-rich states, or
-    None), B scenarios each."""
+    None; the unfused worlds' envs and contact states), B scenarios each."""
     env = R.make("Lift", robots="Panda", reward_shaping=True, seed=0)
     s, _ = env.reset_batch(B, torch.Generator(device="cuda").manual_seed(0))
     for i in range(16):  # chip_smoke.py's contact-rich Lift state
@@ -241,7 +349,7 @@ def _states(R, engine, torch, B=512):
     a = torch.clamp(0.5 * torch.randn(B, senv.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
     for _ in range(4):
         ss, _ = senv.rollout_batch(ss, a)
-    return env, s, senv, ss, _door(R, torch, B)
+    return env, s, senv, ss, _door(R, torch, B), _unfused(R, torch, B)
 
 
 def _widen(t, n):
@@ -255,7 +363,7 @@ def _k1_k4_cases(R, forward, engine, torch, states):
     the paths call them."""
     from robosuite_tpu_torch.ops import fk
 
-    env, s, senv, ss, _ = states
+    env, s, senv, ss, _, unfused = states
     cases = {}
     for n in K1_WIDTHS:
         args = tuple(_widen(t, n) for t in (s.physics.qpos, s.physics.qvel))
@@ -273,6 +381,10 @@ def _k1_k4_cases(R, forward, engine, torch, states):
         cases[f"K1-random@{n}"] = (lambda q, qd, m=env.model: forward.forward_products(m, q, qd), (qr, qdr), n)
     for n in K4_WIDTHS:
         cases[f"K4@{n}"] = (lambda q, m=env.model: fk.fk_pose(m, q), (q4[:n],), n)
+    for name, (e, st) in unfused.items():  # the env step's width and the executed MPC step's
+        for n in (512, 32):
+            args = tuple(_widen(t, n) for t in (st.physics.qpos, st.physics.qvel))
+            cases[f"K1-{name}@{n}"] = (lambda q, qd, m=e.model: forward.forward_products(m, q, qd), args, n)
     return cases
 
 
@@ -281,7 +393,7 @@ def _k2_k3_cases(forward, torch, states):
     K2, K3 and K3-aux on Door where the tree has it."""
     from robosuite_tpu_torch.ops import contact_solve
 
-    env, s, senv, ss, door = states
+    env, s, senv, ss, door, unfused = states
     cases = {}
     B = s.physics.qpos.shape[0]
     for e, st, tag in ((env, s, ""), (senv, ss, "-Stack")) + ((door + ("-Door",),) if door else ()):
@@ -307,6 +419,9 @@ def _k2_k3_cases(forward, torch, states):
             cases[f"K3-JP@{B}"] = (fused, args, B)
             plan = model.replace(timestep=0.025, solver_iters=10)
             cases[f"K3-aux-JP@{B}"] = (e._fused_for(plan, emit_aux=True), args, B)
+    for name, (e, st) in unfused.items():
+        cases[f"K2-{name}@{B}"] = (contact_solve.vel_update,
+                                   _k2_args(e, st, forward.runtime_leaves(e.model, B), torch), B)
     return cases
 
 

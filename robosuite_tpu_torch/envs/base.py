@@ -14,6 +14,12 @@ gripper's contact wrench from the last substep's solver forces, the
 reward and `done` at the horizon. `rollout_batch` is the planners' lean
 step (no observations). The MPC's planning hooks (`make_plan_return`,
 `make_plan_dynamics`) run the same step on a planning model.
+
+An env may hold several robots (the two-arm envs): each has its own
+controller config, its slice of the action (in robot order) and its
+controller state, and the controllers of all add into one ctrl vector per
+substep. The fused substep takes one single-arm robot; with more the
+substeps run unfused, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -59,18 +65,21 @@ class EnvState:
     """Batched env state: physics + controller + policy-step count."""
 
     physics: State
-    ctrl: RobotCtrlState
+    ctrl: RobotCtrlState  # a tuple of them, in robot order, where the env has several robots
     t: torch.Tensor  # (B,) int
     obs_cache: dict = None  # the Observable pipeline's stale and delayed values, where any stage keeps them
 
 
 def map_state(fn, state):
-    """`fn` applied to every tensor of a nesting of dataclasses and dicts
-    (an EnvState, a KinData); None stays None."""
+    """`fn` applied to every tensor of a nesting of dataclasses, dicts,
+    tuples and lists (an EnvState, its tuple of controller states, a
+    KinData), in a fixed order; None stays None."""
     if isinstance(state, torch.Tensor):
         return fn(state)
     if isinstance(state, dict):
         return {k: map_state(fn, v) for k, v in state.items()}
+    if isinstance(state, (tuple, list)):
+        return type(state)(map_state(fn, v) for v in state)
     if dataclasses.is_dataclass(state):
         return dataclasses.replace(state, **{f.name: map_state(fn, getattr(state, f.name))
                                              for f in dataclasses.fields(state)})
@@ -92,8 +101,6 @@ class RobotEnv:
             device = "cuda"
         self.device = torch.device(device)
         self.robot_names = [robots] if isinstance(robots, str) else list(robots)
-        if len(self.robot_names) != 1:
-            raise NotImplementedError("the port covers single-robot envs")
         self.control_freq = control_freq
         self.horizon = horizon
         self.reward_scale = reward_scale
@@ -106,14 +113,22 @@ class RobotEnv:
         else:
             self.init_noise_mag = float(initialization_noise.get("magnitude", 0.02))
 
-        rm = create_robot(self.robot_names[0], idn=0)
-        rm.add_base(robot_base_factory(rm.default_base, idn=0))
-        for arm in rm.arms:
-            rm.add_gripper(gripper_factory(rm.default_gripper[arm], idn=0, arm=arm), arm)
-        self.robot_models = [rm]
+        # the robot models, each with its base and grippers, named by its
+        # index (the JAX envs/base.py:114-131)
+        self.robot_models = []
+        for i, name in enumerate(self.robot_names):
+            rm = create_robot(name, idn=i)
+            rm.add_base(robot_base_factory(rm.default_base, idn=i))
+            for arm in rm.arms:
+                rm.add_gripper(gripper_factory(rm.default_gripper[arm], idn=i, arm=arm), arm)
+            self.robot_models.append(rm)
         self._load_model()
         self.model = self.task.compile().to(self.device)
-        self.robots = [FixedBaseRobot(self.model, rm, controller_configs)]
+        # one controller config for every robot, or a list of one per robot
+        # (the JAX envs/base.py:137-151)
+        cfgs = controller_configs if isinstance(controller_configs, (list, tuple)) else \
+            [controller_configs] * len(self.robot_models)
+        self.robots = [FixedBaseRobot(self.model, rm, cfg) for rm, cfg in zip(self.robot_models, cfgs)]
         self._setup_references()
         lo, hi = self.action_spec
         self._action_lo = torch.as_tensor(lo, device=self.device)
@@ -158,8 +173,11 @@ class RobotEnv:
         con = C.narrowphase(self.model, kin, pairs=set(pairs))
         return torch.any(con["dist"] < 0.0, dim=-1)
 
-    def grasp_pairs(self, arm, object_geoms):
-        grip = self.robot_models[0].grippers[arm]
+    def grasp_pairs(self, arm, object_geoms, robot_idx=0):
+        """(left fingerpad pairs, right fingerpad pairs) of robot
+        `robot_idx`'s gripper on `arm` against the object's geoms (the JAX
+        grasp_rows, by pair)."""
+        grip = self.robot_models[robot_idx].grippers[arm]
         return (self._contact_pairs(grip.important_geoms["left_fingerpad"], object_geoms),
                 self._contact_pairs(grip.important_geoms["right_fingerpad"], object_geoms))
 
@@ -174,8 +192,9 @@ class RobotEnv:
     def _default_modality(self, key):
         if key.endswith("_image") or key.endswith("_depth") or key == "placement_valid":
             return None  # outside the pipeline
-        if key.startswith("robot0_"):
-            return "robot0_proprio"
+        for i in range(len(self.robots)):
+            if key.startswith(f"robot{i}_"):
+                return f"robot{i}_proprio"
         return "object"
 
     def modify_observable(self, name, **overrides):
@@ -241,16 +260,17 @@ class RobotEnv:
             out += [(r, 1.0 if b2 in sub else -1.0, k) for r in layout[k]]
         return out
 
-    def _wrench_plan(self, arm):
-        """Per arm, computed once: (eef site, the subset's pairs, the rows of
-        the pairs' own narrowphase, the full-buffer rows, signs (R,), the
-        buffer's row count)."""
-        if arm not in self._wrench_cache:
-            m, robot = self.model, self.robots[0]
-            site = robot.eef_site_id[arm]
+    def _wrench_plan(self, robot_idx, arm):
+        """Per (robot, arm), computed once: (eef site, the subset's pairs,
+        the rows of the pairs' own narrowphase, the full-buffer rows, signs
+        (R,), the buffer's row count)."""
+        key = (robot_idx, arm)
+        if key not in self._wrench_cache:
+            m = self.model
+            site = self.robots[robot_idx].eef_site_id[arm]
             root = k = m.site_bodyid[site]
             while k != 0:  # the highest gripper body above the eef site
-                if m.body_names[k].startswith("gripper0_"):
+                if m.body_names[k].startswith(f"gripper{robot_idx}_"):
                     root = k
                 k = m.body_parentid[k]
             rows = self._wrench_rows(self._subtree_bodies(root))
@@ -258,22 +278,23 @@ class RobotEnv:
             pairs = sorted({k for _, _, k in rows}, key=lambda k: layout[k][0])
             sub_row = {r: i for i, r in enumerate(r for k in pairs for r in layout[k])}
             dev = self.device
-            self._wrench_cache[arm] = (
+            self._wrench_cache[key] = (
                 site, set(pairs), torch.tensor([sub_row[r] for r, _, _ in rows], dtype=torch.long, device=dev),
                 torch.tensor([r for r, _, _ in rows], dtype=torch.long, device=dev),
                 torch.tensor([s for _, s, _ in rows], dtype=torch.float32, device=dev),
                 sum(len(v) for v in layout.values()))
-        return self._wrench_cache[arm]
+        return self._wrench_cache[key]
 
-    def eef_contact_wrench(self, kin, f, arm):
+    def eef_contact_wrench(self, kin, f, robot_idx, arm):
         """(force (B, 3), torque (B, 3)) of the contact forces on the
-        gripper's subtree about the eef site: robosuite's eef force/torque
+        subtree of robot `robot_idx`'s gripper on `arm` about its eef site
+        (the JAX envs/base.py:376-411): robosuite's eef force/torque
         sensors (robots/robot.py:795-814) from the last substep's solver
         forces f (B, 3R), rows [normals | t1 | t2] in the static row layout,
         and the rows' frames from the end-of-step narrowphase of the
         gripper's pairs (plain torch code). Gravity and inertial terms are
         not included."""
-        site, pairs, ridx, fidx, signs, R = self._wrench_plan(arm)
+        site, pairs, ridx, fidx, signs, R = self._wrench_plan(robot_idx, arm)
         B = kin.site_xpos.shape[0]
         zero = torch.zeros(B, 3, dtype=kin.site_xpos.dtype, device=kin.site_xpos.device)
         if not pairs:
@@ -285,36 +306,68 @@ class RobotEnv:
         return fw.sum(dim=1), torch.linalg.cross(arm_, fw).sum(dim=1)
 
     def _wrench_obs(self, obs, kin, f):
-        """Add robot0_eef_force and robot0_eef_torque, of the robot's one
-        arm; f None: zero forces (the reset). Zero too on a world that
+        """Add robot{i}_eef_force and robot{i}_eef_torque of every robot i
+        (robot{i}_{arm}_eef_* for a second arm; the JAX envs/base.py:514-519,
+        824-828); f None: zero forces (the reset). Zero too on a world that
         compacts its rows (the JAX package's envs/base.py:408-411): f's
         slots there follow the active rows, not the static layout."""
-        if f is None or C.uses_row_compaction(self.model):
-            obs["robot0_eef_force"] = obs["robot0_eef_torque"] = torch.zeros_like(kin.site_xpos[:, 0])
-        else:
-            obs["robot0_eef_force"], obs["robot0_eef_torque"] = self.eef_contact_wrench(kin, f, self.robots[0].arms[0])
+        zero = f is None or C.uses_row_compaction(self.model)
+        for i, robot in enumerate(self.robots):
+            for arm in robot.arms:
+                p = f"robot{i}_" + ("" if arm == "right" or len(robot.arms) == 1 else f"{arm}_")
+                if zero:
+                    obs[f"{p}eef_force"] = obs[f"{p}eef_torque"] = torch.zeros_like(kin.site_xpos[:, 0])
+                else:
+                    obs[f"{p}eef_force"], obs[f"{p}eef_torque"] = self.eef_contact_wrench(kin, f, i, arm)
         return obs
 
-    # -- action space ----------------------------------------------------------
+    # -- action space: the robots' actions concatenated in robot order -------
     @property
     def action_dim(self) -> int:
-        return self.robots[0].action_dim
+        return sum(r.action_dim for r in self.robots)
 
     @property
     def action_spec(self):
         return -np.ones(self.action_dim, dtype=np.float32), np.ones(self.action_dim, dtype=np.float32)
 
+    def _split_robot_actions(self, action):
+        """Each robot's slice of the (B, action_dim) actions (the JAX
+        envs/base.py:553-559)."""
+        out, i = [], 0
+        for r in self.robots:
+            out.append(action[:, i:i + r.action_dim])
+            i += r.action_dim
+        return out
+
+    def _pack_ctrl(self, ctrl_states):
+        """The EnvState's ctrl: the one robot's state, or a tuple of them
+        (the JAX envs/base.py:543-551)."""
+        return ctrl_states[0] if len(ctrl_states) == 1 else tuple(ctrl_states)
+
+    def _unpack_ctrl(self, ctrl):
+        return [ctrl] if len(self.robots) == 1 else list(ctrl)
+
+    def _init_ctrl(self, kin, M, bias, qpos, qvel):
+        return self._pack_ctrl([r.init_ctrl_state(kin, M, bias, qpos, qvel) for r in self.robots])
+
+    def _set_goals(self, kin, M, bias, qpos, qvel, ctrl, action):
+        """Every robot's policy-rate goals from its slice of the action."""
+        return self._pack_ctrl([r.set_goals(kin, M, bias, qpos, qvel, cs, a) for r, cs, a in
+                                zip(self.robots, self._unpack_ctrl(ctrl), self._split_robot_actions(action))])
+
     # -- core API ----------------------------------------------------------------
     def _initial_qpos(self, n, generator):
-        robot, rm = self.robots[0], self.robot_models[0]
+        """qpos0 with each robot's init_qpos plus noise (drawn robot by
+        robot) and its grippers' init_qpos."""
         gdev = generator.device
         qpos = self.model.qpos0.expand(n, -1).clone()
-        iq = torch.as_tensor(np.asarray(rm.init_qpos, dtype=np.float32), device=gdev)
-        noise = self.init_noise_mag * torch.randn(n, iq.shape[0], generator=generator, device=gdev)
-        qpos[:, robot.init_qpos_idx] = (iq + noise).to(self.device)
-        for arm in robot.arms:
-            gi = torch.as_tensor(np.asarray(rm.grippers[arm].init_qpos, dtype=np.float32), device=self.device)
-            qpos[:, robot.gripper_joint_qpos_idx[arm]] = gi
+        for robot, rm in zip(self.robots, self.robot_models):
+            iq = torch.as_tensor(np.asarray(rm.init_qpos, dtype=np.float32), device=gdev)
+            noise = self.init_noise_mag * torch.randn(n, iq.shape[0], generator=generator, device=gdev)
+            qpos[:, robot.init_qpos_idx] = (iq + noise).to(self.device)
+            for arm in robot.arms:
+                gi = torch.as_tensor(np.asarray(rm.grippers[arm].init_qpos, dtype=np.float32), device=self.device)
+                qpos[:, robot.gripper_joint_qpos_idx[arm]] = gi
         return qpos
 
     def reset_batch(self, n: int, generator: torch.Generator):
@@ -334,7 +387,7 @@ class RobotEnv:
         zeros = torch.zeros(n, dtype=qpos.dtype, device=self.device)
         physics = State(qpos=qpos, qvel=torch.zeros(n, self.model.nv, device=self.device), time=zeros)
         kin, M, bias = engine.forward_products(self.model, physics.qpos, physics.qvel)
-        ctrl = self.robots[0].init_ctrl_state(kin, M, bias, physics.qpos, physics.qvel)
+        ctrl = self._init_ctrl(kin, M, bias, physics.qpos, physics.qvel)
         t = torch.zeros(n, dtype=torch.int32, device=self.device)
         obs = self._wrench_obs(self._get_observations(physics, kin), kin, None)
         obs["placement_valid"] = (valid[0].to(self.device) if valid
@@ -349,7 +402,7 @@ class RobotEnv:
         physics = State.from_flattened(flat, self.model)
         physics = State(qpos=physics.qpos.contiguous(), qvel=physics.qvel.contiguous(), time=physics.time)
         kin, M, bias = engine.forward_products(self.model, physics.qpos, physics.qvel)
-        ctrl = self.robots[0].init_ctrl_state(kin, M, bias, physics.qpos, physics.qvel)
+        ctrl = self._init_ctrl(kin, M, bias, physics.qpos, physics.qvel)
         return EnvState(physics=physics, ctrl=ctrl,
                         t=torch.zeros(flat.shape[0], dtype=torch.int32, device=self.device))
 
@@ -382,8 +435,10 @@ class RobotEnv:
         return torch.cat([despos, desori.reshape(B, 9)], dim=-1).contiguous(), gains
 
     def _fused_substep_fn(self, model, ctrl_state, kin):
-        """substep(physics) -> (physics, f) using the fused kernel, or None;
-        f (B, 3R) is the substep's solver forces in the static row layout."""
+        """substep(physics) -> (physics, f) using the fused kernel, or None
+        (the gate refuses an env with more than one robot, so ctrl_state is
+        the one robot's); f (B, 3R) is the substep's solver forces in the
+        static row layout."""
         if getattr(self, "_disable_fused", False):
             return None
         fused = self._fused_for(model)
@@ -401,6 +456,14 @@ class RobotEnv:
 
         return substep
 
+    def run_controllers(self, kin, M, bias, qpos, qvel, ctrl):
+        """The substep-rate ctrl (B, nu): every robot's torques and gripper
+        ctrl written into one vector (the JAX envs/base.py:876-881)."""
+        c = torch.zeros(qpos.shape[0], self.model.nu, dtype=qpos.dtype, device=qpos.device)
+        for robot, cs in zip(self.robots, self._unpack_ctrl(ctrl)):
+            c = robot.run_controllers(kin, M, bias, qpos, qvel, cs, c)
+        return c
+
     def _substep_fn(self, model, ctrl_state, kin):
         """substep(physics) -> (physics, f): the fused kernel, or (unsupported
         or `_disable_fused`) forward products + controllers + contact solve.
@@ -408,12 +471,10 @@ class RobotEnv:
         substep = self._fused_substep_fn(model, ctrl_state, kin)
         if substep is not None:
             return substep
-        robot = self.robots[0]
 
         def substep(phys):
             k, Mk, bk = engine.forward_products(model, phys.qpos, phys.qvel)
-            c = robot.run_controllers(k, Mk, bk, phys.qpos, phys.qvel, ctrl_state,
-                                      torch.zeros(phys.qpos.shape[0], model.nu, device=phys.qpos.device))
+            c = self.run_controllers(k, Mk, bk, phys.qpos, phys.qvel, ctrl_state)
             return engine.integrate(model, phys, c, k, Mk, bk)
 
         return substep
@@ -422,7 +483,7 @@ class RobotEnv:
         """The goals and n_substeps substeps from the start-of-step forward
         products: -> (physics', ctrl', the last substep's f)."""
         physics = state.physics
-        ctrl = self.robots[0].set_goals(kin, M, bias, physics.qpos, physics.qvel, state.ctrl, action)
+        ctrl = self._set_goals(kin, M, bias, physics.qpos, physics.qvel, state.ctrl, action)
         substep = self._substep_fn(model, ctrl, kin)
         f = None
         for _ in range(n_substeps):
@@ -493,7 +554,8 @@ class RobotEnv:
         policy-rate goals and n_substeps launches of the emit_aux fused
         substep, whose post-step site poses, body positions and pair
         distances feed the reward and the next step's goals. Otherwise (or
-        with `_disable_fused`) the product-carrying policy steps."""
+        with `_disable_fused`) the product-carrying policy steps (every
+        env with several robots)."""
         fused = None if getattr(self, "_disable_fused", False) else self._fused_for(model, emit_aux=True)
         robot = self.robots[0]
         arm = robot.arms[0]

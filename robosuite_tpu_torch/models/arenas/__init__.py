@@ -1,5 +1,5 @@
 """Arenas: procedural workspaces (robosuite models/arenas/*.py), trimmed
-to the table and bins arenas. Same geometry and names as robosuite's
+to the empty, table and bins arenas. Same geometry and names as robosuite's
 table_arena.xml and bins_arena.xml, so the qpos/geom layout lines up with
 the JAX package."""
 
@@ -46,6 +46,17 @@ class Arena:
                 quat=(0.009905065491771751, 0.006877963156909582, 0.5912228352893879, 0.806418094001364),
             )
         )
+
+
+class EmptyArena(Arena):
+    """robosuite arenas/empty_arena.py: the floor only."""
+
+    def __init__(self):
+        super().__init__()
+        self.spec.worldbody.add_geom(
+            S.GeomSpec("floor", type="plane", size=(3, 3, 0.125), group=1, friction=(1, 0.005, 0.0001)))
+        self.add_standard_light()
+        self.add_standard_cameras()
 
 
 class TableArena(Arena):

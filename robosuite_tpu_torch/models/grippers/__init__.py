@@ -1,5 +1,5 @@
 """Gripper models (robosuite models/grippers/*.py + gripper_factory.py),
-trimmed to the Panda and Rethink grippers.
+trimmed to the Panda and Rethink grippers and the null gripper.
 
 Each gripper wraps its model card with robosuite's metadata: dof, speed,
 init_qpos, important sites (grip_site for the OSC reference frame) and
@@ -145,3 +145,17 @@ class RethinkGripper(GripperModel):
 
     def format_action_direction(self):
         return np.array([1.0, -1.0])
+
+
+@register_gripper
+class NullGripper(GripperModel):
+    """robosuite null_gripper.py: no fingers and no actuators (dof 0); the
+    eef sites only (TwoArmPegInHole welds its peg and plate at the eef)."""
+
+    card_name = "null_gripper"
+    dof = 0
+    speed = 0.0
+
+    @property
+    def _important_sites(self):
+        return {"grip_site": "grip_site", "grip_cylinder": "grip_site_cylinder", "ee": "ft_frame"}

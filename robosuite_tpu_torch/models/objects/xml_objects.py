@@ -1,5 +1,6 @@
 """Card-backed objects (the JAX package's models/objects/xml_objects.py;
-robosuite models/objects/xml_objects.py), trimmed to the door.
+robosuite models/objects/xml_objects.py), trimmed to the door and the
+plate with a hole.
 
 Each wraps a committed model card (models/cards/<name>.json) extracted
 from robosuite's primitive-geometry object MJCF. The object's articulated
@@ -101,3 +102,22 @@ class DoorObject(CardObject):
     @property
     def horizontal_radius(self):
         return 0.3
+
+
+class PlateWithHoleObject(CardObject):
+    """robosuite xml_objects.py PlateWithHoleObject (TwoArmPegInHole): four
+    boxes around a square hole."""
+
+    card_name = "plate_with_hole"
+
+    @property
+    def bottom_offset(self):
+        return np.array([0, 0, -0.02])
+
+    @property
+    def top_offset(self):
+        return np.array([0, 0, 0.02])
+
+    @property
+    def horizontal_radius(self):
+        return 0.12

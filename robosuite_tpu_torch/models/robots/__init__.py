@@ -1,7 +1,7 @@
 """Robot models: spec factories + metadata for the built-in manipulators.
 
 Copy of the JAX package's robot model layer, trimmed to the fixed-mount
-single-arm case, the Panda and the Sawyer (robosuite
+single-arm robots, the Panda and the Sawyer (robosuite
 models/robots/robot_model.py, manipulators/panda_robot.py,
 sawyer_robot.py). Each robot is a thin class over its
 committed model card plus robosuite's published metadata (init_qpos,
@@ -10,6 +10,7 @@ default gripper/base, placement offsets).
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -150,6 +151,24 @@ class ManipulatorModel:
     def set_base_xpos(self, xpos):
         """robosuite robot_model.py:89-99."""
         self._root.pos = np.asarray(xpos) - self.bottom_offset
+
+    def set_base_ori(self, rot_euler):
+        """The root's orientation from xyz euler angles, q = qz qy qx
+        (robosuite robot_model.py:101-107)."""
+        ax, ay, az = rot_euler
+
+        def q_axis(angle, axis):
+            v = [0.0, 0.0, 0.0]
+            v[axis] = math.sin(angle / 2.0)
+            return np.array([math.cos(angle / 2.0), *v])
+
+        def qmul(a, b):
+            w0, x0, y0, z0 = a
+            w1, x1, y1, z1 = b
+            return np.array([w0 * w1 - x0 * x1 - y0 * y1 - z0 * z1, w0 * x1 + x0 * w1 + y0 * z1 - z0 * y1,
+                             w0 * y1 - x0 * z1 + y0 * w1 + z0 * x1, w0 * z1 + x0 * y1 - y0 * x1 + z0 * w1])
+
+        self._root.quat = qmul(qmul(q_axis(az, 2), q_axis(ay, 1)), q_axis(ax, 0))
 
     # -- exports --------------------------------------------------------------
     def root_subtree(self) -> S.BodySpec:

@@ -46,11 +46,13 @@ class ManipulationTask:
     Args:
         mujoco_arena: Arena instance (its spec is consumed)
         mujoco_robots: list of ManipulatorModel (already based/grippered)
-        mujoco_objects: list of objects
+        mujoco_objects: list of objects, one object, or None
     """
 
     def __init__(self, mujoco_arena, mujoco_robots, mujoco_objects=()):
         robots = mujoco_robots if isinstance(mujoco_robots, (list, tuple)) else [mujoco_robots]
+        if mujoco_objects is None:
+            mujoco_objects = ()
         objects = mujoco_objects if isinstance(mujoco_objects, (list, tuple)) else [mujoco_objects]
 
         ms = S.ModelSpec("manipulation_task", make_world_option())

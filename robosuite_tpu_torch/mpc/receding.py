@@ -91,7 +91,7 @@ def init_state(cfg: MPCConfig, act_dim: int, batch: int, generator, nx: Optional
 
 
 class RecedingMPC:
-    """Binds a single-robot env with a ported residual (Lift, Stack) to the
+    """Binds an env with a ported residual (mpc/residuals.py) to the
     batched MPPI + iLQR solve.
 
     residual: optional planning residual r(env, plan_model, qpos, qvel, u,
@@ -123,27 +123,35 @@ class RecedingMPC:
         # rewritten by set_goals every tick; kp/kd are constants (fixed
         # impedance)
         self._template = env.reset_batch(1, torch.Generator().manual_seed(0))[0]
-        robot = env.robots[0]
-        self._arm = robot.arms[0]
         self._nq, self._nv = env.model.nq, env.model.nv
-        self.nx = self._nq + self._nv + self._template.ctrl.gripper_action[self._arm].shape[-1]
+        # (robot, arm, ramp width) of each gripper ramp in x, in robot order
+        self._ramps = [(r, arm, cs.gripper_action[arm].shape[-1])
+                       for r, cs in enumerate(env._unpack_ctrl(self._template.ctrl)) for arm in sorted(cs.gripper_action)]
+        self.nx = self._nq + self._nv + sum(n for _, _, n in self._ramps)
         self._nu = env.action_dim
 
     def init_state(self, batch: int, generator: torch.Generator) -> MPCState:
         """MPCState for `batch` solves (with the RTI carry when relin_every > 1)."""
         return init_state(self.cfg, self._nu, batch, generator, nx=self.nx, device=self.env.device)
 
-    # -- EnvState <-> iLQR state x = (qpos, qvel, gripper ramp) ---------------
+    # -- EnvState <-> iLQR state x = (qpos, qvel, each robot's gripper ramps
+    # in robot order; the JAX _grips_of / _to_env_state) ---------------------
     def _to_x(self, s: EnvState):
-        return torch.cat([s.physics.qpos, s.physics.qvel, s.ctrl.gripper_action[self._arm]], dim=-1)
+        cs = self.env._unpack_ctrl(s.ctrl)
+        return torch.cat([s.physics.qpos, s.physics.qvel] + [cs[r].gripper_action[arm] for r, arm, _ in self._ramps],
+                         dim=-1)
 
     def _to_env_state(self, x) -> EnvState:
         N, nq, nv = x.shape[0], self._nq, self._nv
-        arm_state = map_state(lambda v: v.expand((N,) + v.shape[1:]), self._template.ctrl.arm[self._arm])
+        templates = self.env._unpack_ctrl(self._template.ctrl)
+        grips, i = [{} for _ in templates], nq + nv
+        for r, arm, n in self._ramps:
+            grips[r][arm], i = x[:, i:i + n], i + n
+        states = [RobotCtrlState(arm=map_state(lambda v: v.expand((N,) + v.shape[1:]), tpl.arm), gripper_action=g)
+                  for tpl, g in zip(templates, grips)]
         zeros = torch.zeros(N, dtype=x.dtype, device=x.device)
         return EnvState(physics=State(qpos=x[:, :nq].contiguous(), qvel=x[:, nq:nq + nv].contiguous(), time=zeros),
-                        ctrl=RobotCtrlState(arm={self._arm: arm_state}, gripper_action={self._arm: x[:, nq + nv:]}),
-                        t=torch.zeros(N, dtype=torch.int32, device=x.device))
+                        ctrl=self.env._pack_ctrl(states), t=torch.zeros(N, dtype=torch.int32, device=x.device))
 
     # -- the iLQR problem --------------------------------------------------------
     def _ilqr_dynamics(self, x, u):

@@ -1,5 +1,6 @@
 """Planning residuals (the JAX package's mpc/residuals.py and
-receding.lift_residual), for Lift, Stack, Door and PickPlace.
+receding.lift_residual), for Lift, Stack, Door, PickPlace, TwoArmLift and
+TwoArmPegInHole.
 
 A residual r(env, plan_model, qpos, qvel, u, poses) -> (N, m) defines the
 stage cost 0.5 ||r||^2 of the iLQR refinement: a smooth least-squares
@@ -12,7 +13,9 @@ from __future__ import annotations
 
 import torch
 
+from robosuite_tpu_torch.envs.two_arm import peg_alignment
 from robosuite_tpu_torch.physics import kinematics
+from robosuite_tpu_torch.utils import transforms as T
 
 
 def lift_residual(env, plan_model, qpos, qvel, u, poses=kinematics.body_poses):
@@ -73,10 +76,35 @@ def _pick_place_can_residual(env, plan_model, qpos, qvel, u, poses=kinematics.bo
     return pick_place_residual(env, plan_model, qpos, qvel, u, poses, obj_idx=0)
 
 
+def two_arm_lift_residual(env, plan_model, qpos, qvel, u, poses=kinematics.body_poses):
+    """Both eefs to their pot handles, the pot above the success height and
+    level (robosuite two_arm_lift.py:221-300 in smooth form)."""
+    xpos, xquat = poses(plan_model, qpos)
+    h0, h1, e0, e1 = (kinematics.site_pos(plan_model, xpos, xquat, s)
+                      for s in (*env.handle_site_ids, *env.eef_sites))
+    pot = xpos[:, env.pot_body_id]
+    z_target = float(env.table_offset[2]) + 0.15
+    r_lift = 6.0 * torch.clamp_max(pot[:, 2:3] - z_target, 0.0)
+    # level: the pot's z axis along the world's (two_arm_lift.py:480-490)
+    r_level = 2.0 * (T.quat2mat_wxyz(xquat[:, env.pot_body_id])[:, 2, 2:3] - 1.0)
+    return torch.cat([2.0 * (e0 - h0), 2.0 * (e1 - h1), r_lift, r_level, 0.02 * qvel], dim=-1)
+
+
+def two_arm_peg_in_hole_residual(env, plan_model, qpos, qvel, u, poses=kinematics.body_poses):
+    """The hole-frame alignment terms t, d and cos
+    (two_arm_peg_in_hole.py:440-487)."""
+    xpos, xquat = poses(plan_model, qpos)
+    hole, peg = env.plate_body_id, env.peg_body_id
+    t, d, cos = peg_alignment(xpos[:, hole], T.quat2mat_wxyz(xquat[:, hole]), xpos[:, peg],
+                              T.quat2mat_wxyz(xquat[:, peg]))
+    return torch.cat([2.0 * d[:, None], torch.abs(t)[:, None], 2.0 * (cos - 1.0)[:, None], 0.02 * qvel], dim=-1)
+
+
 _RESIDUALS = {"Lift": lift_residual, "Stack": stack_residual, "Door": door_residual,
               "PickPlace": pick_place_residual, "PickPlaceCan": _pick_place_can_residual,
               "PickPlaceSingle": pick_place_residual, "PickPlaceMilk": pick_place_residual,
-              "PickPlaceBread": pick_place_residual, "PickPlaceCereal": pick_place_residual}
+              "PickPlaceBread": pick_place_residual, "PickPlaceCereal": pick_place_residual,
+              "TwoArmLift": two_arm_lift_residual, "TwoArmPegInHole": two_arm_peg_in_hole_residual}
 
 
 def residual_for(env):

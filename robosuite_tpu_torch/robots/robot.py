@@ -58,11 +58,12 @@ class FixedBaseRobot:
             self.arm_qvel_idx[arm] = np.array([model.jnt_dofadr[j] for j in jids])
             self.arm_actuator_ids[arm] = np.array(
                 [model.actuator_name2id(n) for n in robot_model.arm_actuator_names[arm]])
-            grip = robot_model.grippers[arm]
+            grip = robot_model.grippers[arm]  # a gripper with no joints and actuators (NullGripper) gives empty ones
             gj = [model.jnt_name2id(n) for n in grip.joint_names]
-            self.gripper_joint_qpos_idx[arm] = np.array([model.jnt_qposadr[j] for j in gj])
-            self.gripper_joint_qvel_idx[arm] = np.array([model.jnt_dofadr[j] for j in gj])
-            self.gripper_actuator_ids[arm] = np.array([model.actuator_name2id(n) for n in grip.actuator_names])
+            self.gripper_joint_qpos_idx[arm] = np.array([model.jnt_qposadr[j] for j in gj], dtype=int)
+            self.gripper_joint_qvel_idx[arm] = np.array([model.jnt_dofadr[j] for j in gj], dtype=int)
+            self.gripper_actuator_ids[arm] = np.array([model.actuator_name2id(n) for n in grip.actuator_names],
+                                                      dtype=int)
             self.eef_site_id[arm] = model.site_name2id(grip.important_sites["grip_site"])
             self.center_site_id[arm] = model.site_name2id(robot_model.center_site_name(arm))
 
@@ -136,8 +137,11 @@ class FixedBaseRobot:
         for arm in self.arms:
             cfg = self.arm_cfg[arm]
             arm_states[arm] = ctrl_module(cfg).init_state(cfg, self.arm_view(kin, M, bias, qpos, qvel, arm))
-            n_act = max(len(self.gripper_actuator_ids[arm]), 1)
-            grip_actions[arm] = torch.zeros(B, n_act, dtype=qpos.dtype, device=qpos.device)
+            # one ramp entry per gripper actuator; none for a gripper with
+            # no actuators (NullGripper), whose ramp the JAX package pads to
+            # one entry it never moves
+            grip_actions[arm] = torch.zeros(B, len(self.gripper_actuator_ids[arm]), dtype=qpos.dtype,
+                                            device=qpos.device)
         return RobotCtrlState(arm=arm_states, gripper_action=grip_actions)
 
     def set_goals(self, kin, M, bias, qpos, qvel, ctrl_state: RobotCtrlState, action) -> RobotCtrlState:
@@ -150,7 +154,8 @@ class FixedBaseRobot:
             cfg = self.arm_cfg[arm]
             new_arm[arm] = ctrl_module(cfg).set_goal(cfg, ctrl_state.arm[arm], view, action[:, s:e])
             gs, ge = idx[f"{arm}_gripper"]
-            new_grip[arm] = self._gripper_goal(arm, ctrl_state.gripper_action[arm], action[:, gs:ge])
+            cur = ctrl_state.gripper_action[arm]
+            new_grip[arm] = self._gripper_goal(arm, cur, action[:, gs:ge]) if self.rm.grippers[arm].dof else cur
         return RobotCtrlState(arm=new_arm, gripper_action=new_grip)
 
     def _gripper_goal(self, arm, cur, grip_a):
@@ -160,7 +165,8 @@ class FixedBaseRobot:
         return torch.clamp(cur + direction * self.rm.grippers[arm].speed * torch.sign(grip_a[:, 0:1]), -1.0, 1.0)
 
     def gripper_ctrl(self, arm, ctrl_state: RobotCtrlState):
-        """Actuator-space gripper ctrl (B, n) for the tick's gripper state."""
+        """Actuator-space gripper ctrl (B, n) for the tick's gripper state
+        ((B, 0) for a gripper with no actuators)."""
         rng = self._dev[arm]["grip_range"]
         return grip_mod.run(ctrl_state.gripper_action[arm], rng[:, 0], rng[:, 1])
 
