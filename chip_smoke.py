@@ -116,9 +116,10 @@ Phases (any failure exits non-zero):
      pose_rounding_witness), the last substep being step_batch's next state
      bit for bit, and the count of cases set aside;
  27. the PickPlaceCan MPC at tools/bench_configs.py's width (B=32, H=128,
-     K=16, MPPI only, unfused planning rollouts): a warm-up tick, ticks
-     1-3 timed with their launch counts, finite actions in [-1, 1], peak
-     memory and a profiled tick; the planning rollouts' rows graph (B K =
+     K=16, MPPI only, unfused planning rollouts): a warm-up tick, tick 1
+     timed with its launch counts (ticks 1-3 until the NutAssembly and
+     Wipe phases took their time), finite actions in [-1, 1], peak memory
+     and a profiled tick; the planning rollouts' rows graph (B K =
      512, dt 0.025) against the eager code, bit for bit, as in 25;
  28-32. make("TwoArmLift", robots=("Panda", "Panda"), env_configuration=
      "opposed", reward_shaping=True) on CUDA (nq 25, nv 24, 47 bodies, 170
@@ -143,6 +144,37 @@ Phases (any failure exits non-zero):
      the peg's tip pressed into a side of the hole's mouth, an active row
      in three quarters of the scenarios at least), K2 at nv 14 and 117
      static rows.
+ 38-43. make("NutAssemblySingle", robots="Panda", reward_shaping=True) on
+     CUDA (nq 23, nv 21, 31 bodies, 104 geoms, 20 sites, 186 pairs, 680
+     rows compacted into 96 slots), unfused (the fused gate refuses its
+     row compaction, as the JAX package's does): 38, the world and the
+     gate; 39, K1's and K2's shared memory a block, K1 against its plain
+     version at B=512 and 32, timed; 40, a contact-rich state
+     (ab_kernels.nut_contact_state: the nuts resting on the table, the
+     gripper closed on the square nut's handle, grasping it in half the
+     scenarios at least, 4 active rows or more in half), the active rows'
+     median and maximum and the scenarios where the 96-slot cap drops rows;
+     41, K2 at nv 21 and 96 slots against its plain version, the rows' CUDA
+     graph against the eager code at the reset and that state; 42, counts
+     zeroed, reset + 10 step_batch policy steps (K1 = 1 + 27 a step, K2 =
+     25 a step, K3 = 0), finite observations, rewards and done, host-clock
+     rates with the reset and over 10 more steady steps, a profiled step,
+     each substep held as in 26 and the count of cases set aside; 43, the
+     MPC at tools/bench_configs.py's width (B=32, H=64, K=16, MPPI only) as
+     in 27, with ticks 1-3 timed;
+ 44-49. the same for make("Wipe", robots="Panda", controller_configs=
+     {"right": {"type": "OSC_POSE", "impedance_mode": "variable_kp"}},
+     num_markers=4, seed=1) (nq 7, nv 7, 25 bodies, 116 geoms, 175 pairs,
+     448 rows compacted into 96 slots; the wiping gripper, 12-wide
+     actions): its contact state (ab_kernels.wipe_contact_state: the
+     wiping face pressed 1 mm into the table over the markers, the arm
+     clear of it), K2 at nv 7; the step slice's episodes may end early (an
+     unsafe step, every marker wiped) and it prints the share of scenarios
+     done early, unsafe and with a marker wiped; the reward held is the
+     step hook's (_step_hook) on the plain poses;
+ 50. a fused world with the variable_kp OSC (Lift): K3 against its plain
+     version with each scenario's own gains from its action (the goal and
+     gains rows of envs/base._fused_goal_fn).
 The count of (substep, scenario) cases that the holds set aside on a
 float64 near-tie witness is printed at the end.
 Timings use CUDA events (profiler passes show one policy step's and one
@@ -1483,7 +1515,7 @@ def door_slice(tag, results):
 # tools/bench_configs.py:25,44-51: the PickPlaceCan workload (MPPI only, H=128; unfused)
 PICK_MPC = dict(horizon=128, n_samples=16, noise_sigma=0.4, temperature=0.2, n_knots=8, n_ilqr_iters=0,
                 plan_timestep=0.025)
-PICK_B, PICK_TICKS = 32, 3
+PICK_B, PICK_TICKS = 32, 1  # one timed tick (3 before the NutAssembly and Wipe phases)
 
 
 def hold_rows_graph(label, model, states, dt):
@@ -1602,14 +1634,15 @@ def pose_rounding_witness(env, model, ctrl_state, phys, bad, out_k, out_p, tol_v
     return out
 
 
-def hold_unfused_steps(label, env, trail, actions, rewards, leaves):
+def hold_unfused_steps(label, env, trail, actions, rewards, leaves, reward_fn=None):
     """Each policy step of an unfused step_batch run (trail: its states,
     the reset's first), substep by substep: its K1 and K2 launches against
     their plain versions on the same operands, and the kernel substep
     against the plain one (forward_plain + vel_update_plain) from the same
     input under hold_all's rule, then on from the kernel's output, whose
     last substep is step_batch's next state bit for bit; the reward of the
-    plain poses of that state."""
+    plain poses of that state (env.reward, or reward_fn(step, next state,
+    its plain kin))."""
     import torch
 
     from robosuite_tpu_torch.ops import forward
@@ -1634,7 +1667,8 @@ def hold_unfused_steps(label, env, trail, actions, rewards, leaves):
         if not (torch.equal(ph.qpos, nxt.physics.qpos) and torch.equal(ph.qvel, nxt.physics.qvel)):
             fail(f"{label} policy step {i + 1}: step_batch differs from its substep-by-substep kernel run")
         kin_p = forward.forward_plain(model, ph.qpos, ph.qvel, *leaves)[0]
-        worst_r = max(worst_r, max_err(rewards[i], env.reward(nxt.physics, kin_p)))
+        want_r = env.reward(nxt.physics, kin_p) if reward_fn is None else reward_fn(i, nxt, kin_p)
+        worst_r = max(worst_r, max_err(rewards[i], want_r))
     torch.cuda.synchronize()
     steps = len(trail) - 1
     print(f"{label} {steps} policy steps x {env.n_substeps} substeps, kernel vs plain from the same input: "
@@ -1709,21 +1743,29 @@ def unfused_k2(name, env, states, s, kin, M, bias, con, K, world_k):
     phase_done(f"{name} K2 vs plain")
 
 
-def unfused_step_slice(tag, name, env, gen, results, key):
+def unfused_step_slice(tag, name, env, gen, results, key, actions=None):
     """The step slice of an unfused world: counts zeroed, reset_batch + STEPS
     step_batch policy steps at B (K1 for the goals, one a substep and one
     for the observations; K2 one a substep; no K3), finite observations and
     rewards, the reset's keys, a proprio modality per robot, the eef force
-    zero on a world that compacts its rows (the JAX package's is 0 there);
-    host-clock rates with the reset and over STEPS more steady steps, a
-    profiled step; then every substep held (hold_unfused_steps), with the
-    count of cases set aside. -> the launch counts of the reset + steps."""
+    zero on a world that compacts its rows (the JAX package's is 0 there),
+    done only at the horizon (an env with its own step hook, Wipe, may end
+    episodes early, add keys and replace the reward); host-clock rates with
+    the reset and over STEPS more steady steps, a profiled step; then every
+    substep held (hold_unfused_steps; with a step hook, the reward held is
+    the hook's), with the count of cases set aside. The actions: small
+    random deltas, or `actions`.
+    -> (the launch counts of the reset + steps, the last states, the step
+    outputs (trail, obs, dones))."""
     import torch
 
+    from robosuite_tpu_torch.envs.base import RobotEnv
     from robosuite_tpu_torch.ops import forward
     from robosuite_tpu_torch.physics import contact as C
 
-    actions = torch.clamp(0.3 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
+    hooked = type(env)._step_hook is not RobotEnv._step_hook
+    if actions is None:
+        actions = torch.clamp(0.3 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1746,7 +1788,8 @@ def unfused_step_slice(tag, name, env, gen, results, key):
     rew = torch.stack(rewards)
     if not (all(torch.isfinite(v.float()).all() for o in obs_all for v in o.values()) and torch.isfinite(rew).all()):
         fail(f"non-finite observations or rewards on the {name} path")
-    if any(bool(d.any()) for d in dones) or set(obs_all[-1]) != set(obs0) - {"placement_valid"}:
+    keys, reset_keys = set(obs_all[-1]), set(obs0) - {"placement_valid"}
+    if not hooked and (any(bool(d.any()) for d in dones) or keys != reset_keys) or not keys >= reset_keys:
         fail(f"{name} step_batch: done before the horizon, or observation keys other than the reset's")
     for i in range(len(env.robots)):
         if obs_all[-1][f"robot{i}_proprio-state"].shape[0] != B:
@@ -1769,12 +1812,17 @@ def unfused_step_slice(tag, name, env, gen, results, key):
                     f"{key}_profile_wall_ms": wall_ms, f"{key}_profile_device_ms": dev_ms,
                     f"{key}_profile_top": top, f"{key}_profile_port": port})
     before = len(ASIDE)
-    hold_unfused_steps(name, env, trail, actions, rewards, forward.runtime_leaves(env.model, B))
+    reward_fn = None
+    if hooked:  # the step hook's reward, from the step's input state and its observations
+        def reward_fn(i, nxt, kin_p):
+            zero = torch.zeros_like(rewards[i])
+            return env._step_hook(trail[i], nxt, dict(obs_all[i]), zero, dones[i], kin_p)[2]
+    hold_unfused_steps(name, env, trail, actions, rewards, forward.runtime_leaves(env.model, B), reward_fn)
     print(f"{name} step slice: {len(ASIDE) - before} (substep, scenario) cases set aside on a float64 witness, "
           f"of {STEPS * env.n_substeps * B}")
     results[f"{key}_set_aside"] = len(ASIDE) - before
     phase_done(f"{name} step slice (reset + step_batch steps, profile, kernel vs plain)")
-    return counts, states
+    return counts, states, (trail, obs_all, dones)
 
 
 def unfused_mpc(tag, name, env, mpc_cfg, batch, ticks, gm, gs, results, key, held_states, world_k):
@@ -1923,7 +1971,7 @@ def pickplace_slice(tag, results):
     unfused_k2("PickPlaceCan", env, states, s, kin, M, bias, con, C.ROW_CAP, pick_k)
 
     # ---- 26. the step slice: reset_batch + 10 step_batch policy steps, unfused
-    counts, states = unfused_step_slice(tag, "PickPlaceCan", env, gen, results, "pick")
+    counts, states, _ = unfused_step_slice(tag, "PickPlaceCan", env, gen, results, "pick")
 
     # ---- 27. the MPC at tools/bench_configs.py's width: B=32, H=128, K=16, MPPI only
     mpc_counts = unfused_mpc(tag, "PickPlaceCan", env, PICK_MPC, PICK_B, PICK_TICKS,
@@ -1933,23 +1981,66 @@ def pickplace_slice(tag, results):
     return counts, mpc_counts
 
 
-# tools/bench_configs.py:28,44-51: the two-arm workload (MPPI only, H=64; unfused)
-TWOARM_MPC = dict(horizon=64, n_samples=16, noise_sigma=0.4, temperature=0.2, n_knots=8, n_ilqr_iters=0,
-                  plan_timestep=0.025)
-TWOARM_B, TWOARM_TICKS = 32, 3
-# each two-arm world ("opposed"): (nq, nv, nbody, ngeom, nsite, nu, npair,
-# candidate rows), the function of ab_kernels that makes its contact
-# state, the first phase's number
-TWOARM = {"TwoArmLift": ((25, 24, 47, 170, 19, 18, 170, 620), "twoarm_lift_contact_state", 28),
-          "TwoArmPegInHole": ((14, 14, 40, 136, 19, 14, 39, 117), "peg_contact_state", 33)}
+# tools/bench_configs.py's H=64 rows (MPPI only; unfused): B=32 solves, K=16
+H64_MPC = dict(horizon=64, n_samples=16, noise_sigma=0.4, temperature=0.2, n_knots=8, n_ilqr_iters=0,
+               plan_timestep=0.025)
+H64_B = 32
+VARIABLE_KP = {"right": {"type": "OSC_POSE", "impedance_mode": "variable_kp"}}
 
 
-def twoarm_slice(tag, results, name):
-    """Phases 28-32 (TwoArmLift) or 33-37 (TwoArmPegInHole), two Pandas
-    with OSC_POSE, "opposed", on the unfused path (K1, the contact rows as
-    a CUDA graph, K2; no K3: the fused gate refuses two robots, as the JAX
-    package's does). -> the launch counts of the env step (reset + STEPS
-    step_batch policy steps) and of the MPC ticks."""
+def _twoarm_lift_rich(env, kin, n_act):
+    grasps = [env.check_grasp(kin, *pairs) for pairs in env._grasp_pairs]
+    both, rich = int((grasps[0] & grasps[1]).sum()), int((n_act >= 4).sum())
+    return (f"both grippers grasp their handles in {both}/{B}; >= 4 active rows in {rich}/{B}",
+            2 * both >= B and 2 * rich >= B)
+
+
+def _peg_touches(env, kin, n_act):
+    touch = int((n_act >= 1).sum())
+    cos = env._peg_alignment(kin)[2]
+    return (f"the peg's tip on the hole's side in {touch}/{B}; |cos| of the peg's axis with the hole's normal median "
+            f"{float(cos.abs().median()):.4f}", 4 * touch >= 3 * B)
+
+
+def _nut_grasped(env, kin, n_act):
+    grasp, rich = int(env.check_grasp(kin, *env._grasp_pairs_per_nut[0]).sum()), int((n_act >= 4).sum())
+    return (f"the pads grasp the square nut in {grasp}/{B}; >= 4 active rows in {rich}/{B}",
+            2 * grasp >= B and 2 * rich >= B)
+
+
+def _tool_pressed(env, kin, n_act):
+    touch = int(env._any_contact(kin, env._tool_table_pairs).sum())
+    arm = int(env._any_contact(kin, env._arm_collision_pairs).sum())
+    rich = int((n_act >= 4).sum())
+    return (f"the tool on the table in {touch}/{B}, an arm link touching in {arm}/{B}; >= 4 active rows in "
+            f"{rich}/{B}", 2 * touch >= B and 2 * rich >= B and not arm)
+
+
+# the unfused Panda worlds of phases 28-49: make's keywords, (nq, nv, nbody,
+# ngeom, nsite, nu, npair, candidate rows), the function of ab_kernels that
+# makes its contact state and the check of that state, the first phase's
+# number, what the fused gate refuses it for, K1's widths, the MPC's timed
+# ticks (one for the two-arm worlds since the NutAssembly and Wipe phases)
+TWO_PANDAS = dict(robots=("Panda", "Panda"), env_configuration="opposed")
+UNFUSED_WORLDS = {
+    "TwoArmLift": (TWO_PANDAS, (25, 24, 47, 170, 19, 18, 170, 620), "twoarm_lift_contact_state", _twoarm_lift_rich,
+                   28, "one fixed-base robot", (B, H64_B, 1), 1),
+    "TwoArmPegInHole": (TWO_PANDAS, (14, 14, 40, 136, 19, 14, 39, 117), "peg_contact_state", _peg_touches, 33,
+                        "one fixed-base robot", (B, H64_B, 1), 1),
+    "NutAssemblySingle": (dict(robots="Panda"), (23, 21, 31, 104, 20, 9, 186, 680), "nut_contact_state",
+                          _nut_grasped, 38, "compacts", (B, H64_B), 3),
+    "Wipe": (dict(robots="Panda", controller_configs=VARIABLE_KP, num_markers=4, seed=1),
+             (7, 7, 25, 116, 16, 7, 175, 448), "wipe_contact_state", _tool_pressed, 44, "compacts", (B, H64_B), 3),
+}
+
+
+def unfused_world_slice(tag, results, name):
+    """Phases 28-32 (TwoArmLift), 33-37 (TwoArmPegInHole), 38-43
+    (NutAssemblySingle) or 44-49 (Wipe) on the unfused path (K1, the
+    contact rows as a CUDA graph, K2; no K3: the fused gate refuses two
+    robots or a world that compacts its rows, as the JAX package's does).
+    -> the launch counts of the env step (reset + STEPS step_batch policy
+    steps) and of the MPC ticks."""
     import torch
 
     import robosuite_tpu_torch as R
@@ -1957,17 +2048,17 @@ def twoarm_slice(tag, results, name):
     from robosuite_tpu_torch.ops import build, forward, substep
     from robosuite_tpu_torch.physics import contact as C
 
-    sizes, state_fn, ph = TWOARM[name]
-    # ---- 28 / 33. the world, the fused gate, K1 at its widths
-    env = R.make(name, robots=("Panda", "Panda"), env_configuration="opposed", reward_shaping=True)
+    kw, sizes, state_fn, state_check, ph, refusal, k1_widths, ticks = UNFUSED_WORLDS[name]
+    # ---- 28 / 33 / 38 / 44. the world, the fused gate, K1 at its widths
+    env = R.make(name, reward_shaping=True, **kw)
     model = env.model
     nrows = sum(len(r) for r in C.contact_row_layout(model).values())
     compacts = C.uses_row_compaction(model)
     K = min(C.ROW_CAP, nrows) if compacts else nrows
     groups = {f"{S_NAMES[a]}-{S_NAMES[b]}": len(v) for (a, b), v in sorted(C.pair_groups(model).items())}
     got = (model.nq, model.nv, model.nbody, model.ngeom, model.nsite, model.nu, model.npair, nrows)
-    print(f"{name} world (opposed): nq={got[0]} nv={got[1]} nbody={got[2]} ngeom={got[3]} nsite={got[4]} "
-          f"nu={got[5]} npair={got[6]} candidate points (rows)={nrows}, "
+    print(f"{name} world: nq={got[0]} nv={got[1]} nbody={got[2]} ngeom={got[3]} nsite={got[4]} nu={got[5]} "
+          f"npair={got[6]} candidate points (rows)={nrows}, "
           f"{f'compacted into {K} slots' if compacts else 'static rows'}; pairs by type {groups}; "
           f"action_dim {env.action_dim}")
     if got != sizes:
@@ -1976,9 +2067,9 @@ def twoarm_slice(tag, results, name):
         substep.extract_spec(env, model)
         fail(f"the fused substep's gate takes {name}")
     except substep.UnsupportedFused as e:
-        print(f"{name} fused gate: UnsupportedFused({e})")
-        if "one fixed-base robot" not in str(e):
-            fail(f"the fused gate does not refuse {name} for its two robots")
+        print(f"{name} fused gate: UnsupportedFused({e}); uses_row_compaction {compacts}")
+        if refusal not in str(e):
+            fail(f"the fused gate does not refuse {name} for '{refusal}'")
     if env._fused_for(model) is not None:
         fail(f"the {name} env has a fused substep")
     lib = build.library()
@@ -1987,54 +2078,93 @@ def twoarm_slice(tag, results, name):
     print(f"{name} shared memory a block: K1 {k1_smem} B (4 scenarios), K2 {k2_smem} B (2 scenarios at nv "
           f"{model.nv}, {K} rows)")
     results["smem_bytes"].update({f"K1 {name} block": k1_smem, f"K2 {name} block": k2_smem})
-    world_k = results.setdefault("twoarm_kernels", {}).setdefault(name, {})
+    world_k = results.setdefault("unfused_kernels", {}).setdefault(name, {})
     gen = torch.Generator(device="cuda").manual_seed(SEED + ph)
     states, obs = env.reset_batch(B, gen)
     if not all(torch.isfinite(v.float()).all() for v in obs.values()):
         fail(f"{name} reset: non-finite observations")
-    unfused_k1(tag, name, model, states, (B, TWOARM_B, 1), world_k, results)
+    unfused_k1(tag, name, model, states, k1_widths, world_k, results)
     phase_done(f"{name} world, gate, K1")
 
-    # ---- 29 / 34. the contact state: a grasp of both handles; the peg in the hole's mouth
+    # ---- 29 / 34 / 40 / 46. the contact state
     s = getattr(ab_kernels, state_fn)(env, states)
     q, qd = s.physics.qpos, s.physics.qvel
     if not (torch.isfinite(q).all() and torch.isfinite(qd).all()):
         fail(f"the {name} contact state is not finite")
-    leaves = forward.runtime_leaves(model, B)
-    kin, M, bias = forward.forward_plain(model, q, qd, *leaves)
+    kin, M, bias = forward.forward_plain(model, q, qd, *forward.runtime_leaves(model, B))
     con = C.narrowphase(model, kin)
     n_act = (con["dist"] < con["margin"]).sum(1)
     print(f"{name} contact state: active rows per scenario min {int(n_act.min())} median {int(n_act.median())} "
           f"max {int(n_act.max())} (of {nrows}); the {K}-slot cap drops rows in {int((n_act > K).sum())}/{B}")
-    if name == "TwoArmLift":
-        grasps = [env.check_grasp(kin, *pairs) for pairs in env._grasp_pairs]
-        both = int((grasps[0] & grasps[1]).sum())
-        rich = int((n_act >= 4).sum())
-        print(f"{name} contact state: both grippers grasp their handles in {both}/{B}; >= 4 active rows in "
-              f"{rich}/{B}")
-        if 2 * both < B or 2 * rich < B:
-            fail(f"the {name} contact state is too poor: both grasps in {both}/{B}, >= 4 active rows in {rich}/{B}")
-    else:
-        touch = int((n_act >= 1).sum())
-        cos = env._peg_alignment(kin)[2]
-        print(f"{name} contact state: the peg's tip on the hole's side in {touch}/{B}; |cos| of the peg's axis "
-              f"with the hole's normal median {float(cos.abs().median()):.4f}")
-        if 4 * touch < 3 * B:
-            fail(f"the {name} contact state is too poor: an active row in {touch}/{B}")
+    report, rich_enough = state_check(env, kin, n_act)
+    print(f"{name} contact state: {report}")
+    if not rich_enough:
+        fail(f"the {name} contact state is too poor: {report}")
     phase_done(f"{name} contact state")
 
-    # ---- 30 / 35. K2 at the world's width, on the plain path's operands; the rows' graph
+    # ---- 30 / 35 / 41 / 47. K2 at the world's width, on the plain path's operands; the rows' graph
     unfused_k2(name, env, states, s, kin, M, bias, con, K, world_k)
 
-    # ---- 31 / 36. the step slice: reset_batch + 10 step_batch policy steps, unfused
-    counts, states = unfused_step_slice(tag, name, env, gen, results, name.lower())
+    # ---- 31 / 36 / 42 / 48. the step slice: reset_batch + 10 step_batch policy steps, unfused
+    wipe = name == "Wipe"
+    actions = None
+    if wipe:  # the gains at their limit, the tool driven down at full speed (0.25 m to the table: ~0.1 m left
+        # after 10 steps; a few arms come near a joint limit, the unsafe branch)
+        actions = torch.clamp(0.2 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
+        actions[:, :6] = 300.0
+        actions[:, 8] = -1.0
+    counts, states, (trail, obs_all, dones) = unfused_step_slice(tag, name, env, gen, results, name.lower(), actions)
+    if wipe:
+        ts = trail[-1].task_state
+        early = int(torch.stack(dones).any(dim=0).sum())
+        unsafe = int((ts.collisions > 0).sum())
+        wiped = int(ts.wiped.any(dim=-1).sum())
+        print(f"{name} step slice: done early in {early}/{B}, an unsafe step in {unsafe}/{B}, a marker wiped in "
+              f"{wiped}/{B}, every marker in {int(ts.wiped.all(dim=-1).sum())}/{B}; wiped_markers "
+              f"{tuple(obs_all[-1]['wiped_markers'].shape)}")
+        results["wipe_step_shares"] = dict(done_early=early, unsafe=unsafe, any_wiped=wiped, batch=B)
 
-    # ---- 32 / 37. the MPC at tools/bench_configs.py's width: B=32, H=64, K=16, MPPI only
-    mpc_counts = unfused_mpc(tag, name, env, TWOARM_MPC, TWOARM_B, TWOARM_TICKS,
+    # ---- 32 / 37 / 43 / 49. the MPC at tools/bench_configs.py's width: B=32, H=64, K=16, MPPI only
+    mpc_counts = unfused_mpc(tag, name, env, H64_MPC, H64_B, ticks,
                              torch.Generator(device="cuda").manual_seed(SEED + ph + 1),
                              torch.Generator(device="cuda").manual_seed(SEED + ph + 2), results, name.lower(),
                              (states, s), world_k)
     return counts, mpc_counts
+
+
+def variable_gains_check(results):
+    """Phase 50: a fused world (Lift) with the variable_kp OSC: K3 against
+    its plain version with each scenario's own gains from its action, at a
+    reset state (qpos 1e-5, qvel 1e-3, as phase 6)."""
+    import torch
+
+    import robosuite_tpu_torch as R
+    from robosuite_tpu_torch.ops import forward, substep
+    from robosuite_tpu_torch.physics import engine
+
+    env = R.make("Lift", robots="Panda", reward_shaping=True, controller_configs=VARIABLE_KP)
+    model, robot = env.model, env.robots[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    s, _ = env.reset_batch(B, gen)
+    a = torch.clamp(0.5 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
+    a[:, :6] = 300.0 * torch.rand(B, 6, generator=gen, device="cuda")
+    q, qd = s.physics.qpos, s.physics.qvel
+    kin, M, bias = engine.forward_products(model, q, qd)
+    ctrl = env._set_goals(kin, M, bias, q, qd, s.ctrl, a)
+    goal, gains = env._fused_goal_fn(robot, "right", ctrl, kin)
+    if not (torch.equal(gains[:, :6], a[:, :6]) and float(gains[:, :6].std(dim=0).min()) > 10.0):
+        fail("the variable_kp gains rows are not each scenario's own")
+    fused = env._fused_for(model)
+    args = (q, qd, *forward.runtime_leaves(model, B), goal, gains, robot.gripper_ctrl("right", ctrl).contiguous())
+    qp_k, qv_k, _ = fused(*args)
+    qp_p, qv_p, _ = substep.substep_plain(env, model, *args)
+    torch.cuda.synchronize()
+    print(f"variable_kp Lift (B={B}, per-scenario kp in [0, 300]): K3 vs plain qpos {max_err(qp_k, qp_p):.3e}, "
+          f"qvel {max_err(qv_k, qv_p):.3e}")
+    check("K3 qpos with per-scenario variable_kp gains", max_err(qp_k, qp_p), 1e-5)
+    check("K3 qvel with per-scenario variable_kp gains", max_err(qv_k, qv_p), 1e-3)
+    results["variable_kp_k3_err"] = max(max_err(qp_k, qp_p), max_err(qv_k, qv_p))
+    phase_done("variable_kp gains through K3")
 
 
 def main():
@@ -2489,14 +2619,15 @@ def main():
     stack_counts, stack_mpc_counts, stack_counts_u = stack_slice(tag, results)
     door_counts, door_counts_u, door_mpc_counts = door_slice(tag, results)
     pick_counts, pick_mpc_counts = pickplace_slice(tag, results)
-    twoarm = {name: twoarm_slice(tag, results, name) for name in TWOARM}
+    unfused = {name: unfused_world_slice(tag, results, name) for name in UNFUSED_WORLDS}
+    variable_gains_check(results)
 
     # ---- report ------------------------------------------------------------------
     # launches on each path, counted from zero just before it: Lift's env step
     # and MPC ticks run K3 / K3-aux with the OSC law, Stack's with JOINT_POSITION
     osc = (counts, sb_counts, mpc_counts, door_counts, door_mpc_counts)  # K3 / K3-aux with the OSC law
     every = osc + (counts_u, door_counts_u, stack_counts, stack_counts_u, stack_mpc_counts, pick_counts,
-                   pick_mpc_counts) + sum(twoarm.values(), ())
+                   pick_mpc_counts) + sum(unfused.values(), ())
     paths = {"K1": every, "K2": every, "K3": osc, "K3-aux": osc, "K4": every}
     launches = {k: sum(c.get(k, 0) for c in cs) for k, cs in paths.items()}
     launches["K3-JP"] = stack_counts["K3"] + stack_mpc_counts["K3"]
@@ -2519,8 +2650,8 @@ def main():
           f"{STEPS} step_batch steps {door_counts}, one unfused step {door_counts_u}, MPC ticks 1-{DOOR_TICKS} "
           f"{door_mpc_counts}; over PickPlaceCan reset + {STEPS} step_batch steps {pick_counts}, MPC ticks "
           f"1-{PICK_TICKS} {pick_mpc_counts}; " + "; ".join(
-              f"over {n} reset + {STEPS} step_batch steps {c}, MPC ticks 1-{TWOARM_TICKS} {m}"
-              for n, (c, m) in twoarm.items()))
+              f"over {n} reset + {STEPS} step_batch steps {c}, MPC ticks 1-{UNFUSED_WORLDS[n][-1]} {m}"
+              for n, (c, m) in unfused.items()))
     by_label = {}
     for a in ASIDE:
         by_label[a.split()[0]] = by_label.get(a.split()[0], 0) + 1

@@ -4,12 +4,14 @@
 robots="Panda", controller_configs="JOINT_POSITION")`, `make("Door",
 robots="Panda", reward_shaping=True, seed=0)`, `make("PickPlaceCan",
 robots="Sawyer", controller_configs="JOINT_POSITION")` or
-`make("TwoArmLift", robots=("Panda", "Panda"))` and `make("TwoArmPegInHole",
-robots=("Panda", "Panda"))`) builds a batched
+`make("TwoArmLift", robots=("Panda", "Panda"))`, `make("TwoArmPegInHole",
+robots=("Panda", "Panda"))`, `make("NutAssemblySingle", robots="Panda")` or
+`make("Wipe", robots="Panda", controller_configs={"right": {"type":
+"OSC_POSE", "impedance_mode": "variable_kp"}})`) builds a batched
 env on the GPU (pass device="cpu" for the plain PyTorch path on the CPU);
 its hot loop runs hand-written CUDA kernels (csrc/) built with nvcc at
 first use.
 """
 
-from robosuite_tpu_torch.envs import door, lift, pick_place, stack, two_arm  # noqa: F401  (registers the envs)
+from robosuite_tpu_torch.envs import door, lift, nut_assembly, pick_place, stack, two_arm, wipe  # noqa: F401  (registers the envs)
 from robosuite_tpu_torch.envs.base import REGISTERED_ENVS, make  # noqa: F401

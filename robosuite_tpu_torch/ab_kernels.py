@@ -28,8 +28,9 @@ chip_smoke.py's Door contact state (the gripper driven onto the handle,
 the hinge past its limits and the latch near its stops in some
 scenarios), where the tree has the Door env; K1 at 512 and 32 and K2 at
 512 on each unfused world the tree has (UNFUSED: PickPlaceCan, TwoArmLift,
-TwoArmPegInHole) at its contact state (pickplace_contact_state,
-twoarm_lift_contact_state, peg_contact_state); and, where the tree reports
+TwoArmPegInHole, NutAssemblySingle, Wipe) at its contact state
+(pickplace_contact_state, twoarm_lift_contact_state, peg_contact_state,
+nut_contact_state, wipe_contact_state); and, where the tree reports
 it, each K3 variant's resident scenarios per SM. K2's operands are the plain
 path's at each state. Each case is timed two ways after a warm-up: by CUDA
 events around its calls (`<case>_ms_B<n>`, which includes any wait for the
@@ -301,6 +302,76 @@ def peg_contact_state(env, s):
     return env.state_from_flattened(torch.cat([s.physics.time[:, None], q, torch.zeros_like(s.physics.qvel)], 1).cpu())
 
 
+def _pointing_down(x):
+    """Rotations (B, 3, 3) whose z axis is the world's -z and whose x axis
+    is x (B, 3), horizontal unit vectors."""
+    import torch
+
+    z = torch.tensor([0.0, 0.0, -1.0], dtype=x.dtype, device=x.device).expand_as(x)
+    return torch.stack([x, torch.linalg.cross(z, x), z], dim=-1)
+
+
+NUT_SETTLE_STEPS = 4  # policy steps for the nuts to drop their 2 cm onto the table
+NUT_CLOSE_STEPS = 4
+
+
+def nut_contact_state(env, s):
+    """The contact-rich NutAssembly state that chip_smoke.py holds the
+    kernels on: NUT_SETTLE_STEPS policy steps of zero arm deltas with the
+    gripper open, so that the nuts rest on the table; the arm moved
+    (site_ik) so that the grip site sits at the square nut's handle, the
+    gripper pointing straight down and its fingers opening across the
+    handle (along the nut's y axis); then NUT_CLOSE_STEPS policy steps of
+    zero arm deltas and the gripper closing on the handle."""
+    import torch
+
+    from robosuite_tpu_torch.physics import kinematics
+
+    a = torch.zeros(s.physics.qpos.shape[0], env.action_dim, device=s.physics.qpos.device)
+    a[:, -1] = -1.0
+    for _ in range(NUT_SETTLE_STEPS):
+        s, _ = env.rollout_batch(s, a)
+    q = s.physics.qpos.clone()
+    kin = kinematics.fk(env.model, q)
+    target = kin.site_xpos[:, env.nut_handle_sites[0]]
+    # the grip site's frame: z down, x (the fingers' opening axis) along the
+    # nut's y, on the side nearer the site's x at s
+    ny = kin.xmat[:, env.nut_body_ids[0], :, 1] * torch.tensor([1.0, 1.0, 0.0], dtype=q.dtype, device=q.device)
+    x = ny / torch.linalg.vector_norm(ny, dim=-1, keepdim=True)
+    x = x * torch.sign((x * kin.site_xmat[:, env.eef_site, :, 0]).sum(-1, keepdim=True))
+    q[:, torch.as_tensor(env.robots[0].arm_qpos_idx["right"], device=q.device)] = site_ik(
+        env, s, target, target_rot=_pointing_down(x), iters=60)
+    s = env.state_from_flattened(torch.cat([s.physics.time[:, None], q, torch.zeros_like(s.physics.qvel)], 1).cpu())
+    a[:, -1] = 1.0
+    for _ in range(NUT_CLOSE_STEPS):
+        s, _ = env.rollout_batch(s, a)
+    return s
+
+
+WIPE_PRESS = 0.001  # the wiping face this far into the table top
+
+
+def wipe_contact_state(env, s):
+    """The contact-rich Wipe state that chip_smoke.py holds the kernels on:
+    the arm moved (site_ik) so that the wiping face, flat (the grip site's
+    z straight down, its x turned about z only), presses WIPE_PRESS into
+    the table top over a marker (marker b mod num_markers in scenario b),
+    the arm's links clear of the table; at rest."""
+    import torch
+
+    from robosuite_tpu_torch.physics import kinematics
+
+    q = s.physics.qpos.clone()
+    B = q.shape[0]
+    kin = kinematics.fk(env.model, q)
+    marker = kin.xpos[:, env.marker_body_ids][torch.arange(B), torch.arange(B) % env.num_markers]
+    target = marker - torch.tensor([0.0, 0.0, WIPE_PRESS], dtype=q.dtype, device=q.device)
+    x0 = kin.site_xmat[:, env.eef_site, :, 0] * torch.tensor([1.0, 1.0, 0.0], dtype=q.dtype, device=q.device)
+    q[:, torch.as_tensor(env.robots[0].arm_qpos_idx["right"], device=q.device)] = site_ik(
+        env, s, target, target_rot=_pointing_down(x0 / torch.linalg.vector_norm(x0, dim=-1, keepdim=True)), iters=60)
+    return env.state_from_flattened(torch.cat([s.physics.time[:, None], q, torch.zeros_like(s.physics.qvel)], 1).cpu())
+
+
 def _door(R, torch, B):
     """(Door env, its door_contact_state), or None where the tree has no
     Door env."""
@@ -315,7 +386,11 @@ def _door(R, torch, B):
 # (env name, make's keywords, the contact state's function name in this module)
 UNFUSED = (("PickPlaceCan", dict(robots="Sawyer", controller_configs="JOINT_POSITION"), "pickplace_contact_state"),
            ("TwoArmLift", dict(robots=("Panda", "Panda")), "twoarm_lift_contact_state"),
-           ("TwoArmPegInHole", dict(robots=("Panda", "Panda")), "peg_contact_state"))
+           ("TwoArmPegInHole", dict(robots=("Panda", "Panda")), "peg_contact_state"),
+           ("NutAssemblySingle", dict(robots="Panda"), "nut_contact_state"),
+           ("Wipe", dict(robots="Panda", num_markers=4, seed=1,
+                         controller_configs={"right": {"type": "OSC_POSE", "impedance_mode": "variable_kp"}}),
+            "wipe_contact_state"))
 
 
 def _unfused(R, torch, B):

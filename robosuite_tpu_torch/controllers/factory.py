@@ -26,8 +26,8 @@ def arm_controller_config(ctrl_type: str, dim: int = 7, **overrides):
     the dataclass has no field for (kd/velocity_limits of the reference
     JSON) are dropped."""
     t = ctrl_type.upper()
-    if t == "OSC_POSE":
-        cls, kw = osc_mod.OSCConfig, {}
+    if t == "OSC_POSE":  # the JAX factory's OSC defaults: its damping-ratio limits are (0, 10)
+        cls, kw = osc_mod.OSCConfig, dict(damping_ratio_limits=(0.0, 10.0))
     elif t == "JOINT_POSITION":
         cls, kw = jp_mod.JointPosConfig, dict(dim=dim, input_max=1.0, input_min=-1.0, output_max=0.05,
                                               output_min=-0.05, kp=50.0)
@@ -53,7 +53,16 @@ def resolve_controller_json(controller: Union[None, str, dict], robot: Optional[
 
 
 def load_composite_controller_config(controller=None, robot: Optional[str] = None, arms=("right",)):
-    """Resolve to {arm: OSCConfig or JointPosConfig}."""
+    """Resolve to {arm: OSCConfig or JointPosConfig}. `controller` may also
+    be a dict of part configs by arm, {"right": {"type": "OSC_POSE",
+    "impedance_mode": "variable_kp"}} (the JAX factory's form), which is
+    not modified."""
+    if isinstance(controller, dict) and "body_parts" not in controller and "type" not in controller:
+        out = {}
+        for arm, cfg in controller.items():
+            cfg = dict(cfg)
+            out[arm] = arm_controller_config(cfg.pop("type"), **cfg)
+        return out
     resolved = resolve_controller_json(controller, robot)
     if resolved is None:
         if isinstance(controller, str):

@@ -6,21 +6,27 @@ package's controllers/parts/osc.py; robosuite controllers/parts/arm/osc.py).
   * run_world (osc.py:403-495): F = kp e + kd (v_base - v_ref),
     tau = J^T (Lambda F) + qfrc_bias + nullspace torques.
 
-The port covers the configuration the Lift-Panda path runs: fixed
-impedance, delta input, base reference frame, no goal interpolation;
-other settings raise NotImplementedError.
+The port covers delta input in the base reference frame with no goal
+interpolation, at fixed impedance or with the variable-impedance modes
+(robosuite osc.py:190-211, 225-245): "variable" reads six damping ratios
+and six gains from the front of the arm's action, "variable_kp" six
+gains; both clip them to their limits and keep the per-scenario kp and kd
+in OSCState. Other settings raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
 from robosuite_tpu_torch.controllers import control_utils as C
 from robosuite_tpu_torch.controllers.base import ArmView, nums2array
 from robosuite_tpu_torch.utils import transforms as T
+
+
+IMPEDANCE_MODES = ("fixed", "variable", "variable_kp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,21 +39,25 @@ class OSCConfig:
     kp: Any = 150.0
     damping_ratio: Any = 1.0
     impedance_mode: str = "fixed"
+    kp_limits: Tuple[float, float] = (0.0, 300.0)
+    damping_ratio_limits: Tuple[float, float] = (0.0, 100.0)
     input_type: str = "delta"
     input_ref_frame: str = "base"
     uncouple_pos_ori: bool = True
     interpolation: Optional[str] = None
 
     def __post_init__(self):
-        if (self.impedance_mode != "fixed" or self.input_type != "delta" or self.input_ref_frame != "base"
-                or self.interpolation is not None or not self.control_ori):
+        if self.impedance_mode not in IMPEDANCE_MODES:
+            raise ValueError(f"impedance_mode {self.impedance_mode!r}: one of {IMPEDANCE_MODES}")
+        if (self.input_type != "delta" or self.input_ref_frame != "base" or self.interpolation is not None
+                or not self.control_ori):
             raise NotImplementedError(
-                "the port's OSC covers OSC_POSE with fixed impedance, delta input, base frame, no interpolation"
+                "the port's OSC covers OSC_POSE with delta input, base frame, no interpolation"
             )
 
     @property
     def control_dim(self) -> int:
-        return 6
+        return 6 + {"fixed": 0, "variable": 12, "variable_kp": 6}[self.impedance_mode]
 
     def arrays(self, device):
         def t(x, n):
@@ -55,7 +65,9 @@ class OSCConfig:
 
         return dict(input_max=t(self.input_max, 6), input_min=t(self.input_min, 6),
                     output_max=t(self.output_max, 6), output_min=t(self.output_min, 6),
-                    kp=t(self.kp, 6), damping_ratio=t(self.damping_ratio, 6))
+                    kp=t(self.kp, 6), damping_ratio=t(self.damping_ratio, 6),
+                    kp_min=t(self.kp_limits[0], 6), kp_max=t(self.kp_limits[1], 6),
+                    dr_min=t(self.damping_ratio_limits[0], 6), dr_max=t(self.damping_ratio_limits[1], 6))
 
 
 @dataclasses.dataclass
@@ -84,14 +96,26 @@ def init_state(cfg: OSCConfig, view: ArmView) -> OSCState:
 
 
 def set_goal(cfg: OSCConfig, state: OSCState, view: ArmView, action) -> OSCState:
-    """robosuite osc.py:225-283: goal = achieved pose (+ scaled delta)."""
+    """robosuite osc.py:225-283: goal = achieved pose (+ scaled delta); in
+    a variable mode the gains first, from the front of the action, clipped
+    to their limits: kd = 2 sqrt(kp) * the clipped damping ratio
+    ("variable") or 2 sqrt(kp) ("variable_kp")."""
     arrs = cfg.arrays(action.device)
+    kp, kd = state.kp, state.kd
+    if cfg.impedance_mode == "variable":
+        kp = torch.clamp(action[:, 6:12], arrs["kp_min"], arrs["kp_max"])
+        kd = 2.0 * torch.sqrt(kp) * torch.clamp(action[:, 0:6], arrs["dr_min"], arrs["dr_max"])
+        action = action[:, 12:]
+    elif cfg.impedance_mode == "variable_kp":
+        kp = torch.clamp(action[:, 0:6], arrs["kp_min"], arrs["kp_max"])
+        kd = 2.0 * torch.sqrt(kp)
+        action = action[:, 6:]
     scaled = C.scale_action(action[:, :6], arrs["input_min"], arrs["input_max"],
                             arrs["output_min"], arrs["output_max"])
     cur_pos, cur_ori = _eef_pose_in_origin(view)
     goal_pos = cur_pos + scaled[:, 0:3]
     goal_ori = T.quat2mat(T.axisangle2quat(scaled[:, 3:6])) @ cur_ori
-    return OSCState(goal_pos=goal_pos, goal_ori=goal_ori, kp=state.kp, kd=state.kd)
+    return OSCState(goal_pos=goal_pos, goal_ori=goal_ori, kp=kp, kd=kd)
 
 
 def desired_world_pose(cfg: OSCConfig, state: OSCState, origin_pos, origin_ori):

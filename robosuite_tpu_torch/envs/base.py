@@ -11,8 +11,12 @@ the contact rows and the contact-solve kernel (K2), as the JAX package's
 unfused path does. `step_batch` is the RL entry point: the step, then the
 observations through the Observable pipeline (observables.py), with the
 gripper's contact wrench from the last substep's solver forces, the
-reward and `done` at the horizon. `rollout_batch` is the planners' lean
-step (no observations). The MPC's planning hooks (`make_plan_return`,
+reward and `done` at the horizon; an env with a task state (Wipe) sets it
+at the reset (`_reset_task_state`) and updates it after each step from the
+step's end-of-step forward products (`_step_hook`), which may also replace
+the reward, end episodes early, add observations and return info.
+`rollout_batch` is the planners' lean step (no observations; the task
+state carried unchanged). The MPC's planning hooks (`make_plan_return`,
 `make_plan_dynamics`) run the same step on a planning model.
 
 An env may hold several robots (the two-arm envs): each has its own
@@ -25,7 +29,7 @@ substeps run unfused, as the JAX package's do.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -68,6 +72,7 @@ class EnvState:
     ctrl: RobotCtrlState  # a tuple of them, in robot order, where the env has several robots
     t: torch.Tensor  # (B,) int
     obs_cache: dict = None  # the Observable pipeline's stale and delayed values, where any stage keeps them
+    task_state: Any = None  # an env's own per-scenario state (Wipe's wiped markers), or None
 
 
 def map_state(fn, state):
@@ -154,6 +159,18 @@ class RobotEnv:
     def _get_observations(self, physics, kin):
         return {}
 
+    def _reset_task_state(self, n):
+        """The task state of n fresh episodes (the JAX envs' _reset_impl
+        overrides), or None."""
+        return None
+
+    def _step_hook(self, prev: "EnvState", new: "EnvState", obs, reward, done, kin):
+        """After step_batch's base step (the JAX envs' _step_impl
+        overrides): prev and new the states before and after, obs the
+        observations through the pipeline, kin the end-of-step forward
+        products. -> (new, obs, reward, done, info)."""
+        return new, obs, reward, done, {}
+
     # -- contact queries (robosuite manipulation_env.py:331-376) -------------
     def _contact_pairs(self, geoms_a, geoms_b):
         """Candidate pairs between two geom name sets."""
@@ -167,7 +184,10 @@ class RobotEnv:
         return out
 
     def _any_contact(self, kin, pairs):
-        """(B,) True where any point of the given pairs is touching."""
+        """(B,) True where any point of the given pairs is touching (False
+        for no pairs)."""
+        if not pairs:
+            return torch.zeros(kin.xpos.shape[0], dtype=torch.bool, device=kin.xpos.device)
         if kin.pair_dist is not None:
             return torch.any(kin.pair_dist[:, list(pairs)] < 0.0, dim=-1)
         con = C.narrowphase(self.model, kin, pairs=set(pairs))
@@ -328,7 +348,10 @@ class RobotEnv:
 
     @property
     def action_spec(self):
-        return -np.ones(self.action_dim, dtype=np.float32), np.ones(self.action_dim, dtype=np.float32)
+        """Per-dim bounds: [-1, 1], but a variable-impedance arm's gains and
+        damping ratios carry their limits (robosuite env_base action_spec)."""
+        lims = [r.action_limits for r in self.robots]
+        return np.concatenate([lo for lo, _ in lims]), np.concatenate([hi for _, hi in lims])
 
     def _split_robot_actions(self, action):
         """Each robot's slice of the (B, action_dim) actions (the JAX
@@ -393,7 +416,7 @@ class RobotEnv:
         obs["placement_valid"] = (valid[0].to(self.device) if valid
                                   else torch.ones(n, dtype=torch.bool, device=self.device))
         obs, cache = self._finalize_observations(obs, generator, t)
-        return EnvState(physics=physics, ctrl=ctrl, t=t, obs_cache=cache), obs
+        return EnvState(physics=physics, ctrl=ctrl, t=t, obs_cache=cache, task_state=self._reset_task_state(n)), obs
 
     def state_from_flattened(self, flat):
         """EnvState from flattened (time, qpos, qvel) rows (B, 1 + nq + nv)
@@ -496,7 +519,8 @@ class RobotEnv:
         physics, ctrl, _ = self._physics_step(state, action, model, n_substeps, kin, M, bias)
         kin2, M2, bias2 = engine.forward_products(model, physics.qpos, physics.qvel)
         reward = self.reward(physics, kin2)
-        return EnvState(physics=physics, ctrl=ctrl, t=state.t + 1), reward, (kin2, M2, bias2)
+        return (EnvState(physics=physics, ctrl=ctrl, t=state.t + 1, task_state=state.task_state), reward,
+                (kin2, M2, bias2))
 
     def rollout_batch(self, states: EnvState, actions):
         """Batched policy step (the JAX _rollout_impl): -> (states', rewards)."""
@@ -509,9 +533,9 @@ class RobotEnv:
         """Batched policy step (the JAX _step_impl / step_batch): goals,
         substeps, the end-of-step forward products, the observations through
         the pipeline (with the eef wrench of the last substep's solver
-        forces), the reward, then done = t >= horizon. -> (states', obs,
-        reward (B,), done (B,) bool, {}). Noise corrupters draw from
-        `generator`."""
+        forces), the reward, then done = t >= horizon, then the env's
+        `_step_hook`. -> (states', obs, reward (B,), done (B,) bool, info
+        dict). Noise corrupters draw from `generator`."""
         actions = self._clip(torch.as_tensor(actions, dtype=torch.float32, device=self.device))
         model = self.model
         kin, M, bias = engine.forward_products(model, states.physics.qpos, states.physics.qvel)
@@ -522,7 +546,8 @@ class RobotEnv:
         reward = self.reward(physics, kin2)
         t = states.t + 1
         done = t >= self.horizon
-        return EnvState(physics=physics, ctrl=ctrl, t=t, obs_cache=cache), obs, reward, done, {}
+        new = EnvState(physics=physics, ctrl=ctrl, t=t, obs_cache=cache, task_state=states.task_state)
+        return self._step_hook(states, new, obs, reward, done, kin2)
 
     # -- MPC planning hooks (the JAX envs/base.py make_plan_return / make_plan_dynamics)
     def _clip(self, actions):
@@ -605,7 +630,7 @@ class RobotEnv:
             physics = state.physics
             kin, M, bias = engine.forward_products(model, physics.qpos, physics.qvel)
             physics, ctrl, _ = self._physics_step(state, self._clip(action), model, n_substeps, kin, M, bias)
-            return EnvState(physics=physics, ctrl=ctrl, t=state.t + 1)
+            return EnvState(physics=physics, ctrl=ctrl, t=state.t + 1, task_state=state.task_state)
 
         return dyn
 

@@ -1,7 +1,7 @@
 """Arenas: procedural workspaces (robosuite models/arenas/*.py), trimmed
-to the empty, table and bins arenas. Same geometry and names as robosuite's
-table_arena.xml and bins_arena.xml, so the qpos/geom layout lines up with
-the JAX package."""
+to the empty, table, bins, pegs and wipe arenas. Same geometry and names as
+robosuite's table_arena.xml, bins_arena.xml and pegs_arena.xml, so the
+qpos/geom layout lines up with the JAX package."""
 
 from __future__ import annotations
 
@@ -144,3 +144,53 @@ class BinsArena(Arena):
                                      pos=(0, 0, -bpos[2] / 2), contype=0, conaffinity=0, group=1))
         self.add_standard_light()
         self.add_standard_cameras()
+
+
+class PegsArena(TableArena):
+    """robosuite arenas/pegs_arena.py (NutAssembly): the table and two pegs,
+    a box (peg1, for the square nut) and a cylinder (peg2, the round nut),
+    at pegs_arena.xml's positions and sizes."""
+
+    def __init__(self, table_full_size=(0.45, 0.69, 0.05), table_friction=(1, 0.005, 0.0001),
+                 table_offset=(0, 0, 0.8)):
+        super().__init__(table_full_size=table_full_size, table_friction=table_friction, table_offset=table_offset)
+        wb = self.spec.worldbody
+        peg1 = wb.add_body(S.BodySpec("peg1", pos=(0.23, 0.1, 0.85)))
+        peg1.add_geom(S.GeomSpec("peg1_g0", type="box", size=(0.016, 0.016, 0.1), friction=(1, 0.005, 0.0001)))
+        peg2 = wb.add_body(S.BodySpec("peg2", pos=(0.23, -0.1, 0.85)))
+        peg2.add_geom(S.GeomSpec("peg2_g0", type="cylinder", size=(0.02, 0.1), friction=(1, 0.005, 0.0001)))
+
+
+class WipeArena(TableArena):
+    """robosuite arenas/wipe_arena.py (Wipe): the table and num_markers dirt
+    markers, each a body "contact<i>" under the table with a visual
+    cylinder site, along a 2D random walk over the table top
+    (sample_path_pos) drawn from np.random.default_rng(seed) in the JAX
+    package's order, so a seed gives its markers bit for bit."""
+
+    def __init__(self, table_full_size=(0.8, 0.8, 0.05), table_friction=(0.01, 0.005, 0.0001),
+                 table_offset=(0, 0, 0.8), num_markers=10, line_width=0.04, coverage_factor=0.9, seed=None):
+        super().__init__(table_full_size=table_full_size, table_friction=table_friction, table_offset=table_offset)
+        self.num_markers = num_markers
+        self.line_width = line_width
+        self.coverage_factor = coverage_factor
+        rng = np.random.default_rng(seed)
+        table = self.spec.worldbody.find_body("table")
+        pos = np.array([0.0, 0.0])
+        direction = rng.uniform(-np.pi, np.pi)
+        half = self.table_half_size
+        lim = half[:2] * coverage_factor - line_width / 2
+        self.marker_names = []
+        for i in range(num_markers):
+            body = S.BodySpec(f"contact{i}", pos=(pos[0], pos[1], half[2]))
+            body.add_site(S.SiteSpec(f"contact{i}_site", pos=(0, 0, 0), size=(line_width / 2, 0.001, 0.001),
+                                     type="cylinder", rgba=(1, 1, 1, 1)))
+            table.children.append(body)
+            self.marker_names.append(f"contact{i}")
+            if rng.uniform() > 0.7:
+                direction += rng.normal(0, 0.5)
+            posnew = pos + 0.005 * np.array([np.cos(direction), np.sin(direction)])
+            while abs(posnew[0]) >= lim[0] or abs(posnew[1]) >= lim[1]:
+                direction += rng.normal(0, 0.5)
+                posnew = pos + 0.005 * np.array([np.cos(direction), np.sin(direction)])
+            pos = posnew

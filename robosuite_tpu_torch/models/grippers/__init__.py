@@ -1,5 +1,6 @@
 """Gripper models (robosuite models/grippers/*.py + gripper_factory.py),
-trimmed to the Panda and Rethink grippers and the null gripper.
+trimmed to the Panda and Rethink grippers, the null gripper and the
+wiping gripper.
 
 Each gripper wraps its model card with robosuite's metadata: dof, speed,
 init_qpos, important sites (grip_site for the OSC reference frame) and
@@ -153,6 +154,20 @@ class NullGripper(GripperModel):
     eef sites only (TwoArmPegInHole welds its peg and plate at the eef)."""
 
     card_name = "null_gripper"
+    dof = 0
+    speed = 0.0
+
+    @property
+    def _important_sites(self):
+        return {"grip_site": "grip_site", "grip_cylinder": "grip_site_cylinder", "ee": "ft_frame"}
+
+
+@register_gripper
+class WipingGripper(GripperModel):
+    """robosuite wiping_gripper.py (Wipe): a wiping plate, no fingers and no
+    actuators (dof 0)."""
+
+    card_name = "wiping_gripper"
     dof = 0
     speed = 0.0
 

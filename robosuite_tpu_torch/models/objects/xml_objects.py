@@ -1,10 +1,11 @@
 """Card-backed objects (the JAX package's models/objects/xml_objects.py;
-robosuite models/objects/xml_objects.py), trimmed to the door and the
-plate with a hole.
+robosuite models/objects/xml_objects.py), trimmed to the door, the
+plate with a hole and the two nuts.
 
 Each wraps a committed model card (models/cards/<name>.json) extracted
-from robosuite's primitive-geometry object MJCF. The object's articulated
-joints live inside the card; no free joint is added.
+from robosuite's primitive-geometry object MJCF. The door's and the
+plate's joints live inside their cards; a nut gets one free joint on its
+root, "<name>_joint0", as the JAX package's default joints give it.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ class CardObject(MujocoObject):
     (objects.py:332-520), its one root renamed "<name>_main"."""
 
     card_name: str = None
+    free_joint: bool = False  # a free joint "<name>_joint0" first on the root
 
     def _build(self) -> S.BodySpec:
         ms = spec_from_card(self.card_name)
@@ -32,6 +34,8 @@ class CardObject(MujocoObject):
         root = copy.deepcopy(children[0])
         root.name = "main"
         root.apply_prefix(self.naming_prefix)
+        if self.free_joint:
+            root.joints.insert(0, S.JointSpec(name=f"{self.naming_prefix}joint0", type="free"))
         root.add_site(S.SiteSpec(self.default_site, size=(0.002,), rgba=(1, 0, 0, 0)))
         return root
 
@@ -121,3 +125,34 @@ class PlateWithHoleObject(CardObject):
     @property
     def horizontal_radius(self):
         return 0.12
+
+
+class _NutObject(CardObject):
+    """robosuite xml_objects.py SquareNutObject / RoundNutObject
+    (NutAssembly): a nut with a handle, free to move."""
+
+    free_joint = True
+
+    @property
+    def important_sites(self):
+        return {"handle": self.naming_prefix + "handle_site"}
+
+    @property
+    def bottom_offset(self):
+        return np.array([0, 0, -0.01])
+
+    @property
+    def top_offset(self):
+        return np.array([0, 0, 0.01])
+
+    @property
+    def horizontal_radius(self):
+        return 0.06
+
+
+class SquareNutObject(_NutObject):
+    card_name = "square_nut"
+
+
+class RoundNutObject(_NutObject):
+    card_name = "round_nut"

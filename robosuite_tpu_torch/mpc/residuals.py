@@ -1,6 +1,6 @@
 """Planning residuals (the JAX package's mpc/residuals.py and
-receding.lift_residual), for Lift, Stack, Door, PickPlace, TwoArmLift and
-TwoArmPegInHole.
+receding.lift_residual), for Lift, Stack, Door, PickPlace, NutAssembly,
+TwoArmLift, TwoArmPegInHole and Wipe.
 
 A residual r(env, plan_model, qpos, qvel, u, poses) -> (N, m) defines the
 stage cost 0.5 ||r||^2 of the iLQR refinement: a smooth least-squares
@@ -11,9 +11,12 @@ only the value is needed, the plain kinematics.body_poses under torch.func.
 
 from __future__ import annotations
 
+import types
+
 import torch
 
 from robosuite_tpu_torch.envs.two_arm import peg_alignment
+from robosuite_tpu_torch.physics import contact as C
 from robosuite_tpu_torch.physics import kinematics
 from robosuite_tpu_torch.utils import transforms as T
 
@@ -76,6 +79,37 @@ def _pick_place_can_residual(env, plan_model, qpos, qvel, u, poses=kinematics.bo
     return pick_place_residual(env, plan_model, qpos, qvel, u, poses, obj_idx=0)
 
 
+def nut_assembly_residual(env, plan_model, qpos, qvel, u, poses=kinematics.body_poses, nut_idx=0):
+    """Reach nut `nut_idx`, lift it 15 cm above its peg's centre, hover it
+    over the peg (robosuite nut_assembly.py:249-334 in smooth form). The
+    JAX registry passes nut_idx=0, the square nut, for every variant."""
+    xpos, xquat = poses(plan_model, qpos)
+    eef = kinematics.site_pos(plan_model, xpos, xquat, env.eef_site)
+    nut = xpos[:, env.nut_body_ids[nut_idx]]
+    peg = xpos[:, [env.peg1_body_id, env.peg2_body_id][nut_idx]]
+    r_reach = 2.0 * (eef - nut)
+    r_lift = 5.0 * torch.clamp_max(nut[:, 2:3] - (peg[:, 2:3] + 0.15), 0.0)
+    r_hover = 2.0 * (nut[:, :2] - peg[:, :2])
+    return torch.cat([r_reach, r_lift, r_hover, 0.02 * qvel], dim=-1)
+
+
+def wipe_residual(env, plan_model, qpos, qvel, u, poses=kinematics.body_poses, press_target=0.003):
+    """Reach the markers' centroid in the table plane while holding a target
+    tool-table penetration (the planning stand-in for a pressing force),
+    from the narrowphase of the tool-table pairs alone (the JAX
+    wipe_residual)."""
+    xpos, xquat = poses(plan_model, qpos)
+    eef = kinematics.site_pos(plan_model, xpos, xquat, env.eef_site)
+    centroid = xpos[:, env.marker_body_ids].mean(dim=1)
+    geom_xpos, geom_xmat = kinematics.geom_poses(plan_model, xpos, xquat)
+    con = C.narrowphase(plan_model, types.SimpleNamespace(geom_xpos=geom_xpos, geom_xmat=geom_xmat),
+                        pairs=set(env._tool_table_pairs))
+    pen = -con["dist"].min(dim=-1).values  # > 0 when pressing
+    r_reach = 3.0 * (eef[:, :2] - centroid[:, :2])
+    r_press = 40.0 * (pen - press_target)[:, None]
+    return torch.cat([r_reach, r_press, 0.02 * qvel], dim=-1)
+
+
 def two_arm_lift_residual(env, plan_model, qpos, qvel, u, poses=kinematics.body_poses):
     """Both eefs to their pot handles, the pot above the success height and
     level (robosuite two_arm_lift.py:221-300 in smooth form)."""
@@ -104,7 +138,10 @@ _RESIDUALS = {"Lift": lift_residual, "Stack": stack_residual, "Door": door_resid
               "PickPlace": pick_place_residual, "PickPlaceCan": _pick_place_can_residual,
               "PickPlaceSingle": pick_place_residual, "PickPlaceMilk": pick_place_residual,
               "PickPlaceBread": pick_place_residual, "PickPlaceCereal": pick_place_residual,
-              "TwoArmLift": two_arm_lift_residual, "TwoArmPegInHole": two_arm_peg_in_hole_residual}
+              "NutAssembly": nut_assembly_residual, "NutAssemblySingle": nut_assembly_residual,
+              "NutAssemblySquare": nut_assembly_residual, "NutAssemblyRound": nut_assembly_residual,
+              "TwoArmLift": two_arm_lift_residual, "TwoArmPegInHole": two_arm_peg_in_hole_residual,
+              "Wipe": wipe_residual}
 
 
 def residual_for(env):

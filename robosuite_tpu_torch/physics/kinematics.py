@@ -23,9 +23,7 @@ def fk(model, qpos) -> KinData:
     xipos = xpos + torch.einsum("bnij,nj->bni", xmat, model.body_ipos)
     ximat = T.quat2mat_wxyz(T.quat_mul_wxyz(xquat, model.body_iquat.expand(xquat.shape)))
 
-    gb = list(model.geom_bodyid)
-    geom_xpos = xpos[:, gb] + torch.einsum("bgij,gj->bgi", xmat[:, gb], model.geom_pos)
-    geom_xmat = T.quat2mat_wxyz(T.quat_mul_wxyz(xquat[:, gb], model.geom_quat.expand(B, -1, 4)))
+    geom_xpos, geom_xmat = geom_poses(model, xpos, xquat, xmat)
     sb = list(model.site_bodyid)
     site_xpos = xpos[:, sb] + torch.einsum("bsij,sj->bsi", xmat[:, sb], model.site_pos)
     site_xmat = T.quat2mat_wxyz(T.quat_mul_wxyz(xquat[:, sb], model.site_quat.expand(B, -1, 4)))
@@ -42,6 +40,15 @@ def body_poses(model, qpos):
     torch.func transforms (the MPC's residual Jacobians) go through it."""
     xpos, xquat, _, _ = _tree(model, qpos, subspace=False)
     return xpos, xquat
+
+
+def geom_poses(model, xpos, xquat, xmat=None):
+    """(geom_xpos (B, ngeom, 3), geom_xmat (B, ngeom, 3, 3)) from the body
+    poses (xmat, the bodies' rotations, is made from xquat if not given)."""
+    gb = list(model.geom_bodyid)
+    xmat = T.quat2mat_wxyz(xquat[:, gb]) if xmat is None else xmat[:, gb]
+    return (xpos[:, gb] + torch.einsum("bgij,gj->bgi", xmat, model.geom_pos),
+            T.quat2mat_wxyz(T.quat_mul_wxyz(xquat[:, gb], model.geom_quat.expand(xpos.shape[0], -1, 4))))
 
 
 def site_pos(model, xpos, xquat, siteid: int):

@@ -94,11 +94,43 @@ class FixedBaseRobot:
             grip_range=model.actuator_ctrlrange[idx(self.gripper_actuator_ids[arm])],
             grip_dir=torch.as_tensor(robot_model.grippers[arm].format_action_direction(), dtype=torch.float32,
                                      device=dev)) for arm in self.arms}
+        # check_q_limits: every arm's joint positions and ranges, the limited ones
+        jr = model.jnt_range.cpu().numpy()
+        jids = np.concatenate([[int(model.dof_jntid[d]) for d in self.arm_qvel_idx[arm]] for arm in self.arms])
+        lim = jr[jids]
+        self._q_limits = dict(qp=idx(np.concatenate([self.arm_qpos_idx[arm] for arm in self.arms])),
+                              lo=torch.as_tensor(lim[:, 0], device=dev), hi=torch.as_tensor(lim[:, 1], device=dev),
+                              limited=torch.as_tensor(lim[:, 0] != lim[:, 1], device=dev))
 
     # -- action vector layout (robosuite composite_controller.py:86-95) ------
     @property
     def action_dim(self) -> int:
         return sum(self.arm_cfg[a].control_dim + self.rm.grippers[a].dof for a in self.arms)
+
+    @property
+    def action_limits(self):
+        """(low, high) of each action dim (robosuite controller control_limits,
+        osc.py:190-211): [-1, 1], but a variable-impedance arm's damping
+        ratios and gains carry their limits."""
+        low, high = -np.ones(self.action_dim, dtype=np.float32), np.ones(self.action_dim, dtype=np.float32)
+        idx = self.action_split_indexes()
+        for arm in self.arms:
+            cfg, (s, _) = self.arm_cfg[arm], idx[arm]
+            mode = getattr(cfg, "impedance_mode", "fixed")
+            if mode == "variable":
+                low[s:s + 6], high[s:s + 6] = cfg.damping_ratio_limits
+                low[s + 6:s + 12], high[s + 6:s + 12] = cfg.kp_limits
+            elif mode == "variable_kp":
+                low[s:s + 6], high[s:s + 6] = cfg.kp_limits
+        return low, high
+
+    def check_q_limits(self, qpos, tolerance=0.1):
+        """(B,) True where any limited arm joint is within `tolerance` of an
+        end of its range (robosuite robots/robot.py:509-523)."""
+        d = self._q_limits
+        q = qpos[:, d["qp"]]
+        near = (q <= d["lo"] + tolerance) | (q >= d["hi"] - tolerance)
+        return (near & d["limited"]).any(dim=-1)
 
     def action_split_indexes(self):
         """arm parts first, grippers last."""
