@@ -28,9 +28,11 @@ chip_smoke.py's Door contact state (the gripper driven onto the handle,
 the hinge past its limits and the latch near its stops in some
 scenarios), where the tree has the Door env; K1 at 512 and 32 and K2 at
 512 on each unfused world the tree has (UNFUSED: PickPlaceCan, TwoArmLift,
-TwoArmPegInHole, NutAssemblySingle, Wipe) at its contact state
-(pickplace_contact_state, twoarm_lift_contact_state, peg_contact_state,
-nut_contact_state, wipe_contact_state); and, where the tree reports
+TwoArmPegInHole, NutAssemblySingle, Wipe, TwoArmHandover, ToolHang,
+TwoArmTransport) at its contact state (pickplace_contact_state,
+twoarm_lift_contact_state, peg_contact_state, nut_contact_state,
+wipe_contact_state, handover_contact_state, tool_hang_contact_state,
+transport_contact_state); and, where the tree reports
 it, each K3 variant's resident scenarios per SM. K2's operands are the plain
 path's at each state. Each case is timed two ways after a warm-up: by CUDA
 events around its calls (`<case>_ms_B<n>`, which includes any wait for the
@@ -69,6 +71,7 @@ two trees' outputs are compared bit for bit.
 import concurrent.futures
 import ctypes
 import json
+import math
 import os
 import subprocess
 import sys
@@ -372,6 +375,140 @@ def wipe_contact_state(env, s):
     return env.state_from_flattened(torch.cat([s.physics.time[:, None], q, torch.zeros_like(s.physics.qvel)], 1).cpu())
 
 
+def _grip_frame(x, xmat_g):
+    """_pointing_down(x) with x (B, 3) flattened to the horizontal plane,
+    normalised, and turned to the side nearer the grip site's x axis
+    (xmat_g (B, 3, 3)): the fingers open along x, the gripper points down.
+    Where x stands near vertical, the grip site's own x axis, flattened."""
+    import torch
+
+    flat = torch.tensor([1.0, 1.0, 0.0], dtype=x.dtype, device=x.device)
+    x, xg = x * flat, xmat_g[..., 0] * flat
+    x = torch.where(torch.linalg.vector_norm(x, dim=-1, keepdim=True) < 1e-3, xg, x)
+    x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    return _pointing_down(x * torch.where((x * xg).sum(-1, keepdim=True) < 0, -1.0, 1.0))
+
+
+def _settle(env, s, steps):
+    """`steps` policy steps of zero arm deltas with every gripper open."""
+    import torch
+
+    a = torch.zeros(s.physics.qpos.shape[0], env.action_dim, device=s.physics.qpos.device)
+    for r in env._split_robot_actions(a):
+        r[:, -1] = -1.0
+    for _ in range(steps):
+        s, _ = env.rollout_batch(s, a)
+    return s
+
+
+def _grasp(env, s, robot_idx, target, x_axis, close_steps, iters=60):
+    """Robot `robot_idx`'s arm moved (site_ik) so that its grip site sits at
+    `target` (B, 3), the gripper pointing down with its fingers opening
+    along the horizontal part of `x_axis` (B, 3); then `close_steps`
+    policy steps of zero arm deltas, that gripper closing and the others
+    open."""
+    import torch
+
+    from robosuite_tpu_torch.physics import kinematics
+
+    q = s.physics.qpos.clone()
+    robot = env.robots[robot_idx]
+    site = robot.eef_site_id["right"]
+    rot = _grip_frame(x_axis, kinematics.fk(env.model, q).site_xmat[:, site])
+    q[:, torch.as_tensor(robot.arm_qpos_idx["right"], device=q.device)] = site_ik(
+        env, s, target, robot_idx=robot_idx, target_rot=rot, iters=iters)
+    s = env.state_from_flattened(torch.cat([s.physics.time[:, None], q, torch.zeros_like(s.physics.qvel)], 1).cpu())
+    a = torch.zeros(q.shape[0], env.action_dim, device=q.device)
+    for i, r in enumerate(env._split_robot_actions(a)):
+        r[:, -1] = 1.0 if i == robot_idx else -1.0
+    for _ in range(close_steps):
+        s, _ = env.rollout_batch(s, a)
+    return s
+
+
+HANDOVER_SETTLE_STEPS = 4  # the hammer drops its 1 cm onto the table and comes to rest on its head
+HANDOVER_YAW_BAND = 1.0  # degrees about 45 (mod 90) where the head's landing is thrown (0.1 measured)
+GRASP_CLOSE_STEPS = 6  # policy steps for a Panda gripper to close from open onto a 2-3 cm bar
+
+
+def handover_contact_state(env, s):
+    """The contact-rich TwoArmHandover state that chip_smoke.py holds the
+    kernels on: HANDOVER_SETTLE_STEPS policy steps with both grippers open,
+    so that the hammer comes to rest on the table, where a hammer placed
+    within HANDOVER_YAW_BAND of 45 degrees (mod 90) about z is first
+    turned 2 degrees aside (there the box-box test of its head against the
+    table ties a face axis with the edge axes, and the float32 solve of
+    the landing throws the hammer, in the JAX package too: ROADMAP Queue
+    3); robot0's grip site moved
+    to the free end of the handle, pointing down, its fingers opening
+    across the handle (along the hammer's x axis); then GRASP_CLOSE_STEPS
+    steps of robot0's gripper closing on it (robot1 open, as the reset put
+    it). The end, not the middle: the narrowphase tests a cylinder against
+    a box at the two ends of its axis (the JAX package's _capsule_box)."""
+    import torch
+
+    from robosuite_tpu_torch.physics import kinematics
+
+    q = s.physics.qpos.clone()
+    a = env.model.jnt_qpos_slice("hammer_joint0").start
+    yaw = 2.0 * torch.atan2(q[:, a + 6], q[:, a + 3])  # the placement turns the hammer about z alone
+    near = torch.remainder(yaw - math.pi / 4, math.pi / 2)
+    near = torch.minimum(near, math.pi / 2 - near) < math.radians(HANDOVER_YAW_BAND)
+    yaw = torch.where(near, yaw + math.radians(2.0), yaw)
+    q[:, a + 3], q[:, a + 6] = torch.cos(yaw / 2), torch.sin(yaw / 2)
+    s = env.state_from_flattened(torch.cat([s.physics.time[:, None], q, s.physics.qvel], 1).cpu())
+    s = _settle(env, s, HANDOVER_SETTLE_STEPS)
+    kin = kinematics.fk(env.model, s.physics.qpos)
+    R = kin.xmat[:, env.hammer_body_id]
+    end = kin.xpos[:, env.hammer_body_id] - 0.5 * env.hammer.handle_length * R[..., 1]  # the handle runs along y
+    return _grasp(env, s, 0, end, R[..., 0], GRASP_CLOSE_STEPS)
+
+
+TOOL_HANG_SETTLE_STEPS = 12  # the frame, stood on its stem, topples onto the table and comes to rest
+TOOL_HANG_CLOSE_STEPS = 5  # the pads' first touch of the wrench's bar (a sixth step's squeeze throws a few)
+TOOL_HANG_GRIP_DZ = 0.004  # the grip site this far above the bar's centre: the fingertips clear of the table
+
+
+def tool_hang_contact_state(env, s):
+    """The contact-rich ToolHang state that chip_smoke.py holds the kernels
+    on: TOOL_HANG_SETTLE_STEPS policy steps with the gripper open, so that
+    the stand, the frame and the wrench rest on the table; the grip site
+    moved just above the wrench bar's centre, pointing down, its fingers
+    opening across the bar (along the wrench's y axis); then
+    TOOL_HANG_CLOSE_STEPS steps of the gripper closing onto the bar, to
+    the pads' first touch: squeezing the 1.2 cm bar against the table one
+    step more throws a few scenarios in 512 (the plain version too)."""
+    import torch
+
+    from robosuite_tpu_torch.physics import kinematics
+
+    s = _settle(env, s, TOOL_HANG_SETTLE_STEPS)
+    kin = kinematics.fk(env.model, s.physics.qpos)
+    bar = kin.xpos[:, env.tool_body_id] + torch.tensor([0.0, 0.0, TOOL_HANG_GRIP_DZ], dtype=kin.xpos.dtype,
+                                                       device=kin.xpos.device)
+    return _grasp(env, s, 0, bar, kin.xmat[:, env.tool_body_id, :, 1], TOOL_HANG_CLOSE_STEPS)
+
+
+TRANSPORT_SETTLE_STEPS = 8  # the payload and the lid drop into and onto the start bin, the trash onto table 0
+
+
+def transport_contact_state(env, s):
+    """The contact-rich TwoArmTransport state that chip_smoke.py holds the
+    kernels on: TRANSPORT_SETTLE_STEPS policy steps with both grippers
+    open from the fixed initial poses, so that the payload rests in the
+    start bin, the lid on it and the trash on table 0; robot0's grip site
+    moved to the lid's handle bar, pointing down, its fingers opening
+    across the bar (along the lid's y axis); then GRASP_CLOSE_STEPS
+    steps of robot0's gripper closing on the bar."""
+    from robosuite_tpu_torch.physics import kinematics
+
+    s = _settle(env, s, TRANSPORT_SETTLE_STEPS)
+    m = env.model
+    kin = kinematics.fk(m, s.physics.qpos)
+    handle = kin.geom_xpos[:, m.geom_name2id(env.lid.handle_geoms[0])]
+    return _grasp(env, s, 0, handle, kin.xmat[:, env.lid_body, :, 1], GRASP_CLOSE_STEPS)
+
+
 def _door(R, torch, B):
     """(Door env, its door_contact_state), or None where the tree has no
     Door env."""
@@ -390,7 +527,10 @@ UNFUSED = (("PickPlaceCan", dict(robots="Sawyer", controller_configs="JOINT_POSI
            ("NutAssemblySingle", dict(robots="Panda"), "nut_contact_state"),
            ("Wipe", dict(robots="Panda", num_markers=4, seed=1,
                          controller_configs={"right": {"type": "OSC_POSE", "impedance_mode": "variable_kp"}}),
-            "wipe_contact_state"))
+            "wipe_contact_state"),
+           ("TwoArmHandover", dict(robots=("Panda", "Panda")), "handover_contact_state"),
+           ("ToolHang", dict(robots="Panda"), "tool_hang_contact_state"),
+           ("TwoArmTransport", dict(robots=("Panda", "Panda")), "transport_contact_state"))
 
 
 def _unfused(R, torch, B):

@@ -117,7 +117,7 @@ static __device__ long long rs_stage_clock[RS_NSTAGES];
 
 // Compile-time maxima; the Python side checks a model against them
 // before it packs the table (ops/tables.py mirrors these numbers).
-#define RS_MAXB 48     // bodies
+#define RS_MAXB 56     // bodies
 #define RS_MAXJ 24     // joints
 #define RS_MAXQ 40     // qpos
 #define RS_MAXV 36     // dofs
@@ -132,7 +132,7 @@ static __device__ long long rs_stage_clock[RS_NSTAGES];
 #define RS_MAXGR 4     // gripper actuators
 #define RS_MAXPR 384   // (body, dof) pairs with anc != 0
 #define RS_MAXV1 37    // RS_MAXV + 1 and RS_MAXB + 1: prefix tables over the dofs and the bodies
-#define RS_MAXB1 49
+#define RS_MAXB1 57
 #define RS_MAXV2 1296  // RS_MAXV * RS_MAXV: the mass matrix's entries
 
 // Scenarios a block of K1, K2 and K3 (one warp each) and K4 (one thread

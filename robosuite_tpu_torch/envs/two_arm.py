@@ -1,15 +1,16 @@
-"""Two-arm environments: TwoArmLift and TwoArmPegInHole with two robots
-(the JAX package's envs/two_arm.py; robosuite environments/manipulation/
-two_arm_env.py (placements), two_arm_lift.py (reward :221-300, success
-:490-501), two_arm_peg_in_hole.py (alignment reward, the peg and the plate
-welded at the eefs)).
+"""Two-arm environments: TwoArmLift, TwoArmPegInHole and TwoArmHandover
+with two robots (the JAX package's envs/two_arm.py; robosuite
+environments/manipulation/two_arm_env.py (placements), two_arm_lift.py
+(reward :221-300, success :490-501), two_arm_peg_in_hole.py (alignment
+reward, the peg and the plate welded at the eefs), two_arm_handover.py
+(the staged reach / grasp / hover reward, success :545+)).
 
 env_configuration "opposed" (the default: the robots face each other
 across the table, turned by +-pi/2) or "parallel" (side by side, +-0.25 m).
 The "single-robot" configuration (one bimanual robot) raises until a
 bimanual robot is ported. Both worlds step unfused (two robots), as the
-JAX package's do: TwoArmLift compacts its 620 candidate rows, and
-TwoArmPegInHole solves its 117 static rows.
+JAX package's do: TwoArmLift compacts its 620 candidate rows and
+TwoArmHandover its 203, and TwoArmPegInHole solves its 117 static rows.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from robosuite_tpu_torch.envs.base import RobotEnv, register_env
 from robosuite_tpu_torch.models import spec as S
 from robosuite_tpu_torch.models.arenas import EmptyArena, TableArena
 from robosuite_tpu_torch.models.grippers import gripper_factory
-from robosuite_tpu_torch.models.objects.composite_objects import PotWithHandlesObject
+from robosuite_tpu_torch.models.objects.composite_objects import HammerObject, PotWithHandlesObject
 from robosuite_tpu_torch.models.objects.xml_objects import PlateWithHoleObject
 from robosuite_tpu_torch.models.tasks import ManipulationTask
 from robosuite_tpu_torch.utils import transforms as T
@@ -241,6 +242,81 @@ class TwoArmPegInHole(RobotEnv):
         obs["t"] = t[:, None]
         obs["d"] = d[:, None]
         obs["angle"] = cos[:, None]
+        return obs
+
+
+@register_env
+class TwoArmHandover(RobotEnv):
+    """Hand a hammer from robot0's gripper to robot1's (robosuite
+    two_arm_handover.py, as the JAX package re-derives it): the hammer
+    placed flat on the table, turned about z at random."""
+
+    def __init__(self, robots=("Panda", "Panda"), env_configuration="opposed", table_full_size=(0.8, 1.2, 0.05),
+                 reward_scale=1.0, reward_shaping=False, **kwargs):
+        robots, self.env_configuration = _normalize_two_arm(robots, env_configuration)
+        self.table_full_size = np.array(table_full_size)
+        self.table_offset = np.array((0, 0, 0.8))
+        self.height_threshold = 0.1
+        super().__init__(robots=robots, reward_scale=reward_scale, reward_shaping=reward_shaping, **kwargs)
+
+    def _load_model(self):
+        _place_two_robots(self.robot_models, self.env_configuration, self.table_full_size[0])
+        arena = TableArena(table_full_size=self.table_full_size, table_offset=self.table_offset)
+        self.hammer = HammerObject(name="hammer")
+        self.task = ManipulationTask(arena, self.robot_models, self.hammer)
+
+    def _setup_references(self):
+        m = self.model
+        self.hammer_body_id = m.body_name2id(self.hammer.root_body)
+        self.eef_sites = _two_eef_sites(self.robots)
+        # each gripper's fingerpad pairs on the hammer's handle
+        self._grasp0, self._grasp1 = (self.grasp_pairs(arm, self.hammer.handle_geoms, robot_idx=i)
+                                      for i, _, arm in _two_arm_pairs(self.robots))
+        self._placements = [PlacementSpec(
+            name="hammer", qpos_start=m.jnt_qpos_slice("hammer_joint0").start, x_range=(-0.1, 0.1),
+            y_range=(-0.05, 0.05), rotation=None, reference_pos=tuple(self.table_offset), z_offset=0.01,
+            bottom_offset=float(self.hammer.bottom_offset[2]), horizontal_radius=self.hammer.horizontal_radius)]
+
+    def _sample_placements(self, generator, n):
+        return sample_placements(self._placements, n, generator)
+
+    def _hammer_height(self, kin):
+        return kin.xpos[:, self.hammer_body_id, 2] - float(self.table_offset[2])
+
+    def _check_success(self, kin):
+        """robot1 holds the hammer above the height threshold and robot0 has
+        let go (two_arm_handover.py:545+)."""
+        grasp0 = self.check_grasp(kin, *self._grasp0)
+        grasp1 = self.check_grasp(kin, *self._grasp1)
+        return grasp1 & ~grasp0 & (self._hammer_height(kin) > self.height_threshold)
+
+    def reward(self, physics, kin):
+        """2 on success; shaped, the largest of robot0's reach to the hammer
+        (0.1 at most), the lift (0.5 while robot0 holds it above the
+        threshold) and robot1's hover over it (0.5 to 1.0 while lifted);
+        scaled by reward_scale / 2."""
+        success = self._check_success(kin)
+        r = torch.where(success, 2.0, 0.0)
+        if self.reward_shaping:
+            grasp0 = self.check_grasp(kin, *self._grasp0)
+            hammer = kin.xpos[:, self.hammer_body_id]
+            d0, d1 = (torch.linalg.vector_norm(kin.site_xpos[:, s] - hammer, dim=-1) for s in self.eef_sites)
+            held = grasp0 & (self._hammer_height(kin) > self.height_threshold)
+            r_reach = 0.1 * (1.0 - torch.tanh(10.0 * d0))
+            r_lift = torch.where(held, 0.5, 0.0)
+            r_hover = torch.where(held, 0.5 + 0.5 * (1.0 - torch.tanh(10.0 * d1)), 0.0)
+            r = torch.where(success, 2.0, torch.maximum(torch.maximum(r_reach, r_lift), r_hover))
+        if self.reward_scale is not None:
+            r = r * self.reward_scale / 2.0
+        return r
+
+    def _get_observations(self, physics, kin):
+        obs = {}
+        for k, (_, robot, arm) in enumerate(_two_arm_pairs(self.robots)):
+            obs[f"robot{k}_joint_pos"] = physics.qpos[:, robot.arm_qpos_idx[arm]]
+            obs[f"robot{k}_eef_pos"] = kin.site_xpos[:, self.eef_sites[k]]
+        obs["hammer_pos"] = kin.xpos[:, self.hammer_body_id]
+        obs["hammer_quat"] = T.convert_quat(kin.xquat[:, self.hammer_body_id], to="xyzw")
         return obs
 
 

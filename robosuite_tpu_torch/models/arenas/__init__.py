@@ -1,5 +1,5 @@
 """Arenas: procedural workspaces (robosuite models/arenas/*.py), trimmed
-to the empty, table, bins, pegs and wipe arenas. Same geometry and names as
+to the empty, table, multi-table, bins, pegs and wipe arenas. Same geometry and names as
 robosuite's table_arena.xml, bins_arena.xml and pegs_arena.xml, so the
 qpos/geom layout lines up with the JAX package."""
 
@@ -115,6 +115,27 @@ class TableArena(Arena):
                 )
         self.add_standard_light()
         self.add_standard_cameras()
+
+
+class MultiTableArena(Arena):
+    """robosuite arenas/multi_table_arena.py (TwoArmTransport): the floor and
+    N tables, table i's top at table_offsets[i] with a "table{i}_top"
+    site. Its lights and cameras are left out: the port renders nothing."""
+
+    def __init__(self, table_offsets, table_full_sizes=(0.8, 0.8, 0.05), table_frictions=(1, 0.005, 0.0001)):
+        super().__init__()
+        self.table_offsets = np.array(table_offsets).reshape(-1, 3)
+        n = self.table_offsets.shape[0]
+        self.table_full_sizes = np.broadcast_to(np.array(table_full_sizes), (n, 3)).copy()
+        self.table_half_sizes = self.table_full_sizes / 2
+        wb = self.spec.worldbody
+        wb.add_geom(S.GeomSpec("floor", type="plane", size=(3, 3, 0.125), group=1, friction=(1, 0.005, 0.0001)))
+        for i in range(n):
+            half = self.table_half_sizes[i]
+            t = wb.add_body(S.BodySpec(f"table{i}", pos=self.table_offsets[i] - np.array([0, 0, half[2]])))
+            t.add_geom(S.GeomSpec(f"table{i}_collision", type="box", size=half, friction=np.array(table_frictions),
+                                  group=0))
+            t.add_site(S.SiteSpec(f"table{i}_top", pos=(0, 0, half[2]), size=(0.001, 0.001, 0.001)))
 
 
 class BinsArena(Arena):

@@ -142,21 +142,21 @@ def _geom_mass_inertia_primitive(g: S.GeomSpec, meshes=None):
         vol = float(h["volume"])
         m = g.mass if g.mass is not None else g.density * vol
         return m, np.asarray(h["inertia"], dtype=np.float64) * ((m / vol) if vol > 0 else 0.0)
-    sz = g.size
+    sz = g.size  # each mass is density * volume, the volume first (the JAX package's rounding)
     if t == S.SPHERE:
         r = sz[0]
-        m = g.mass if g.mass is not None else g.density * 4.0 / 3.0 * math.pi * r ** 3
+        m = g.mass if g.mass is not None else g.density * (4.0 / 3.0 * math.pi * r ** 3)
         i = 0.4 * m * r * r
         return m, np.diag([i, i, i])
     if t == S.BOX:
         hx, hy, hz = sz
-        m = g.mass if g.mass is not None else g.density * 8.0 * hx * hy * hz
+        m = g.mass if g.mass is not None else g.density * (8.0 * hx * hy * hz)
         return m, np.diag(
             [m / 3.0 * (hy * hy + hz * hz), m / 3.0 * (hx * hx + hz * hz), m / 3.0 * (hx * hx + hy * hy)]
         )
     if t == S.CYLINDER:
         r, hl = sz[0], sz[1]
-        m = g.mass if g.mass is not None else g.density * math.pi * r * r * 2.0 * hl
+        m = g.mass if g.mass is not None else g.density * (math.pi * r * r * 2.0 * hl)
         ixx = m * (3.0 * r * r + 4.0 * hl * hl) / 12.0
         return m, np.diag([ixx, ixx, m * r * r / 2.0])
     if t == S.CAPSULE:
@@ -171,7 +171,7 @@ def _geom_mass_inertia_primitive(g: S.GeomSpec, meshes=None):
         return mc + ms, np.diag([ixx, ixx, izz])
     if t == S.ELLIPSOID:
         a, b, c = sz
-        m = g.mass if g.mass is not None else g.density * 4.0 / 3.0 * math.pi * a * b * c
+        m = g.mass if g.mass is not None else g.density * (4.0 / 3.0 * math.pi * a * b * c)
         return m, np.diag([m / 5.0 * (b * b + c * c), m / 5.0 * (a * a + c * c), m / 5.0 * (a * a + b * b)])
     # planes and meshes without a hull carry no computed inertia
     return 0.0, np.zeros((3, 3))

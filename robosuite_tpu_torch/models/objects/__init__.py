@@ -1,9 +1,10 @@
 """Task objects (robosuite models/objects/{objects.py,
-generated_objects.py, primitive/box.py}), trimmed to the box primitive.
+generated_objects.py, primitive/box.py}), trimmed to the box primitive and
+the single body of several boxes (CompositeBoxObject).
 
 Naming follows robosuite exactly: body "<name>_main", geoms "<name>_g0"
-(+ "_g0_vis" visual duplicate), free joint "<name>_joint0", site
-"<name>_default_site".
+(+ "_g0_vis" visual duplicate), free joint "<name>_joint0" (none for a
+fixed object, joints=None), site "<name>_default_site".
 """
 
 from __future__ import annotations
@@ -19,8 +20,10 @@ class MujocoObject:
     """Base object: a spec subtree factory with robosuite's object contract
     (root body, bottom/top offsets)."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, joints="default"):
         self.name = name
+        # "default": one free joint; None or []: a body fixed in the world
+        self.joints = [dict(type="free")] if joints == "default" else list(joints or [])
         self._root: Optional[S.BodySpec] = None
 
     @property
@@ -45,7 +48,8 @@ class MujocoObject:
 
     def _make_root(self) -> S.BodySpec:
         b = S.BodySpec(self.root_body)
-        b.add_joint(S.JointSpec(name=f"{self.naming_prefix}joint0", type="free"))
+        for i, j in enumerate(self.joints):
+            b.add_joint(S.JointSpec(name=f"{self.naming_prefix}joint{i}", **dict(dict(type="free"), **j)))
         b.add_site(S.SiteSpec(self.default_site, size=(0.002,), rgba=(1, 0, 0, 0)))
         return b
 
@@ -101,3 +105,39 @@ class BoxObject(MujocoObject):
     @property
     def horizontal_radius(self):
         return float(np.linalg.norm(self.size[0:2], 2))
+
+
+class CompositeBoxObject(MujocoObject):
+    """Several boxes on one body (robosuite generated_objects.py
+    CompositeObject :293-600), their half sizes and centres in the body's
+    frame, unturned."""
+
+    def __init__(self, name, geom_sizes, geom_locations, geom_names, density=1000.0, joints="default"):
+        super().__init__(name, joints=joints)
+        self.geom_sizes = [np.asarray(s, dtype=np.float64) for s in geom_sizes]
+        self.geom_locations = [np.asarray(p, dtype=np.float64) for p in geom_locations]
+        self.geom_names_in = geom_names
+        self.density = density
+
+    def _build(self):
+        b = self._make_root()
+        for sz, pos, nm in zip(self.geom_sizes, self.geom_locations, self.geom_names_in):
+            b.add_geom(S.GeomSpec(f"{self.naming_prefix}{nm}", type="box", size=sz, pos=pos, density=self.density,
+                                  friction=(1, 0.005, 0.0001), group=0, rgba=(0.7, 0.7, 0.7, 1)))
+        return b
+
+    @property
+    def bottom_offset(self):
+        return np.array([0, 0, min(p[2] - s[2] for p, s in zip(self.geom_locations, self.geom_sizes))])
+
+    @property
+    def top_offset(self):
+        return np.array([0, 0, max(p[2] + s[2] for p, s in zip(self.geom_locations, self.geom_sizes))])
+
+    @property
+    def horizontal_radius(self):
+        return max(float(np.linalg.norm(p[:2]) + np.max(s[:2])) for p, s in zip(self.geom_locations, self.geom_sizes))
+
+
+# robosuite's name: generated_objects.py CompositeObject, one body of several geoms
+CompositeObject = CompositeBoxObject

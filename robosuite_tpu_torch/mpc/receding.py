@@ -91,11 +91,13 @@ def init_state(cfg: MPCConfig, act_dim: int, batch: int, generator, nx: Optional
 
 
 class RecedingMPC:
-    """Binds an env with a ported residual (mpc/residuals.py) to the
-    batched MPPI + iLQR solve.
+    """Binds an env to the batched MPPI + iLQR solve.
 
     residual: optional planning residual r(env, plan_model, qpos, qvel, u,
-    poses) -> (N, m) (mpc/residuals.py); defaults to the env's."""
+    poses) -> (N, m) (mpc/residuals.py); defaults to the env's. Only the
+    iLQR reads it: an env with none (ToolHang, TwoArmHandover,
+    TwoArmTransport) runs MPPI only (n_ilqr_iters=0), and n_ilqr_iters > 0
+    raises NotImplementedError there."""
 
     def __init__(self, env, cfg: MPCConfig, residual: Optional[Callable] = None):
         self.env = env
@@ -115,9 +117,12 @@ class RecedingMPC:
             self._lin_fn = env.make_plan_dynamics(self.lin_model, n_sub)
         # rollout_return(states, seqs, discounts): the MPPI planning rollouts
         self.plan_rollout_return = env.make_plan_return(self.plan_model, self.plan_substeps)
+        # the iLQR alone reads the residual: an MPPI-only solve builds without
+        # one, and the iLQR raises where it has none
         self._residual = residual or residual_for(env)
-        if self._residual is None:
-            raise NotImplementedError(f"no planning residual is ported for {type(env).__name__}: pass `residual`")
+        if self._residual is None and cfg.n_ilqr_iters > 0:
+            raise NotImplementedError(f"no planning residual is ported for {type(env).__name__}: the iLQR "
+                                      f"(n_ilqr_iters={cfg.n_ilqr_iters}) needs one; pass `residual`")
 
         # template state for x <-> EnvState: the arm controller's goals are
         # rewritten by set_goals every tick; kp/kd are constants (fixed

@@ -13,10 +13,10 @@ at 96 compacted contact slots.
     team (chip_smoke.py's tolerances);
   * the shared memory of a K1 block (4 scenarios) and of a K2 block (2)
     at this world's sizes within the card's 227 KB;
-  * the maxima: PickPlaceCan fits K1 and K2, a world one past each
-    maximum (nbody 48, njnt 24, nq 40, nv 36, ngeom 176, nsite 24, nu 24)
-    is refused, and the fused substep's gate refuses PickPlaceCan for its
-    row compaction.
+  * the maxima: PickPlaceCan and TwoArmTransport (53 bodies, nv 36) fit
+    K1 and K2, a world one past each maximum (nbody 56, njnt 24, nq 40, nv
+    36, ngeom 176, nsite 24, nu 24) is refused, and the fused substep's
+    gate refuses PickPlaceCan for its row compaction.
 """
 
 import copy
@@ -186,16 +186,23 @@ def test_carves_fit_the_card(lib, pick):
 
 def test_maxima_take_pickplace_and_refuse_more(pick):
     """PickPlaceCan fits K1's and K2's maxima (raised since for the
-    two-arm worlds: tests/test_torch_kernels_twoarm.py); a model one past
-    any of the maxima is refused by K1's table and K2's sizes; the fused
-    substep's gate refuses PickPlaceCan for its row compaction before any
-    maximum."""
+    two-arm worlds: tests/test_torch_kernels_twoarm.py), and so does
+    TwoArmTransport, the largest world (53 bodies, nq 39, nv 36, 23 sites:
+    the body maximum raised to 56 for it); a model one past any of the
+    maxima is refused by K1's table and K2's sizes; the fused substep's
+    gate refuses PickPlaceCan for its row compaction before any maximum."""
+    import robosuite_tpu_torch
+
     env, _ = pick
     m = env.model
     assert (tables.MAXB, tables.MAXJ, tables.MAXQ, tables.MAXV, tables.MAXG, tables.MAXS, tables.MAXU) == (
-        48, 24, 40, 36, 176, 24, 24)
+        56, 24, 40, 36, 176, 24, 24)
     assert tables.check_model(m, contacts=False) == 0
     contact_solve.check_sizes(m.nv, C.ROW_CAP)
+    big_world = robosuite_tpu_torch.make("TwoArmTransport", robots=("Panda", "Panda"), device="cpu").model
+    assert (big_world.nbody, big_world.nq, big_world.nv, big_world.nsite) == (53, 39, 36, 23)
+    assert tables.check_model(big_world, contacts=False) == 0
+    contact_solve.check_sizes(big_world.nv, C.ROW_CAP)
     for name, cap in (("nbody", tables.MAXB), ("njnt", tables.MAXJ), ("nq", tables.MAXQ), ("nv", tables.MAXV),
                       ("ngeom", tables.MAXG), ("nsite", tables.MAXS), ("nu", tables.MAXU)):
         big = copy.copy(m)

@@ -280,15 +280,17 @@ def test_solve_batch_mppi_only_stack_matches_jax():
 
 
 def test_mpc_entry_points_need_a_residual_and_default_to_cuda(setup, monkeypatch):
-    """RecedingMPC refuses an env with no ported residual unless one is
-    passed; the MPC state is allocated on CUDA unless the caller asks for
-    the CPU."""
+    """RecedingMPC refuses an env with no ported residual for the iLQR
+    (n_ilqr_iters > 0) unless one is passed, and builds the MPPI-only solve
+    without one (the iLQR alone reads it); the MPC state is allocated on
+    CUDA unless the caller asks for the CPU."""
     from robosuite_tpu_torch.mpc import residuals
 
     _, penv, _, _ = setup
     monkeypatch.setattr(residuals, "_RESIDUALS", {})
     with pytest.raises(NotImplementedError, match="residual"):
-        receding.RecedingMPC(penv, _cfg(receding))
+        receding.RecedingMPC(penv, _cfg(receding, n_ilqr_iters=1))
+    assert receding.RecedingMPC(penv, _cfg(receding))._residual is None
     mpc = receding.RecedingMPC(penv, _cfg(receding), residual=residuals.lift_residual)
     assert mpc.init_state(2, None).us.device.type == "cpu"  # the env's device
     for fn in (receding.init_state, convert.mpc_state_from_numpy, convert.model_from_numpy,

@@ -57,3 +57,65 @@ def test_pair_dist_float64_witness(lift_distances, monkeypatch, kernel_off, witn
     err = chip_smoke.hold_pair_dist("test", plan, pk, pp, q, q, tol=TOL)
     assert (err <= TOL) == witnessed
     assert (chip_smoke.FAILED == []) == witnessed
+
+
+# a TwoArmHandover reset the card drew (chip_smoke.py's seed): the hammer's
+# head lands flat on the table in the 24th and 25th substeps of the first
+# policy step, four box-box rows at one depth under the light hammer
+HAMMER_RESET = [-0.010895534418523312, 0.22588349878787994, -0.012877938337624073, -2.6502811908721924,
+                0.003708077361807227, 2.971616506576538, 0.8001559972763062, 0.020833000540733337,
+                -0.020833000540733337, 0.01439004298299551, 0.1892746239900589, 0.0186283141374588,
+                -2.5864405632019043, -0.0016754964599385858, 2.9108402729034424, 0.7895723581314087,
+                0.020833000540733337, -0.020833000540733337, 0.03430134803056717, -0.031026994809508324,
+                0.8399999737739563, -0.3828984797000885, 0.0, 0.0, 0.923790454864502]
+
+
+@pytest.fixture(scope="module")
+def landing_operands():
+    """K2's float32 operands at the 25th substep of that policy step (the
+    plain path, grippers opening), and the plain solve's (qvel, f)."""
+    from robosuite_tpu_torch.ops import contact_solve
+    from robosuite_tpu_torch.physics import engine
+
+    env = R.make("TwoArmHandover", robots=("Panda", "Panda"), reward_shaping=True, device="cpu")
+    m = env.model
+    s = env.state_from_flattened(torch.cat([torch.zeros(1, 1), torch.tensor([HAMMER_RESET]), torch.zeros(1, m.nv)], 1))
+    a = torch.zeros(1, env.action_dim)
+    for r in env._split_robot_actions(a):
+        r[:, -1] = -1.0
+    kin, M, bias = engine.forward_products(m, s.physics.qpos, s.physics.qvel)
+    ctrl = env._set_goals(kin, M, bias, s.physics.qpos, s.physics.qvel, s.ctrl, a)
+    ph = s.physics
+    for j in range(25):
+        q, qd = ph.qpos, ph.qvel
+        kin, M, bias = engine.forward_products(m, q, qd)
+        qfrc, extra = engine.total_smooth_force(m, q, qd, env.run_controllers(kin, M, bias, q, qd, ctrl), M, bias)
+        JfT, aref, reg3, mu, act = C.solver_inputs(m, kin, C.narrowphase(m, kin), qd, m.timestep)
+        args = (M.contiguous(), JfT, aref.contiguous(), qfrc.contiguous(), qd.contiguous(),
+                (m.dof_damping + extra).contiguous(), reg3.contiguous(), mu, act.contiguous(),
+                *C.solver_iterations(m), m.timestep)
+        out_p = contact_solve.vel_update_plain(*args)
+        ph = engine.State(qpos=engine.integrate_qpos(m, q, out_p[0], m.timestep), qvel=out_p[0], time=ph.time)
+    assert int(act.sum()) == 4
+    return args, out_p
+
+
+@pytest.mark.parametrize("kernel, witnessed", [(1.0, True), (-8.0, True), (-10.0, False)],
+                         ids=["at-float64", "9x-off", "11x-off"])
+def test_solve_conditioning_witness(landing_operands, kernel, witnessed):
+    """solve_conditioning_witness at the hammer's flat landing, where the
+    float32 plain solve lies beyond K2's 1e-4 from the float64 solve of its
+    own operands (1.5e-3 relative): a kernel result at the float64 solve,
+    or 9 times the plain one's distance from float64 (on the plain one's
+    side, beyond it), is witnessed; 11 times (past ILL_FACTOR 10) is not."""
+    from robosuite_tpu_torch.ops import contact_solve
+
+    args, (qv_p, f_p) = landing_operands
+    q64, f64 = contact_solve.vel_update_plain(*[a.double() if torch.is_tensor(a) else a for a in args])
+    own = float((qv_p.double() - q64).abs().max())
+    assert own > 1e-3 * max(1.0, float(qv_p.abs().max()))  # the float32 solve's own error: past K2's 1e-4
+    k = kernel  # the kernel at plain + k (float64 - plain): |1 - k| times the plain one's distance from float64
+    out_k = ((qv_p.double() + k * (q64 - qv_p.double())).float(), (f_p.double() + k * (f64 - f_p.double())).float())
+    scales = (max(1.0, float(qv_p.abs().max())), max(1.0, float(f_p.abs().max())))
+    why = chip_smoke.solve_conditioning_witness(args, [0], out_k, (qv_p, f_p), scales)[0]
+    assert (why is not None) == witnessed
