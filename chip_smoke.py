@@ -205,6 +205,20 @@ Phases (any failure exits non-zero):
  50. (last) a fused world with the variable_kp OSC (Lift): K3 against its
      plain version with each scenario's own gains from its action (the
      goal and gains rows of envs/base._fused_goal_fn).
+ 66-70. the kernels' tangent rules and the iLQR's AD linearization:
+     after phases 9, 14 and 34 (Lift, Stack, TwoArmPegInHole contact
+     states, 64 scenarios) each of K1Function, K2Function and, on the
+     fused worlds, K3Function with and without aux: its primal the direct
+     launch's bit for bit, its tangents within TANGENT_TOL of
+     torch.func.jvp of the plain version; fk_pose refusing a dual qpos;
+     after phase 11 (Lift, B=32, H=64, K=32) and phase 37
+     (TwoArmPegInHole, B=32, H=64, K=16, nx 30) the MPC with one iLQR
+     iteration relinearized every tick by forward differences and by
+     forward-mode AD (ad_mpc: the associative Riccati pass, launches,
+     solves/s, peak memory, the tangent pass's share and passes, the AD
+     fx/fu against forward differences, the associative gains against
+     the sequential pass); and the one-scenario make_solve on Lift against
+     solve_batch at B=1 (unbatched_tick).
 The count of (substep, scenario) cases that the holds set aside on a
 float64 near-tie witness is printed at the end.
 Timings use CUDA events (profiler passes show one policy step's and one
@@ -1023,6 +1037,7 @@ def stack_slice(tag, results):
         plain_ms=cuda_ms(lambda: substep.substep_aux_plain(env, plan, *a_args), 3),
         bound=bound(nbytes(*a_args, *out_k), aux_flops, B))
     phase_done("Stack K1, K2, K3-JP, K3-aux-JP vs plain")
+    tangent_checks(tag, "Stack", env, plan, s, 64, results)
 
     # ---- 15. the Stack env-step slice: reset + 10 policy steps on the fused path
     actions = torch.clamp(0.3 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
@@ -2269,6 +2284,8 @@ def unfused_world_slice(tag, results, name):
     if not rich_enough:
         fail(f"the {name} contact state is too poor: {report}")
     phase_done(f"{name} contact state")
+    if name == "TwoArmPegInHole":
+        tangent_checks(tag, name, env, None, s, 64, results)
 
     # ---- 30 / 35 / 41 / 47 / 53 / 58 / 63. K2 at the world's width, on the plain path's operands; the rows' graph
     unfused_k2(name, env, states, s, kin, M, bias, con, K, world_k)
@@ -2298,7 +2315,16 @@ def unfused_world_slice(tag, results, name):
                              torch.Generator(device="cuda").manual_seed(SEED + ph + 1),
                              torch.Generator(device="cuda").manual_seed(SEED + ph + 2), results, name.lower(),
                              (states, s), world_k, full)
-    return counts, mpc_counts
+    if name != "TwoArmPegInHole":
+        return counts, mpc_counts
+    # ---- 69-70. its MPC with the AD linearization (K2's tangent rule), beside the FD one; nx with the pad
+    ad_counts, mpc, _ = ad_mpc(tag, name, env, dict(H64_MPC, fd_timestep=0.05), H64_B, results, name.lower(),
+                               SEED + ph + 3, SEED + ph + 4)
+    print(f"{name} iLQR state x: nx {mpc.nx} (qpos {model.nq}, qvel {model.nv}, one ramp entry a null gripper)")
+    if mpc.nx != 30:
+        fail(f"the TwoArmPegInHole iLQR state is {mpc.nx} wide, not 30 (the JAX package's)")
+    phase_done(f"{name} AD-linearized MPC")
+    return counts, mpc_counts, ad_counts
 
 
 def variable_gains_check(results):
@@ -2334,6 +2360,345 @@ def variable_gains_check(results):
     check("K3 qvel with per-scenario variable_kp gains", max_err(qv_k, qv_p), 1e-3)
     results["variable_kp_k3_err"] = max(max_err(qp_k, qp_p), max_err(qv_k, qv_p))
     phase_done("variable_kp gains through K3")
+
+
+# ---- the kernels' tangent rules and the iLQR's AD linearization ---------------------
+TANGENT_TOL = 1e-5  # a Function's tangents against torch.func.jvp of its plain version at the same primals,
+# relative to each output's largest tangent: the same plain computation, so only the order of float32 sums
+# may differ between the two calls
+FD_TOL = 2.5e-2     # the AD linearization against forward differences (eps 1e-3), relative to each column's
+# largest entry: the ~1e-2 that the forward differences of the contact dynamics move by in float32
+# (tests/test_torch_mpc.py: 0.085 of |fx| up to ~300)
+AD_B = 32           # the AD MPC ticks' solves (lowered only if the peak memory forced it)
+
+
+def hold_tangent(label, Fn, launch, plain, counter, args, wrt, gen):
+    """Fn (a KernelFunction) at args with random tangents on the operands
+    at positions wrt: its primal outputs equal the direct launch's bit for
+    bit, its tangents torch.func.jvp of the plain version at the same
+    primals (TANGENT_TOL). -> the largest relative tangent error."""
+    import torch
+    from torch.autograd import forward_ad as fwAD
+
+    direct = launch(*args)
+    tans = {i: torch.randn(args[i].shape, generator=gen, device="cuda") for i in wrt}
+    passes = counter.tangent_passes
+    with fwAD.dual_level():
+        outs = Fn.apply(launch, plain, counter, *[fwAD.make_dual(a, tans[i]) if i in tans else a
+                                                  for i, a in enumerate(args)])
+        got = [fwAD.unpack_dual(o) for o in outs]
+    if counter.tangent_passes != passes + 1:
+        fail(f"{label}: the Function ran {counter.tangent_passes - passes} tangent passes, not 1")
+    for (p, _), d in zip(got, direct):
+        if not torch.equal(p, d):
+            fail(f"{label}: the Function's primal is not the direct launch's, bit for bit")
+
+    def plain_of(*xs):
+        full = list(args)
+        for i, x in zip(wrt, xs):
+            full[i] = x
+        return plain(*full)
+
+    _, ref = torch.func.jvp(plain_of, tuple(args[i] for i in wrt), tuple(tans[i] for i in wrt))
+    err = 0.0
+    for (_, t), r in zip(got, ref):
+        if not bool(torch.isfinite(t).all()):
+            fail(f"{label}: non-finite tangents")
+        err = max(err, max_err(t, r) / max(1e-6, float(r.abs().max())))
+    check(f"{label} tangents vs torch.func.jvp of the plain version (relative)", err, TANGENT_TOL)
+    return err
+
+
+def tangent_checks(tag, world, env, plan, s, n, results):
+    """The tangent rules on the card at a world's contact state s (its first
+    n scenarios): K1Function, K2Function on the plain path's operands, and,
+    where the world is fused, K3Function with and without aux (the aux on
+    the planning model `plan`); K4 refuses a dual qpos."""
+    import functools
+
+    import torch
+    from torch.autograd import forward_ad as fwAD
+
+    from robosuite_tpu_torch.envs.base import map_state
+    from robosuite_tpu_torch.ops import contact_solve, fk, forward, substep
+    from robosuite_tpu_torch.physics import contact as C
+    from robosuite_tpu_torch.physics import engine
+
+    t0 = time.perf_counter()
+    model = env.model
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 66)
+    q, qd = s.physics.qpos[:n].contiguous(), s.physics.qvel[:n].contiguous()
+    ctrl = map_state(lambda x: x[:n], s.ctrl)
+    errs = results.setdefault("tangent_checks", {})
+    errs[f"K1 {world}"] = hold_tangent(
+        f"{world} K1Function (B={n})", forward.K1Function, functools.partial(forward._launch, model),
+        functools.partial(forward.plain_outputs, model), forward.forward_products,
+        (q, qd, *forward.model_leaves(model, n)), (0, 1), gen)
+    kin, M, bias = forward.forward_plain(model, q, qd, *forward.model_leaves(model, n))
+    c = env.run_controllers(kin, M, bias, q, qd, ctrl)
+    qfrc, extra = engine.total_smooth_force(model, q, qd, c, M, bias)
+    rows = C.solver_inputs(model, kin, C.narrowphase(model, kin), qd, model.timestep)
+    JfT, aref, reg3, mu, act = rows
+    k2_args = tuple(t.contiguous() for t in (M, JfT, aref, qfrc, qd, model.dof_damping + extra, reg3, mu, act))
+    it = dict(iters=C.solver_iterations(model)[0], power_iters=C.solver_iterations(model)[1], dt=model.timestep)
+    errs[f"K2 {world}"] = hold_tangent(
+        f"{world} K2Function (B={n}, nv {model.nv}, {act.shape[1]} rows, {int(act.sum(1).max())} active at most)",
+        contact_solve.K2Function, functools.partial(contact_solve._launch, **it),
+        functools.partial(contact_solve.vel_update_plain, **it), contact_solve.vel_update, k2_args, (0, 1, 2, 3, 4),
+        gen)
+    if env._fused_for(model) is not None:
+        robot = env.robots[0]
+        for aux, m in ((False, model), (True, plan)):
+            leaves = forward.runtime_leaves(m, n)
+            kin_m = forward.forward_plain(m, q, qd, *leaves)[0]
+            goal, gains = env._fused_goal_fn(robot, robot.arms[0], ctrl, kin_m)
+            args = (q, qd, *leaves, goal, gains, robot.gripper_ctrl(robot.arms[0], ctrl).contiguous())
+            plain = substep.substep_aux_plain if aux else substep.substep_plain
+            label = "K3-aux" if aux else "K3"
+            errs[f"{label} {world}"] = hold_tangent(
+                f"{world} K3Function{' (emit_aux, planning model)' if aux else ''} (B={n})", substep.K3Function,
+                env._fused_for(m, emit_aux=aux).launch, functools.partial(plain, env, m),
+                substep.make_fused_substep, args, (0, 1, 6, 7, 8), gen)
+    with fwAD.dual_level():
+        try:
+            fk.fk_pose(model, fwAD.make_dual(q, torch.ones_like(q)))
+            fail(f"{world}: fk_pose took a dual qpos (K4 has no tangent rule)")
+        except ValueError as e:
+            print(f"{world} K4 on a dual qpos raises: {e}")
+    phase_done(f"{world} tangent rules vs torch.func.jvp of the plain versions ({time.perf_counter() - t0:.1f} s)")
+
+
+def ad_tick_launches(cfg, mpc, env, fused, chunks):
+    """Kernel launches of one MPC tick (solve_batch + the executed
+    rollout_batch) with one iLQR iteration, relinearized every tick, whose
+    linearization is `chunks` calls of the linearization dynamics (1 for
+    the forward differences)."""
+    H, n_plan = cfg.horizon, mpc.plan_substeps
+    n_lin = max(1, int(round(1.0 / (env.control_freq * cfg.fd_timestep)))) if cfg.fd_timestep else n_plan
+    if fused:  # MPPI: K1 at the start, K3-aux per planned substep; the executed step: K1 twice, K3 per substep
+        k = {"K1": 3, "K2": 0, "K3": env.n_substeps, "K3-aux": H * n_plan, "K4": 0}
+    else:      # MPPI: K1 at the start and per planned substep and step end, K2 per substep; the executed step
+        k = {"K1": 1 + H * (n_plan + 1) + env.n_substeps + 2, "K2": H * n_plan + env.n_substeps, "K3": 0,
+             "K3-aux": 0, "K4": 0}
+
+    def dyn(calls, n_sub):  # one planning-dynamics call: K1, then K3 (fused) or K1 + K2 per substep
+        k["K1"] += calls * (1 if fused else 1 + n_sub)
+        k["K3" if fused else "K2"] += calls * n_sub
+
+    for _ in range(2):  # the nominal rollout, then the line search over every alpha: H calls each
+        dyn(H, n_plan)
+        k["K4"] += 2    # their stage costs and terminal cost
+    dyn(chunks, n_lin)
+    return k
+
+
+def ad_mpc(tag, name, env, mpc_cfg, batch, results, key, gm, gs):
+    """The MPC with one iLQR iteration relinearized every tick by AD
+    (ilqr_fd=False, forward mode through the kernels' tangent rules),
+    beside the forward-difference one at the same width, both with the
+    associative Riccati pass (parallel_backward): a warm-up tick
+    and two timed ticks each (solves/s, the launches the config implies,
+    the peak device memory, the share of the AD tick in the tangent pass,
+    the tangent passes of K1, K2, K3); the AD tick's fx/fu against forward
+    differences (eps 1e-3) about the same points on a strided subset:
+    each entry between the forward and the backward difference at eps
+    (which bracket the derivative, or a kink's one-sided values), within
+    FD_TOL of its column's largest entry; a column set aside where
+    the central differences at eps and eps / 10 disagree by more than
+    FD_TOL (differences that do not converge: a jump within eps, or float32
+    rounding amplified by a stiff contact), each set-aside and failing
+    column printed; the AD tick's
+    associative gains against the sequential pass's (float64) on the same
+    inputs, on the (scenario, step) entries whose float32 sequential gains
+    agree with the float64 pass's.
+    -> (the AD ticks' launch counts, the mpc, its states)."""
+    import math
+
+    import torch
+
+    from robosuite_tpu_torch.mpc import ilqr as ilqr_mod
+    from robosuite_tpu_torch.mpc import receding
+    from robosuite_tpu_torch.ops import contact_solve, forward, substep
+
+    fused = env._fused_for(env.model) is not None
+    out = {}
+    for mode in ("fd", "ad"):
+        cfg = receding.MPCConfig(**dict(mpc_cfg, n_ilqr_iters=1, relin_every=1, ilqr_fd=mode == "fd",
+                                        parallel_backward=True))
+        mpc = receding.RecedingMPC(env, cfg)
+        solve = mpc.make_solve_batch()
+        states = valid_resets(env, batch, torch.Generator(device="cuda").manual_seed(gm))[0]
+        ms = mpc.init_state(batch, torch.Generator(device="cuda").manual_seed(gs))
+        rec, lin_ad, assoc = {"s": 0.0, "calls": 0}, ilqr_mod.linearize_ad, ilqr_mod.backward_associative
+
+        def timed(fn, xs, us, use_jacfwd=True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fx, fu = lin_ad(fn, xs, us, use_jacfwd)
+            torch.cuda.synchronize()
+            rec["s"] += time.perf_counter() - t0
+            rec["calls"] += 1
+            rec["last"] = (fn, xs, us, fx, fu)
+            return fx, fu
+
+        def recorded(*args):
+            rec["backward"] = args
+            return assoc(*args)
+
+        ilqr_mod.linearize_ad, ilqr_mod.backward_associative = timed, recorded
+        try:
+            def tick(st, m):
+                acts, m2, met = solve(st, m)
+                st2, rew = env.rollout_batch(st, acts)
+                return st2, m2, met, acts, rew
+
+            t0 = time.perf_counter()
+            states, ms, met, acts, rew = tick(states, ms)
+            torch.cuda.synchronize()
+            print(f"{tag} {name} MPC ({mode}) warm-up tick s: {time.perf_counter() - t0:.3f}")
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            passes0 = (forward.forward_products.tangent_passes, contact_solve.vel_update.tangent_passes,
+                       substep.make_fused_substep.tangent_passes)
+            rec["s"], rec["calls"] = 0.0, 0
+            t0 = time.perf_counter()
+            for i in range(2):
+                states, ms, met, acts, rew = tick(states, ms)
+                if not (torch.isfinite(acts).all() and acts.abs().max() <= 1.0 and torch.isfinite(rew).all()):
+                    fail(f"{name} MPC ({mode}) tick {i + 1}: non-finite or out-of-range actions or rewards")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            ilqr_mod.linearize_ad, ilqr_mod.backward_associative = lin_ad, assoc
+        counts = kcounts()
+        passes = (forward.forward_products.tangent_passes - passes0[0],
+                  contact_solve.vel_update.tangent_passes - passes0[1],
+                  substep.make_fused_substep.tangent_passes - passes0[2])
+        take_widths(f"{name} ({mode} MPC)")
+        N, P = batch * cfg.horizon, mpc.nx + env.action_dim
+        chunks = 1 if mode == "fd" else math.ceil(N / max(1, ilqr_mod.TANGENT_CHUNK // P))
+        want = {k: 2 * v for k, v in ad_tick_launches(cfg, mpc, env, fused, chunks).items()}
+        print(f"{name} MPC ({mode}) ticks 1-2 launches: {counts}; tangent passes (K1, K2, K3) {passes}")
+        if counts != want:
+            fail(f"{name} MPC ({mode}) ticks 1-2: launches {counts}, the config implies {want}")
+        if mode == "ad" and (rec["calls"] != 2 or passes[0] == 0 or passes[1 if not fused else 2] == 0):
+            fail(f"{name} AD ticks: {rec['calls']} linearizations, tangent passes {passes}")
+        solves, peak = batch * 2 / dt, torch.cuda.max_memory_allocated() / 1e9
+        fin = int(met["ilqr_accepted"].sum())
+        share = rec["s"] / dt if mode == "ad" else float("nan")
+        print(f"{tag} {name} MPC solves/s ({mode} linearization, B={batch}, H={cfg.horizon}, K={cfg.n_samples}, "
+              f"MPPI + 1 iLQR iteration relinearized every tick; ticks 1-2, host clock): {solves:.2f}; peak device "
+              f"memory {peak:.2f} GB; finite iLQR plans {fin}/{batch}"
+              + (f"; the tangent pass {100 * share:.1f}% of the ticks ({rec['s'] / 2:.3f} s a tick, {chunks} "
+                 f"chunks of at most {ilqr_mod.TANGENT_CHUNK} scenarios)" if mode == "ad" else ""))
+        out[mode] = dict(solves_per_s=solves, peak_gb=peak, launches=counts, finite=fin, B=batch)
+        if mode == "ad":
+            out[mode].update(tangent_share=share, tangent_s=rec["s"] / 2, tangent_passes=passes, chunks=chunks)
+            ad = (counts, mpc, rec["last"])
+            # the associative pass's gains (the tick's own backward pass) against the sequential pass's on
+            # the same linearization and quadratics, at the JAX package's test tolerance
+            # (tests/test_mpc.py: rtol 2e-4, atol 2e-5)
+            args = rec["backward"]
+            names = ("fx", "fu", "cx", "cu", "cxx", "cuu", "cux", "Vx", "Vxx")
+            nonfinite = {n: int((~torch.isfinite(a.flatten(1))).any(1).sum()) for n, a in zip(names, args)}
+            print(f"{name} AD tick's backward-pass inputs: scenarios with a non-finite entry {nonfinite}")
+            ks_a, Ks_a, _, _, _ = assoc(*args)
+            ks_s, Ks_s, _ = ilqr_mod.backward_sequential(*args)
+            ks_d, Ks_d, _ = ilqr_mod.backward_sequential(*(a.double() for a in args))
+
+            def within(x, y):  # the JAX test's tolerance, per (scenario, step)
+                return ((x.double() - y.double()).abs() <= 2e-5 + 2e-4 * y.double().abs()).flatten(2).all(-1)
+
+            # the associative pass (float64 inside) against the sequential pass in float64 on the same inputs,
+            # on the entries the float32 inputs determine: where the float32 sequential gains agree with the
+            # float64 ones; elsewhere the cost-to-go has outgrown float32 (|fx| ~ 300 over the horizon)
+            held = within(Ks_s, Ks_d) & within(ks_s, ks_d)
+            viol = max(float(((x.double() - y).abs() - 2e-4 * y.abs())[held].max()) for x, y in ((ks_a, ks_d),
+                                                                                              (Ks_a, Ks_d)))
+            print(f"{name} associative vs sequential Riccati gains (B={batch}, H={cfg.horizon}, nx {mpc.nx}): held on "
+                  f"{int(held.sum())} of {held.numel()} (scenario, step) entries, by step from the horizon's end "
+                  f"{held.sum(0).flip(0)[:12].tolist()}...; set aside as ill-conditioned (float32 and float64 "
+                  f"sequential gains differ) {int((~held).sum())}; max |a - s| - 2e-4 |s| = {viol:.3e}")
+            if not held.any():
+                fail(f"{name}: no (scenario, step) of the AD tick has well-conditioned gains to hold")
+            check(f"{name} associative gains vs sequential (|a - s| - 2e-4 |s|, well-conditioned entries)", viol,
+                  2e-5)
+
+            out[mode].update(assoc_violation=viol, assoc_held=int(held.sum()), assoc_entries=held.numel())
+    results[f"{key}_ad_mpc"] = out
+
+    # the AD tick's fx, fu against forward differences about the same points, on a strided subset
+    counts, mpc, (fn, xs, us, fx, fu) = ad
+    nx, nu = xs.shape[-1], us.shape[-1]
+    pts = torch.arange(0, xs.shape[0], 97, device="cuda")
+    x, u, eps = xs[pts], us[pts], 1e-3
+    eye = torch.eye(nx + nu, device="cuda")
+
+    def differences(h, central):
+        def at(sign):
+            X = (x[:, None] + sign * h * eye[None, :, :nx]).reshape(-1, nx)
+            U = (u[:, None] + sign * h * eye[None, :, nx:]).reshape(-1, nu)
+            return fn(X, U).reshape(len(pts), nx + nu, nx)
+        lo = at(-1.0) if central else fn(x, u)[:, None]
+        return (at(1.0) - lo) / (2 * h if central else h)
+
+    with torch.no_grad():
+        fwd, cen, cen2 = differences(eps, False), differences(eps, True), differences(eps / 10, True)
+    ad_cols = torch.cat([fx[pts], fu[pts]], dim=-1).transpose(1, 2)            # (n, nx + nu, nx): column p of [fx | fu]
+    scale = torch.maximum(ad_cols.abs().amax(-1), fwd.abs().amax(-1)).clamp_min(1e-6)
+    # a column whose central differences at eps and eps / 10 disagree has differences that do not converge (a
+    # jump within eps, a contact or branch switching, or float32 rounding amplified by a stiff contact over
+    # eps / 10: both grow as 1 / eps); elsewhere each AD entry must lie between the forward and the backward
+    # difference (which bracket the derivative, or its one-sided values at a kink)
+    jump = (cen - cen2).abs().amax(-1) / scale > FD_TOL
+    bwd = 2.0 * cen - fwd                                                      # the backward difference
+    excess = (torch.minimum(fwd, bwd) - ad_cols).clamp_min(0.0) + (ad_cols - torch.maximum(fwd, bwd)).clamp_min(0.0)
+    err = (excess.amax(-1) / scale).masked_fill(jump, 0.0)                    # (n, nx + nu)
+    raw = (ad_cols - fwd).abs().amax(-1) / scale
+    i, p = divmod(int(err.argmax()), err.shape[1])
+    print(f"{name} AD fx/fu vs forward differences on {len(pts)} of {xs.shape[0]} points x {nx + nu} columns: "
+          f"median {float(raw.median()):.3e}; outside the forward-backward bracket, max {float(err.max()):.3e} "
+          f"(point {int(pts[i])}, column {p}); set aside {int(jump.sum())} of {jump.numel()} columns whose "
+          f"differences do not converge")
+    for i, p in jump.nonzero().tolist()[:4]:
+        print(f"{name} AD vs FD set aside: point {int(pts[i])} column {p}: central differences at eps and eps / 10 "
+              f"differ by {float((cen[i, p] - cen2[i, p]).abs().max() / scale[i, p]):.3e} of the column")
+    for i, p in (err > FD_TOL).nonzero().tolist()[:8]:
+        print(f"{name} AD vs FD witness: point {int(pts[i])} column {p}: AD {ad_cols[i, p].tolist()} forward "
+              f"{fwd[i, p].tolist()} central {cen[i, p].tolist()}")
+    results[f"{key}_ad_vs_fd"] = dict(median=float(raw.median()), max_beyond_fd_error=float(err.max()),
+                                      aside=int(jump.sum()), points=len(pts), columns=nx + nu)
+    check(f"{name} AD fx/fu outside the forward-backward difference bracket (relative to each column's largest "
+          f"entry)", float(err.max()), FD_TOL)
+    return counts, mpc, states
+
+
+def unbatched_tick(tag, env, mpc_cfg, results):
+    """One tick of the one-scenario make_solve on Lift (its full
+    relinearization tick) against solve_batch at B=1 on the same state
+    and knots: the action, the plan and the RTI carry bit for bit."""
+    import torch
+
+    from robosuite_tpu_torch.mpc import mppi, receding
+
+    mpc = receding.RecedingMPC(env, receding.MPCConfig(**mpc_cfg))
+    s1 = env.reset_batch(1, torch.Generator(device="cuda").manual_seed(SEED + 23))[0]
+    knots = torch.randn((1,) + mppi.noise_shape(mppi.MPPIConfig(horizon=mpc.cfg.horizon, n_samples=mpc.cfg.n_samples,
+                                                                n_knots=mpc.cfg.n_knots), env.action_dim),
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 24), device="cuda")
+    zero_counts()
+    a, ms, met = mpc.make_solve()(mppi.drop_batch(s1), mpc.init_state(None, None), knots=knots[0])
+    counts = kcounts()
+    a1, ms1, _ = mpc.make_solve_batch()(s1, mpc.init_state(1, None), knots=knots)
+    torch.cuda.synchronize()
+    same = (torch.equal(a, a1[0]) and torch.equal(ms.us, ms1.us[0]) and torch.equal(ms.fxs, ms1.fxs[0])
+            and torch.equal(ms.fus, ms1.fus[0]))
+    print(f"{tag} Lift make_solve (one scenario, no batch dim; launches {counts}): action {a.tolist()}; equal to "
+          f"solve_batch at B=1 bit for bit: {same}; finite iLQR plan {bool(met['ilqr_accepted'])}")
+    if a.shape != (env.action_dim,) or ms.fxs.shape != (mpc.cfg.horizon, mpc.nx, mpc.nx) or not same:
+        fail("the one-scenario make_solve is not solve_batch at B=1")
+    results["lift_make_solve_launches"] = counts
+    return counts
 
 
 def main():
@@ -2643,6 +3008,7 @@ def main():
         plain_ms=cuda_ms(lambda: substep.substep_aux_plain(env, plan, *a4), 3), batch=B4,
         bound=bound(nbytes(*a4, *out4), aux_flops, B4))
     phase_done("K3-aux vs plain")
+    tangent_checks(tag, "Lift", env, plan, s, 64, results)
 
     # ---- 10. the planning hooks: kernel path vs plain path on a subset ---------------
     env_m = R.make("Lift", robots="Panda", cube_size=[0.021, 0.021, 0.021], reward_shaping=True)
@@ -2785,6 +3151,11 @@ def main():
                    mpc_profile_port=port)
     phase_done("MPC slice at full width")
 
+    # ---- 66-68. the iLQR's AD linearization on Lift: FD and AD ticks at B=AD_B, the associative pass, make_solve
+    lift_ad_counts = ad_mpc(tag, "Lift", env_m, mpc_cfg, AD_B, results, "lift", SEED + 20, SEED + 21)[0]
+    unbatched_counts = unbatched_tick(tag, env_m, mpc_cfg, results)
+    phase_done("Lift AD-linearized MPC, associative pass, one-scenario make_solve")
+
     stack_counts, stack_mpc_counts, stack_counts_u = stack_slice(tag, results)
     door_counts, door_counts_u, door_mpc_counts = door_slice(tag, results)
     pick_counts, pick_mpc_counts = pickplace_slice(tag, results)
@@ -2794,7 +3165,8 @@ def main():
     # ---- report ------------------------------------------------------------------
     # launches on each path, counted from zero just before it: Lift's env step
     # and MPC ticks run K3 / K3-aux with the OSC law, Stack's with JOINT_POSITION
-    osc = (counts, sb_counts, mpc_counts, door_counts, door_mpc_counts)  # K3 / K3-aux with the OSC law
+    osc = (counts, sb_counts, mpc_counts, door_counts, door_mpc_counts, lift_ad_counts,
+           unbatched_counts)  # K3 / K3-aux with the OSC law
     every = osc + (counts_u, door_counts_u, stack_counts, stack_counts_u, stack_mpc_counts, pick_counts,
                    pick_mpc_counts) + sum(unfused.values(), ())
     paths = {"K1": every, "K2": every, "K3": osc, "K3-aux": osc, "K4": every}
@@ -2820,7 +3192,8 @@ def main():
           f"{door_mpc_counts}; over PickPlaceCan reset + {STEPS} step_batch steps {pick_counts}, MPC ticks "
           f"1-{PICK_TICKS} {pick_mpc_counts}; " + "; ".join(
               f"over {n} reset + {STEPS} step_batch steps {c}, MPC ticks 1-{UNFUSED_WORLDS[n][-2]} {m}"
-              for n, (c, m) in unfused.items()))
+              + (f", AD-linearized MPC ticks 1-2 {ad[0]}" if ad else "") for n, (c, m, *ad) in unfused.items())
+          + f"; Lift AD-linearized MPC ticks 1-2 {lift_ad_counts}, make_solve {unbatched_counts}")
     by_label = {}
     for a in ASIDE:
         by_label[a.split()[0]] = by_label.get(a.split()[0], 0) + 1

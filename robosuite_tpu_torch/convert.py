@@ -33,22 +33,69 @@ def model_from_numpy(leaves: Dict[str, np.ndarray], meta: dict, device="cuda") -
     return Model(leaves, meta).to(device)
 
 
-def state_from_numpy(qpos, qvel, ctrl_leaves: Dict[str, np.ndarray], arm="right", device="cuda") -> EnvState:
-    """A batched EnvState from numpy qpos (B, nq), qvel (B, nv) and the
-    controller leaves, keyed by the arm controller they belong to: OSC
-    goal_pos (B, 3), goal_ori (B, 3, 3), kp (B, 6), kd (B, 6), or
-    JOINT_POSITION goal_qpos (B, na), kp (B, na), kd (B, na); and
-    gripper_action (B, n)."""
-    def t(x):
-        return torch.tensor(np.array(x, dtype=np.float32), device=device)
+def numpy_tree(obj):
+    """A state as nested dicts of numpy arrays: each dataclass (a JAX
+    EnvState, its State, RobotCtrlStates, controller and task states) a dict
+    of its fields, tuples and lists lists, arrays np.asarray; None stays
+    None. The tree state_from_numpy takes."""
+    if obj is None:
+        return None
+    if dataclasses.is_dataclass(obj):
+        return {f.name: numpy_tree(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    if isinstance(obj, dict):
+        return {k: numpy_tree(v) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return [numpy_tree(v) for v in obj]
+    return np.asarray(obj)
 
-    qpos, qvel = t(qpos), t(qvel)
-    cls = JointPosState if "goal_qpos" in ctrl_leaves else OSCState
-    arm_state = cls(**{f.name: t(ctrl_leaves[f.name]) for f in dataclasses.fields(cls)})
-    ctrl = RobotCtrlState(arm={arm: arm_state}, gripper_action={arm: t(ctrl_leaves["gripper_action"])})
-    B = qpos.shape[0]
-    return EnvState(physics=State(qpos=qpos, qvel=qvel, time=torch.zeros(B, device=device)), ctrl=ctrl,
-                    t=torch.zeros(B, dtype=torch.int32, device=device))
+
+def state_from_numpy(qpos, qvel=None, ctrl_leaves: Dict[str, np.ndarray] = None, arm="right", device="cuda",
+                     task_state_cls=None) -> EnvState:
+    """A batched EnvState, from either
+
+    - a state tree (numpy_tree of a batched JAX EnvState, of any env):
+      {"physics": {"qpos", "qvel", "time"}, "ctrl": one robot's
+      {"arm": {arm: controller leaves}, "gripper_action": {arm: ramp}} or
+      a list of one per robot, "t", and "task_state" (a dict of the task
+      state's leaves, built as `task_state_cls`, or None); other keys
+      (the JAX rng, obs_cache) are not carried; or
+    - numpy qpos (B, nq), qvel (B, nv) and one arm's controller leaves:
+      OSC goal_pos (B, 3), goal_ori (B, 3, 3), kp (B, 6), kd (B, 6), or
+      JOINT_POSITION goal_qpos (B, na), kp (B, na), kd (B, na); and
+      gripper_action (B, n).
+
+    The controller state's class follows its leaves (goal_qpos:
+    JOINT_POSITION, else OSC); leaves the port's class lacks (the JAX
+    OSC's interpolation start pose) are not carried."""
+    def t(x, dtype=torch.float32):
+        return torch.tensor(np.array(x), dtype=dtype, device=device)
+
+    def arm_state(leaves):
+        cls = JointPosState if "goal_qpos" in leaves else OSCState
+        return cls(**{f.name: t(leaves[f.name]) for f in dataclasses.fields(cls)})
+
+    def robot(tree):
+        return RobotCtrlState(arm={a: arm_state(v) for a, v in tree["arm"].items()},
+                              gripper_action={a: t(v) for a, v in tree["gripper_action"].items()})
+
+    if not isinstance(qpos, dict):
+        leaves = dict(ctrl_leaves)
+        ramp = leaves.pop("gripper_action")
+        qpos = {"physics": {"qpos": qpos, "qvel": qvel}, "ctrl": {"arm": {arm: leaves}, "gripper_action": {arm: ramp}}}
+    tree, phys = qpos, qpos["physics"]
+    q = t(phys["qpos"])
+    B = q.shape[0]
+    time = t(phys["time"]) if phys.get("time") is not None else torch.zeros(B, device=device)
+    ctrl = tree["ctrl"]
+    ctrl = tuple(robot(c) for c in ctrl) if isinstance(ctrl, (list, tuple)) else robot(ctrl)
+    steps = t(tree["t"], torch.int32) if tree.get("t") is not None else torch.zeros(B, dtype=torch.int32,
+                                                                                    device=device)
+    task = tree.get("task_state")
+    if task is not None:
+        if task_state_cls is None:
+            raise ValueError("the state has a task state: pass task_state_cls (e.g. envs.wipe.WipeTaskState)")
+        task = task_state_cls(**{k: torch.tensor(np.array(v), device=device) for k, v in task.items()})
+    return EnvState(physics=State(qpos=q, qvel=t(phys["qvel"]), time=time), ctrl=ctrl, t=steps, task_state=task)
 
 
 def mpc_state_from_numpy(us, fxs=None, fus=None, tick=None, generator=None, device="cuda") -> MPCState:

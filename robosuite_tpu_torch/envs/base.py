@@ -37,8 +37,8 @@ import torch
 from robosuite_tpu_torch import macros
 from robosuite_tpu_torch.controllers.parts import joint_pos as jp_mod
 from robosuite_tpu_torch.controllers.parts import osc as osc_mod
-from robosuite_tpu_torch.models.bases import robot_base_factory
-from robosuite_tpu_torch.models.grippers import gripper_factory
+from robosuite_tpu_torch.models.bases import REGISTERED_BASES, robot_base_factory
+from robosuite_tpu_torch.models.grippers import REGISTERED_GRIPPERS, gripper_factory
 from robosuite_tpu_torch.models.robots import create_robot
 from robosuite_tpu_torch.observables import Observable, compute_observables, sensor
 from robosuite_tpu_torch.ops.forward import runtime_leaves
@@ -91,15 +91,38 @@ def map_state(fn, state):
     return state
 
 
+def _is_float32(dtype) -> bool:
+    if isinstance(dtype, torch.dtype):
+        return dtype == torch.float32
+    try:
+        return np.dtype(dtype) == np.float32
+    except TypeError:
+        return False
+
+
+def _ported(kind, name, registry):
+    """name, where the port has that gripper or base; NotImplementedError
+    naming it where it has not."""
+    if name not in registry:
+        raise NotImplementedError(f"{kind} {name!r} is not ported; the port has {sorted(registry)}")
+    return name
+
+
 class RobotEnv:
     """Host-side env handle: builds and compiles the world once."""
 
     def __init__(self, robots="Panda", controller_configs=None, control_freq=macros.DEFAULT_CONTROL_FREQ,
                  horizon=macros.DEFAULT_HORIZON, reward_scale=1.0, reward_shaping=False,
-                 initialization_noise="default", use_camera_obs=False, device=None):
+                 initialization_noise="default", use_camera_obs=False, camera_names=("agentview",),
+                 camera_heights=84, camera_widths=84, camera_depths=False, gripper_types="default",
+                 base_types="default", dtype=np.float32, device=None):
         if use_camera_obs:
             raise NotImplementedError("camera observations need the ray-cast renderer (the JAX package's "
                                       "renderers/raycast.py), which the port does not have yet")
+        if not _is_float32(dtype):
+            raise NotImplementedError(f"dtype={dtype!r}: the port builds float32 worlds only")
+        self.camera_names = [camera_names] if isinstance(camera_names, str) else list(camera_names)
+        self.camera_heights, self.camera_widths, self.camera_depths = camera_heights, camera_widths, camera_depths
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("no CUDA device: pass device='cpu' to run the port on the CPU")
@@ -119,13 +142,22 @@ class RobotEnv:
             self.init_noise_mag = float(initialization_noise.get("magnitude", 0.02))
 
         # the robot models, each with its base and grippers, named by its
-        # index (the JAX envs/base.py:114-131)
+        # index (the JAX envs/base.py:114-131): gripper_types and base_types
+        # are "default" (each robot's own), one name (None: no gripper) for
+        # every robot, or a list of one per robot
+        def per_robot(spec, i):
+            return spec[i] if isinstance(spec, (list, tuple)) else spec
+
         self.robot_models = []
         for i, name in enumerate(self.robot_names):
             rm = create_robot(name, idn=i)
-            rm.add_base(robot_base_factory(rm.default_base, idn=i))
+            base_t = per_robot(base_types, i)
+            rm.add_base(robot_base_factory(_ported("base", rm.default_base if base_t == "default" else base_t,
+                                                   REGISTERED_BASES), idn=i))
+            grip_t = per_robot(gripper_types, i)
             for arm in rm.arms:
-                rm.add_gripper(gripper_factory(rm.default_gripper[arm], idn=i, arm=arm), arm)
+                gname = rm.default_gripper[arm] if grip_t == "default" else "NullGripper" if grip_t is None else grip_t
+                rm.add_gripper(gripper_factory(_ported("gripper", gname, REGISTERED_GRIPPERS), idn=i, arm=arm), arm)
             self.robot_models.append(rm)
         self._load_model()
         self.model = self.task.compile().to(self.device)

@@ -2,10 +2,13 @@
 (the JAX package's mpc/ilqr.py, with the solve's vmap written out as a
 leading batch dim B).
 
-Linearize the dynamics along each nominal trajectory by forward
-differences (one dynamics call on a batch of B*H*(1+nx+nu) scenarios),
+Linearize the dynamics along each nominal trajectory, by forward
+differences (use_fd: one dynamics call on a batch of B*H*(1+nx+nu)
+scenarios) or by AD through the dynamics (forward mode with jacfwd, else
+reverse mode; on the card the kernels' tangent rules, ops/tangent.py),
 take the cost quadratics (Gauss-Newton from a residual, or autodiff of the
-cost), run the sequential Riccati backward pass, and line-search the
+cost), run the Riccati backward pass (sequential, or the associative
+O(log H)-depth pass with parallel_backward), and line-search the
 forward rollout (one dynamics call per planned step on a batch of
 B*line_search_steps). Non-finite line-search costs are masked to +inf, so
 a diverging rollout is never accepted; when every candidate diverges the
@@ -18,10 +21,12 @@ cost(x, u, t (N,)) -> (N,), terminal_cost(x) -> (N,).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
 from torch import func
+from torch.autograd import forward_ad as fwAD
 
 from robosuite_tpu_torch.ops import linalg
 
@@ -33,10 +38,23 @@ class ILQRConfig:
     reg_init: float = 1e-6
     reg_max: float = 1e6
     line_search_steps: int = 8
-    use_fd: bool = False             # forward-difference fx/fu; the jacfwd
-                                     # linearization through the dynamics
-                                     # (use_fd=False) is not ported
+    parallel_backward: bool = False  # associative-scan Riccati over H
+    use_jacfwd: bool = True          # use_fd=False: forward mode (nx+nu
+                                     # tangents a point), else reverse mode
+                                     # (nx cotangents a point)
+    use_fd: bool = False             # forward-difference fx/fu
     fd_eps: float = 1e-3
+
+
+# The most tangent-carrying scenarios one call of the linearized dynamics
+# takes: the AD sweep of N = B*H points replicates each point nx+nu times
+# (forward mode) or nx times (reverse mode) and runs the copies in chunks
+# of at most this many. Each chunk runs the plain substep on dual tensors
+# (the kernels' tangent rules), whose operands take twice their primal
+# size; Lift's contact Jacobian alone is 198 x 15 floats a scenario, and
+# its whole tangent pass peaks near 50 kB a scenario on the card, so a
+# chunk of 32768 keeps the pass near 2 GB whatever B and H.
+TANGENT_CHUNK = 32768
 
 
 @dataclasses.dataclass
@@ -103,6 +121,93 @@ def backward_sequential(fx, fu, cx, cu, cxx, cuu, cux, Vx_T, Vxx_T, reg):
     return torch.stack(ks, dim=1), torch.stack(Ks, dim=1), dv
 
 
+# The associative (O(log H)-depth) Riccati pass (Sarkka & Garcia-Fernandez,
+# "Temporal Parallelization of Dynamic Programming and Linear Quadratic
+# Control", 2021; the JAX package's backward_associative). Element
+# e_t = (A, b, C, eta, J) parameterizes the conditional value function
+# between two times; combining e_i (earlier) with e_j (later) eliminates the
+# intermediate state (see _combine). The suffix products
+# e_t (x) e_{t+1} (x) ... (x) e_H give the cost-to-go V_t(x) = 0.5 x'S x - eta'x
+# with S = J, s = -eta, from which the gains follow for every t at once.
+def _lqr_elements(fx, fu, cx, cu, cxx, cuu, cux, Vx_T, Vxx_T, reg):
+    """The H+1 elements (B, H+1, ...) of the linearized problem: the cross
+    and linear-in-u costs eliminated by completing the square in u; the
+    last the terminal cost (no transition)."""
+    nu = cu.shape[-1]
+    R = cuu + reg[:, None, None, None] * torch.eye(nu, dtype=cuu.dtype, device=cuu.device)
+    LR = linalg.chol_factor(R)
+    Rinv_P = linalg.chol_solve(LR, cux)                  # (B, H, nu, nx)
+    Rinv_r = linalg.chol_solve(LR, cu)                   # (B, H, nu)
+    Rinv_BT = linalg.chol_solve(LR, _mT(fu))             # (B, H, nu, nx)
+    A = fx - fu @ Rinv_P
+    b = -_mv(fu, Rinv_r)
+    C = fu @ Rinv_BT
+    J = cxx - _mT(cux) @ Rinv_P
+    eta = -(cx - _mv(_mT(cux), Rinv_r))
+    zA = torch.zeros_like(A[:, :1])
+    return (torch.cat([A, zA], 1), torch.cat([b, torch.zeros_like(b[:, :1])], 1), torch.cat([C, zA], 1),
+            torch.cat([eta, -Vx_T[:, None]], 1), torch.cat([J, Vxx_T[:, None]], 1))
+
+
+def _combine(later, earlier):
+    """e_i (earlier) combined with e_j (later):
+        A_ij = A_j (I + C_i J_j)^-1 A_i
+        b_ij = A_j (I + C_i J_j)^-1 (b_i + C_i eta_j) + b_j
+        C_ij = A_j (I + C_i J_j)^-1 C_i A_j^T + C_j
+      eta_ij = A_i^T (I + J_j C_i)^-1 (eta_j - J_j b_i) + eta_i
+        J_ij = A_i^T (I + J_j C_i)^-1 J_j A_i + J_i"""
+    Aj, bj, Cj, etaj, Jj = later
+    Ai, bi, Ci, etai, Ji = earlier
+    eye = torch.eye(Ai.shape[-1], dtype=Ai.dtype, device=Ai.device)
+    M1 = eye + Ci @ Jj
+    M2 = eye + Jj @ Ci
+    A_ij = Aj @ torch.linalg.solve(M1, Ai)
+    b_ij = _mv(Aj, torch.linalg.solve(M1, bi + _mv(Ci, etaj))) + bj
+    C_ij = Aj @ torch.linalg.solve(M1, Ci @ _mT(Aj)) + Cj
+    eta_ij = _mv(_mT(Ai), torch.linalg.solve(M2, etaj - _mv(Jj, bi))) + etai
+    J_ij = _mT(Ai) @ torch.linalg.solve(M2, Jj @ Ai) + Ji
+    return A_ij, b_ij, C_ij, eta_ij, J_ij
+
+
+def _suffix_scan(elems):
+    """S_t = e_t (x) e_{t+1} (x) ... (x) e_T for every t, over dim 1, in
+    ceil(log2(T + 1)) rounds of batched combines (Hillis-Steele: at round
+    d each S_t with t + d <= T absorbs S_{t+d}); torch has no
+    associative_scan."""
+    n, d = elems[0].shape[1], 1
+    while d < n:
+        head = _combine(tuple(e[:, d:] for e in elems), tuple(e[:, :n - d] for e in elems))
+        elems = tuple(torch.cat([h, e[:, n - d:]], 1) for h, e in zip(head, elems))
+        d *= 2
+    return elems
+
+
+def backward_associative(fx, fu, cx, cu, cxx, cuu, cux, Vx_T, Vxx_T, reg):
+    """The O(log H)-depth Riccati pass: -> (ks (B, H, nu), Ks (B, H, nu,
+    nx), expected improvement (B,), Ss (B, H+1, nx, nx), ss (B, H+1, nx)),
+    Ss[:, t] and ss[:, t] the cost-to-go Hessian and gradient at step t.
+    Computed in float64 and returned in the inputs' dtype: each combine
+    inverts I + C_i J_j, whose condition grows with the suffix's cost-to-go,
+    and on a stiff contact linearization (Lift's, |fx| ~ 300) float32 loses
+    gains that the sequential pass keeps (the JAX package runs it in
+    float32)."""
+    dtype = fx.dtype
+    fx, fu, cx, cu, cxx, cuu, cux, Vx_T, Vxx_T, reg = (a.double() for a in (fx, fu, cx, cu, cxx, cuu, cux, Vx_T,
+                                                                            Vxx_T, reg))
+    _, _, _, etas, Ss = _suffix_scan(_lqr_elements(fx, fu, cx, cu, cxx, cuu, cux, Vx_T, Vxx_T, reg))
+    ss = -etas
+    S1, s1 = Ss[:, 1:], ss[:, 1:]
+    nu = cu.shape[-1]
+    Qu = cu + _mv(_mT(fu), s1)
+    Quu = cuu + _mT(fu) @ S1 @ fu + reg[:, None, None, None] * torch.eye(nu, dtype=cuu.dtype, device=cuu.device)
+    Qux = cux + _mT(fu) @ S1 @ fx
+    L = linalg.chol_factor(Quu)
+    k = -linalg.chol_solve(L, Qu)
+    K = -linalg.chol_solve(L, Qux)
+    dv = (-0.5 * (k * _mv(Quu, k)).sum(-1) - (k * Qu).sum(-1)).sum(-1)
+    return tuple(a.to(dtype) for a in (k, K, dv, Ss, ss))
+
+
 def _per_sample(fn):
     """fn on batches -> the same function on one sample (for torch.func)."""
     return lambda *args: fn(*(a[None] for a in args))[0]
@@ -149,6 +254,38 @@ def autodiff_terminal_quadratics(terminal_cost: Callable):
     return tquads
 
 
+def linearize_ad(fn: Callable, xs, us, use_jacfwd: bool = True):
+    """(fx (N, nx, nx), fu (N, nx, nu)) of fn(x (N, nx), u (N, nu)) -> (N, nx)
+    about (xs, us) by AD through fn (on the card, the kernels' tangent
+    rules). Forward mode: each point replicated nx+nu times, copy p
+    carrying basis tangent e_p, so the output tangent of copy p is column
+    p of [fx | fu]. Reverse mode: each point replicated nx times, copy i's
+    output given cotangent e_i, so its input gradients are row i of fx and
+    fu. In chunks of at most TANGENT_CHUNK copies, each one call of fn."""
+    nx, nu = xs.shape[-1], us.shape[-1]
+    P = nx + nu if use_jacfwd else nx
+    eye = torch.eye(P, dtype=xs.dtype, device=xs.device)
+    n = max(1, TANGENT_CHUNK // P)
+    fxs, fus = [], []
+    for xc, uc in zip(xs.split(n), us.split(n)):
+        m = xc.shape[0]
+        X, U = xc.repeat_interleave(P, dim=0), uc.repeat_interleave(P, dim=0)
+        E = eye.expand(m, P, P).reshape(m * P, P)
+        if use_jacfwd:
+            with fwAD.dual_level():
+                F = fn(fwAD.make_dual(X, E[:, :nx]), fwAD.make_dual(U, E[:, nx:]))
+                cols = fwAD.unpack_dual(F).tangent.reshape(m, P, nx)
+            fxs.append(_mT(cols[:, :nx]))
+            fus.append(_mT(cols[:, nx:]))
+        else:
+            X, U = X.detach().requires_grad_(), U.detach().requires_grad_()
+            with torch.enable_grad():
+                gx, gu = torch.autograd.grad(fn(X, U), (X, U), E)
+            fxs.append(gx.reshape(m, nx, nx))
+            fus.append(gu.reshape(m, nx, nu))
+    return torch.cat(fxs), torch.cat(fus)
+
+
 def solve(cfg: ILQRConfig, dynamics: Callable, cost: Callable, terminal_cost: Callable, x0, us_init,
           quadratics: Callable = None, terminal_quadratics: Callable = None, frozen_lin=None,
           lin_dynamics: Callable = None) -> ILQRSolution:
@@ -161,8 +298,6 @@ def solve(cfg: ILQRConfig, dynamics: Callable, cost: Callable, terminal_cost: Ca
     linearizing (RTI reuse across receding ticks). lin_dynamics: dynamics
     for the linearization only (a coarser model of the same per-step
     transition); the rollout and line search always run `dynamics`."""
-    if not cfg.use_fd and frozen_lin is None:
-        raise NotImplementedError("the jacfwd linearization through the dynamics is not ported: use use_fd=True")
     B, H, nu = us_init.shape
     nx = x0.shape[-1]
     lin_src = dynamics if lin_dynamics is None else lin_dynamics
@@ -170,7 +305,7 @@ def solve(cfg: ILQRConfig, dynamics: Callable, cost: Callable, terminal_cost: Ca
     terminal_quadratics = terminal_quadratics or autodiff_terminal_quadratics(terminal_cost)
     dt, dev = x0.dtype, x0.device
 
-    def lin_dyn(xs, us):
+    def lin_fd(xs, us):
         """Forward differences of lin_src about (xs (N, nx), us (N, nu)):
         the nominal and the nx+nu perturbed evaluations of every point in
         ONE call of N*(1+nx+nu) scenarios."""
@@ -182,6 +317,8 @@ def solve(cfg: ILQRConfig, dynamics: Callable, cost: Callable, terminal_cost: Ca
         cols = (F[:, 1:] - F[:, :1]) / cfg.fd_eps                      # (N, P, nx)
         return _mT(cols[:, :nx]), _mT(cols[:, nx:])
 
+    lin_dyn = lin_fd if cfg.use_fd else functools.partial(linearize_ad, lin_src, use_jacfwd=cfg.use_jacfwd)
+
     def backward(xs, us, reg):
         if frozen_lin is not None:
             fx, fu = frozen_lin
@@ -192,7 +329,10 @@ def solve(cfg: ILQRConfig, dynamics: Callable, cost: Callable, terminal_cost: Ca
         cq = quadratics(xs[:, :-1].reshape(B * H, nx), us.reshape(B * H, nu), t)
         cq = [c.reshape((B, H) + c.shape[1:]) for c in cq]
         Vx, Vxx = terminal_quadratics(xs[:, -1])
-        ks, Ks, dv = backward_sequential(fx, fu, *cq, Vx, Vxx, reg)
+        if cfg.parallel_backward:
+            ks, Ks, dv, _, _ = backward_associative(fx, fu, *cq, Vx, Vxx, reg)
+        else:
+            ks, Ks, dv = backward_sequential(fx, fu, *cq, Vx, Vxx, reg)
         return ks, Ks, dv, (fx, fu)
 
     def forward(xs, us, ks, Ks, alphas):

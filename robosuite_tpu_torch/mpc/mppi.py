@@ -1,5 +1,5 @@
 """MPPI: sampling-based MPC over the batched env dynamics (the JAX
-package's mpc/mppi.py, batched form).
+package's mpc/mppi.py).
 
 `mppi_step_batch` draws K action sequences per solve around each solve's
 nominal plan, rolls the (B, K) grid as ONE flat batch of B*K scenarios
@@ -7,6 +7,14 @@ nominal plan, rolls the (B, K) grid as ONE flat batch of B*K scenarios
 softmax-weights the returns into each solve's new nominal plan. Rollouts
 that went NaN/Inf get zero weight; a solve whose rollouts all diverged
 keeps its plan.
+
+The one-scenario entry points (`init_state`, `mppi_step`, `mppi_update`,
+`make_solver`) take a state and a plan with no batch dim and run
+`mppi_step_batch` at B=1, so the K rollouts of the scenario are one batch
+of K through the kernels. Their callables work on batches, as every
+callable of the port does: rollout_step(states, actions (K, A)) ->
+(states', rewards (K,)) (env.rollout_batch), rollout_return_fn(states,
+seqs (K, H, A), discounts) -> (K,) (env.make_plan_return).
 """
 
 from __future__ import annotations
@@ -82,3 +90,67 @@ def mppi_step_batch(cfg: MPPIConfig, rollout_return_fn: Callable, env_states, me
         n_masked=(~finite).sum(dim=1),
     )
     return new_means, metrics
+
+
+def add_batch(tree):
+    """A one-scenario state (an EnvState, MPCState or MPPIState with no
+    batch dim) as a batch of one."""
+    return map_state(lambda x: x[None], tree)
+
+
+def drop_batch(tree):
+    """The only scenario of a batch of one, with no batch dim."""
+    return map_state(lambda x: x[0], tree)
+
+
+@dataclasses.dataclass
+class MPPIState:
+    """One solve's planner state: the nominal plan mean (H, A) and the
+    generator of its noise."""
+
+    mean: torch.Tensor
+    generator: Optional[torch.Generator]
+
+
+def init_state(cfg: MPPIConfig, act_dim: int, generator: Optional[torch.Generator], device="cuda") -> MPPIState:
+    """A zero plan on `device` (CUDA unless the caller asks for "cpu")."""
+    return MPPIState(mean=torch.zeros(cfg.horizon, act_dim, device=device), generator=generator)
+
+
+def mppi_step(cfg: MPPIConfig, rollout_step: Callable, env_state, mean, generator: Optional[torch.Generator] = None,
+              rollout_return_fn: Callable = None, knots=None):
+    """One MPPI update of one scenario's plan mean (H, A) (no receding
+    shift) -> (new_mean (H, A), metrics of 0-dim tensors): the K sequences
+    roll as one batch of K, through rollout_return_fn where given, else
+    through rollout_step one planned step at a time. The standard normals
+    come from `generator`, or are given as `knots` (*noise_shape)."""
+    if rollout_return_fn is None:
+        def rollout_return_fn(states, seqs, discounts):
+            rewards = []
+            for h in range(seqs.shape[1]):
+                states, r = rollout_step(states, seqs[:, h])
+                rewards.append(r)
+            return (torch.stack(rewards, dim=-1) * discounts).sum(dim=-1)
+
+    new, metrics = mppi_step_batch(cfg, rollout_return_fn, add_batch(env_state), mean[None], generator=generator,
+                                   knots=None if knots is None else knots[None])
+    return new[0], drop_batch(metrics)
+
+
+def mppi_update(cfg: MPPIConfig, rollout_step: Callable, env_state, planner: MPPIState, knots=None):
+    """One MPPI solve of one scenario -> (action (A,), planner' with the plan
+    shifted one step, metrics)."""
+    new_mean, metrics = mppi_step(cfg, rollout_step, env_state, planner.mean, generator=planner.generator,
+                                  knots=knots)
+    shifted = torch.cat([new_mean[1:], torch.zeros_like(new_mean[:1])])
+    return new_mean[0], MPPIState(mean=shifted, generator=planner.generator), metrics
+
+
+def make_solver(cfg: MPPIConfig, env):
+    """MPPI bound to an env's policy step (env.rollout_batch) ->
+    solve(env_state, planner, knots=None) -> (action, planner', metrics)."""
+
+    def solve(env_state, planner, knots=None):
+        return mppi_update(cfg, env.rollout_batch, env_state, planner, knots=knots)
+
+    return solve

@@ -1,5 +1,7 @@
 """Receding-horizon MPC on the port's envs (the JAX package's
-mpc/receding.py, batched form: `make_solve_batch`).
+mpc/receding.py): `make_solve_batch` solves B scenarios; `make_solve` and
+`plan_rollout_step` take one scenario with no batch dim (the batched code
+at B=1).
 
 One solve is one control tick of B scenarios:
   1. MPPI warm start (mpc/mppi.py): K sampled action sequences of length H
@@ -8,9 +10,11 @@ One solve is one control tick of B scenarios:
      make_plan_return: the emit_aux fused substep), importance-weighted
      into each scenario's nominal plan.
   2. iLQR refinement (mpc/ilqr.py, n_ilqr_iters > 0) of the nominal plan on
-     the planning dynamics: forward-difference fx/fu (optionally on a
+     the planning dynamics: forward-difference fx/fu, or with
+     ilqr_fd=False forward-mode AD through the dynamics (optionally on a
      coarser `fd_timestep` model), Gauss-Newton cost quadratics from the
-     task residual, the sequential Riccati pass and the line search. With
+     task residual, the sequential Riccati pass (or the associative one,
+     parallel_backward) and the line search. With
      relin_every = R > 1 the full linearization runs every R-th tick; in
      between the carried (fx, fu) are shifted one step with the plan
      (real-time iteration). The choice is one host-side decision for the
@@ -34,7 +38,7 @@ from robosuite_tpu_torch.mpc import ilqr as ilqr_mod
 from robosuite_tpu_torch.mpc import mppi as mppi_mod
 from robosuite_tpu_torch.mpc.residuals import residual_for
 from robosuite_tpu_torch.ops.fk import fk_pose
-from robosuite_tpu_torch.physics import kinematics
+from robosuite_tpu_torch.physics import engine, kinematics
 from robosuite_tpu_torch.physics.state import State
 from robosuite_tpu_torch.robots.robot import RobotCtrlState
 
@@ -50,7 +54,10 @@ class MPCConfig:
     n_ilqr_iters: int = 1             # 0 = MPPI only
     ilqr_line_search: int = 4
     ilqr_reg: float = 1e-3
-    ilqr_fd: bool = True              # forward-difference linearization
+    ilqr_fd: bool = True              # forward-difference linearization;
+                                      # False: forward-mode AD through the
+                                      # dynamics (the kernels' tangent rules)
+    parallel_backward: bool = False   # associative-scan Riccati
     plan_timestep: float = 0.01       # planning-model integrator dt
     plan_solver_iters: int = 10       # planning-model APGD iterations
     plan_pair_points: Optional[int] = None  # planning-model points per pair
@@ -76,17 +83,19 @@ class MPCState:
     tick_host: int = 0
 
 
-def init_state(cfg: MPCConfig, act_dim: int, batch: int, generator, nx: Optional[int] = None,
+def init_state(cfg: MPCConfig, act_dim: int, batch: Optional[int], generator, nx: Optional[int] = None,
                device="cuda") -> MPCState:
     """Zero plans (and, for the RTI carry, a zero linearization) for `batch`
-    solves on `device` (CUDA unless the caller asks for "cpu")."""
-    us = torch.zeros(batch, cfg.horizon, act_dim, device=device)
+    solves on `device` (CUDA unless the caller asks for "cpu"); batch None:
+    one solve's state, with no batch dim (make_solve's)."""
+    lead = () if batch is None else (batch,)
+    us = torch.zeros(lead + (cfg.horizon, act_dim), device=device)
     if cfg.n_ilqr_iters > 0 and cfg.relin_every > 1:
         if nx is None:
             raise ValueError("relin_every > 1 needs nx (use RecedingMPC.init_state)")
-        return MPCState(us=us, generator=generator, fxs=torch.zeros(batch, cfg.horizon, nx, nx, device=device),
-                        fus=torch.zeros(batch, cfg.horizon, nx, act_dim, device=device),
-                        tick=torch.zeros(batch, dtype=torch.int32, device=device))
+        return MPCState(us=us, generator=generator, fxs=torch.zeros(lead + (cfg.horizon, nx, nx), device=device),
+                        fus=torch.zeros(lead + (cfg.horizon, nx, act_dim), device=device),
+                        tick=torch.zeros(lead, dtype=torch.int32, device=device))
     return MPCState(us=us, generator=generator)
 
 
@@ -135,8 +144,9 @@ class RecedingMPC:
         self.nx = self._nq + self._nv + sum(n for _, _, n in self._ramps)
         self._nu = env.action_dim
 
-    def init_state(self, batch: int, generator: torch.Generator) -> MPCState:
-        """MPCState for `batch` solves (with the RTI carry when relin_every > 1)."""
+    def init_state(self, batch: Optional[int], generator: torch.Generator) -> MPCState:
+        """MPCState for `batch` solves (with the RTI carry when relin_every >
+        1); batch None: one solve's, with no batch dim (make_solve's)."""
         return init_state(self.cfg, self._nu, batch, generator, nx=self.nx, device=self.env.device)
 
     # -- EnvState <-> iLQR state x = (qpos, qvel, each robot's gripper ramps
@@ -181,6 +191,31 @@ class RecedingMPC:
         t0 = torch.zeros(x.shape[0], dtype=torch.long, device=x.device)
         return 4.0 * self._ilqr_cost(x, u0, t0, poses=poses)
 
+    # -- one scenario (no batch dim), the JAX package's unbatched entry points
+    def plan_rollout_step(self, env_state: EnvState, action):
+        """(EnvState, action (A,)) -> (EnvState', reward ()) of one
+        scenario on the planning model (the env's policy step at B=1)."""
+        s = mppi_mod.add_batch(env_state)
+        q, qd = s.physics.qpos, s.physics.qvel
+        kin, M, bias = engine.forward_products(self.plan_model, q, qd)
+        new, r, _ = self.env._rollout_with_products(s, self.env._clip(action[None]), self.plan_model,
+                                                    self.plan_substeps, kin, M, bias)
+        return mppi_mod.drop_batch(new), r[0]
+
+    def make_solve(self):
+        """solve(env_state, mpc_state, knots=None) -> (action (A,),
+        mpc_state', metrics): one MPC tick of ONE scenario (no batch dim;
+        the state from init_state(None, generator)), the batched solve at
+        B=1. `knots` (*mppi.noise_shape) replaces the MPPI draw."""
+        solve_batch = self.make_solve_batch()
+
+        def solve(env_state, mpc: MPCState, knots=None):
+            a, ms, met = solve_batch(mppi_mod.add_batch(env_state), mppi_mod.add_batch(mpc),
+                                     knots=None if knots is None else knots[None])
+            return a[0], mppi_mod.drop_batch(ms), {k: v[0] if torch.is_tensor(v) else v for k, v in met.items()}
+
+        return solve
+
     # -- the solve -----------------------------------------------------------------
     def make_solve_batch(self):
         """solve_batch(env_states, mpc_state, knots=None) -> (actions (B, A),
@@ -191,7 +226,8 @@ class RecedingMPC:
         mppi_cfg = mppi_mod.MPPIConfig(horizon=cfg.horizon, n_samples=cfg.n_samples, temperature=cfg.temperature,
                                        noise_sigma=cfg.noise_sigma, gamma=cfg.gamma, n_knots=cfg.n_knots)
         ilqr_cfg = ilqr_mod.ILQRConfig(horizon=cfg.horizon, n_iterations=cfg.n_ilqr_iters, reg_init=cfg.ilqr_reg,
-                                       line_search_steps=cfg.ilqr_line_search, use_fd=cfg.ilqr_fd)
+                                       line_search_steps=cfg.ilqr_line_search, use_fd=cfg.ilqr_fd,
+                                       parallel_backward=cfg.parallel_backward)
         quads = ilqr_mod.gauss_newton_quadratics(self._ilqr_residual)
         tquads = ilqr_mod.autodiff_terminal_quadratics(lambda x: self._ilqr_terminal(x, poses=kinematics.body_poses))
         lin = self._ilqr_lin_dynamics if self._lin_fn is not None else None

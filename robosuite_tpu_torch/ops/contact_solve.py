@@ -5,7 +5,8 @@ velocity solve).
 Counterpart of robosuite_tpu/ops/pallas_contact.py (make_vel_solver). The
 plain version `vel_update_plain` is the JAX package's _vel_update_xla /
 _apgd_xla on batched tensors; `vel_update` is the wrapper: plain for CPU
-tensors, csrc/contact_solve.cu for CUDA tensors (counted).
+tensors, csrc/contact_solve.cu for CUDA tensors (counted), through
+`K2Function` (ops/tangent.py) where an operand carries a derivative.
 
 Operands, rows grouped [normals (K) | t1 (K) | t2 (K)]:
 M (B, nv, nv), JfT (B, nv, 3K), aref (B, 3K), qfrc_smooth, qvel,
@@ -15,11 +16,14 @@ damping (B, nv), reg3 (B, 3K), mu, active (B, K). Returns
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from robosuite_tpu_torch.ops import build as _b
 from robosuite_tpu_torch.ops import linalg
 from robosuite_tpu_torch.ops import tables as _tables
+from robosuite_tpu_torch.ops import tangent
 
 
 def _apgd_plain(JfT, Lm, aref, qacc_smooth, reg3, mu, active, iters, power_iters):
@@ -82,9 +86,27 @@ def check_sizes(nv, K):
 
 
 def vel_update(M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active, iters, power_iters, dt):
-    """Wrapper: the plain version on CPU tensors, the kernel on CUDA ones."""
+    """Wrapper: the plain version on CPU tensors, the kernel on CUDA ones;
+    on CUDA, operands that carry a derivative go through `K2Function` (the
+    kernel's primal, the plain version's tangents)."""
+    args = (M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active)
     if M.device.type == "cpu":
-        return vel_update_plain(M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active, iters, power_iters, dt)
+        return vel_update_plain(*args, iters, power_iters, dt)
+    if tangent.carries_derivative(*args):
+        return K2Function.apply(functools.partial(_launch, iters=iters, power_iters=power_iters, dt=dt),
+                                functools.partial(vel_update_plain, iters=iters, power_iters=power_iters, dt=dt),
+                                vel_update, *args)
+    return _launch(*args, iters, power_iters, dt)
+
+
+class K2Function(tangent.KernelFunction):
+    """K2 with its tangent rule (pallas_contact.py _solve_jvp): apply(primal,
+    plain, counter, M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu,
+    active) -> (qvel', f)."""
+
+
+def _launch(M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active, iters, power_iters, dt):
+    """One K2 launch (counted) -> (qvel', f)."""
     lib = _b.library()
     B, nv, ntot = JfT.shape
     K = ntot // 3
@@ -106,3 +128,4 @@ def vel_update(M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active, iters
 
 
 vel_update.launches = 0
+vel_update.tangent_passes = 0  # K2Function's derivative passes (plain version)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from robosuite_tpu_torch.ops import build as _b
+from robosuite_tpu_torch.ops import tangent
 from robosuite_tpu_torch.ops.forward import model_image, model_tables
 from robosuite_tpu_torch.physics import kinematics
 
@@ -26,7 +27,13 @@ def fk_pose_plain(model, qpos):
 
 
 def fk_pose(model, qpos):
-    """(xpos (B, nbody, 3), xquat (B, nbody, 4) wxyz) for qpos (B, nq)."""
+    """(xpos (B, nbody, 3), xquat (B, nbody, 4) wxyz) for qpos (B, nq).
+    K4 has no tangent rule (nor has the JAX kernel, pallas_fk.py): a qpos
+    that carries a derivative raises, on either device, rather than
+    leaving the card with a silent zero derivative. Differentiable poses
+    come from kinematics.body_poses."""
+    if tangent.carries_derivative(qpos):
+        raise ValueError("fk_pose: K4 has no tangent rule; differentiate kinematics.body_poses instead")
     if qpos.device.type == "cpu":
         return fk_pose_plain(model, qpos)
     lib = _b.library()

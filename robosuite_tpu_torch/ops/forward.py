@@ -9,14 +9,19 @@ runtime inputs, as in the JAX kernel; the tree is the packed model table.
 A launch makes one allocation, which holds the 13 outputs (`OUTPUTS`, at
 the offsets `out_views` gives, as the C launcher derives them); a leaf
 may have batch stride 0, so the model's own leaves go in as expanded views.
+Operands that carry a derivative go through `K1Function` (ops/tangent.py:
+the launch's primal, `forward_plain`'s tangents).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from robosuite_tpu_torch.ops import build as _b
 from robosuite_tpu_torch.ops import tables as _tables
+from robosuite_tpu_torch.ops import tangent
 from robosuite_tpu_torch.physics import dynamics, kinematics
 from robosuite_tpu_torch.physics.state import KinData
 
@@ -152,12 +157,42 @@ def _leaf_stride(t, name, shape, row, n):
 
 def forward_products(model, qpos, qvel, mass=None, inertia=None, gravity=None, armature=None):
     """(KinData, M (B, nv, nv), bias (B, nv)) for qpos (B, nq), qvel (B, nv).
-    The inertial leaves default to the model's."""
+    The inertial leaves default to the model's. On CUDA, operands that
+    carry a derivative go through `K1Function` (the kernel's primal, the
+    plain version's tangents); others launch directly."""
     B = qpos.shape[0]
     if qpos.device.type == "cpu":
         if mass is None:
             mass, inertia, gravity, armature = model_leaves(model, B)
         return forward_plain(model, qpos, qvel, mass, inertia, gravity, armature)
+    if tangent.carries_derivative(qpos, qvel, mass, inertia, gravity, armature):
+        leaves = model_leaves(model, B) if mass is None else (mass, inertia, gravity, armature)
+        return _unpack(K1Function.apply(functools.partial(_launch, model), functools.partial(plain_outputs, model),
+                                        forward_products, qpos, qvel, *leaves))
+    return _unpack(_launch(model, qpos, qvel, mass, inertia, gravity, armature))
+
+
+def plain_outputs(model, qpos, qvel, mass, inertia, gravity, armature):
+    """forward_plain's results as the tuple of OUTPUTS (K1Function's tangent rule)."""
+    kin, M, bias = forward_plain(model, qpos, qvel, mass, inertia, gravity, armature)
+    return tuple(M if n == "M" else bias if n == "bias" else getattr(kin, n) for n in OUTPUTS)
+
+
+def _unpack(outs):
+    o = dict(zip(OUTPUTS, outs))
+    M, bias = o.pop("M"), o.pop("bias")
+    return KinData(**o), M, bias
+
+
+class K1Function(tangent.KernelFunction):
+    """K1 with its tangent rule (pallas_forward.py _fp_jvp): apply(primal,
+    plain, counter, qpos, qvel, mass, inertia, gravity, armature) -> the
+    OUTPUTS; primal the launch, plain `plain_outputs`."""
+
+
+def _launch(model, qpos, qvel, mass=None, inertia=None, gravity=None, armature=None):
+    """One K1 launch (counted) -> the OUTPUTS, views of one allocation."""
+    B = qpos.shape[0]
     lib = _b.library()
     ctx = model.__dict__.get("_k1_launch")
     if ctx is None or ctx.device != qpos.device:
@@ -177,9 +212,9 @@ def forward_products(model, qpos, qvel, mass=None, inertia=None, gravity=None, a
     forward_products.by_batch[B] = forward_products.by_batch.get(B, 0) + 1
     parts = out.split_with_sizes(sizes)
     o = {name: parts[i].view(shape) for name, i, shape in which}
-    M, bias = o.pop("M"), o.pop("bias")
-    return KinData(**o), M, bias
+    return tuple(o[n] for n in OUTPUTS)
 
 
 forward_products.launches = 0
 forward_products.by_batch = {}  # the launches by batch size
+forward_products.tangent_passes = 0  # K1Function's derivative passes (plain version)

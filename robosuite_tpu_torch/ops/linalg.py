@@ -9,17 +9,18 @@ import torch
 
 def chol_factor(A):
     """Lower Cholesky factor of SPD A (..., n, n); pivots floored at 1e-12
-    before the square root, as the JAX package's unrolled factor does."""
+    before the square root, as the JAX package's unrolled factor does.
+    Column by column, with no write into a tensor already read (so a
+    reverse-mode graph goes through it)."""
     n = A.shape[-1]
-    L = torch.zeros_like(A)
+    cols = []
     for j in range(n):
-        s = A[..., j, j] - torch.sum(L[..., j, :j] * L[..., j, :j], dim=-1)
+        Lc = torch.stack(cols, dim=-1) if cols else A[..., :, :0]       # (..., n, j): the columns so far
+        s = A[..., j, j] - torch.sum(Lc[..., j, :] * Lc[..., j, :], dim=-1)
         d = torch.sqrt(torch.clamp_min(s, 1e-12))
-        L[..., j, j] = d
-        if j + 1 < n:
-            off = A[..., j + 1:, j] - torch.sum(L[..., j + 1:, :j] * L[..., j:j + 1, :j], dim=-1)
-            L[..., j + 1:, j] = off * (1.0 / d)[..., None]
-    return L
+        off = A[..., j + 1:, j] - torch.sum(Lc[..., j + 1:, :] * Lc[..., j:j + 1, :], dim=-1)
+        cols.append(torch.cat([torch.zeros_like(A[..., :j, j]), d[..., None], off * (1.0 / d)[..., None]], dim=-1))
+    return torch.stack(cols, dim=-1)
 
 
 def chol_solve(L, b):

@@ -13,7 +13,8 @@ rollouts read instead of running the forward products].
 composition of the port's modules (the JAX make_fused_substep._xla);
 `make_fused_substep` returns the wrapper, which runs the plain version on
 CPU tensors and launches csrc/substep.cu on CUDA tensors (counted in
-`make_fused_substep.launches`, or `.aux_launches` for emit_aux).
+`make_fused_substep.launches`, or `.aux_launches` for emit_aux), through
+`K3Function` (ops/tangent.py) where an operand carries a derivative.
 
 Goal encoding. OSC: goal (B, 12) = [desired_pos (3), desired_ori (3x3,
 row-major)] in the world frame, gains (B, 12) = [kp (6), kd (6)].
@@ -23,13 +24,15 @@ grip (B, ng) = gripper actuator ctrl.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from robosuite_tpu_torch.controllers.parts import joint_pos as jp_mod
 from robosuite_tpu_torch.controllers.parts import osc as osc_mod
 from robosuite_tpu_torch.models import spec as S
 from robosuite_tpu_torch.ops import build as _b
-from robosuite_tpu_torch.ops import contact_solve, tables
+from robosuite_tpu_torch.ops import contact_solve, tables, tangent
 from robosuite_tpu_torch.ops.forward import forward_plain, model_tables
 from robosuite_tpu_torch.physics import contact as C
 from robosuite_tpu_torch.physics import engine, kinematics
@@ -145,9 +148,7 @@ def make_fused_substep(env, model, emit_aux=False):
     ng, n_goal, n_gains = len(spec["grip_actuators"]), spec["goal_width"], spec["gains_width"]
     plain = substep_aux_plain if emit_aux else substep_plain
 
-    def fused(qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip):
-        if qpos.device.type == "cpu":
-            return plain(env, model, qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip)
+    def launch(qpos, qvel, mass, inertia, gravity, armature, goal, gains, grip):
         lib = _b.library()
         B = qpos.shape[0]
         for t, shape, name in ((qpos, (B, model.nq), "qpos"), (qvel, (B, model.nv), "qvel"),
@@ -171,8 +172,23 @@ def make_fused_substep(env, model, emit_aux=False):
         make_fused_substep.aux_launches += 1
         return (qpos_out, qvel_out, f) + aux
 
+    def fused(*args):
+        if args[0].device.type == "cpu":
+            return plain(env, model, *args)
+        if tangent.carries_derivative(*args):
+            return K3Function.apply(launch, functools.partial(plain, env, model), make_fused_substep, *args)
+        return launch(*args)
+
+    fused.launch = launch  # the direct launch, for the tangent checks
     fused.model, fused.spec, fused.emit_aux = model, spec, emit_aux
     return fused
+
+
+class K3Function(tangent.KernelFunction):
+    """K3 with its tangent rule (pallas_substep.py _sub_jvp), both laws and
+    both variants: apply(primal, plain, counter, qpos, qvel, mass, inertia,
+    gravity, armature, goal, gains, grip) -> the fused wrapper's outputs;
+    plain `substep_plain` or `substep_aux_plain`."""
 
 
 def resident_per_sm(fused) -> int:
@@ -194,3 +210,4 @@ def smem_bytes(fused) -> int:
 
 make_fused_substep.launches = 0
 make_fused_substep.aux_launches = 0
+make_fused_substep.tangent_passes = 0  # K3Function's derivative passes (plain version)

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from robosuite_tpu_torch.models import spec as S
+from robosuite_tpu_torch.ops import tangent
 
 APGD_ITERS = 30
 POWER_ITERS = 8
@@ -735,8 +736,10 @@ def contact_rows(model, kin, qvel, dt):
     eagerly; on CUDA tensors by replaying a CUDA graph of the same plain
     code, captured once per model and batch size (_RowsGraph), since the
     narrowphase of a large world issues thousands of small kernels whose
-    launches, not their work, take its time."""
-    if qvel.device.type != "cuda":
+    launches, not their work, take its time. Operands that carry a
+    derivative run eagerly on the card too: a replay copies values only,
+    so it would drop their tangents."""
+    if qvel.device.type != "cuda" or tangent.carries_derivative(qvel, *(getattr(kin, f) for f in _RowsGraph.FIELDS)):
         return solver_inputs(model, kin, narrowphase(model, kin), qvel, dt)
     graph = model.derived(("rows_graph", qvel.shape[0], float(dt)), lambda: _RowsGraph(model, kin, qvel, dt))
     return graph(kin, qvel)

@@ -59,11 +59,13 @@ def integrate_qpos(model, qpos, qvel_new, dt):
     out[:, qadr] = out[:, qadr] + dt * qvel_new[:, dadr]
     for j in range(model.njnt):
         qa, da = model.jnt_qposadr[j], model.jnt_dofadr[j]
+        # read from qpos, not out: a view of out written in place would
+        # break a reverse-mode graph through the quaternion product
         if model.jnt_type[j] == S.FREE:
-            out[:, qa:qa + 3] = out[:, qa:qa + 3] + dt * qvel_new[:, da:da + 3]
-            out[:, qa + 3:qa + 7] = T.quat_integrate_wxyz(out[:, qa + 3:qa + 7], qvel_new[:, da + 3:da + 6], dt)
+            out[:, qa:qa + 3] = qpos[:, qa:qa + 3] + dt * qvel_new[:, da:da + 3]
+            out[:, qa + 3:qa + 7] = T.quat_integrate_wxyz(qpos[:, qa + 3:qa + 7], qvel_new[:, da + 3:da + 6], dt)
         elif model.jnt_type[j] == S.BALL:
-            out[:, qa:qa + 4] = T.quat_integrate_wxyz(out[:, qa:qa + 4], qvel_new[:, da:da + 3], dt)
+            out[:, qa:qa + 4] = T.quat_integrate_wxyz(qpos[:, qa:qa + 4], qvel_new[:, da:da + 3], dt)
     return out
 
 

@@ -169,10 +169,11 @@ class FixedBaseRobot:
         for arm in self.arms:
             cfg = self.arm_cfg[arm]
             arm_states[arm] = ctrl_module(cfg).init_state(cfg, self.arm_view(kin, M, bias, qpos, qvel, arm))
-            # one ramp entry per gripper actuator; none for a gripper with
-            # no actuators (NullGripper), whose ramp the JAX package pads to
-            # one entry it never moves
-            grip_actions[arm] = torch.zeros(B, len(self.gripper_actuator_ids[arm]), dtype=qpos.dtype,
+            # one ramp entry per gripper actuator, and one for a gripper with
+            # none (NullGripper), never moved and never fed to an actuator
+            # (the JAX robot.py pads to max(n_act, 1), so the MPC state x
+            # has the same width in both packages)
+            grip_actions[arm] = torch.zeros(B, max(len(self.gripper_actuator_ids[arm]), 1), dtype=qpos.dtype,
                                             device=qpos.device)
         return RobotCtrlState(arm=arm_states, gripper_action=grip_actions)
 
@@ -198,9 +199,9 @@ class FixedBaseRobot:
 
     def gripper_ctrl(self, arm, ctrl_state: RobotCtrlState):
         """Actuator-space gripper ctrl (B, n) for the tick's gripper state
-        ((B, 0) for a gripper with no actuators)."""
+        ((B, 0) for a gripper with no actuators: its pad entry feeds none)."""
         rng = self._dev[arm]["grip_range"]
-        return grip_mod.run(ctrl_state.gripper_action[arm], rng[:, 0], rng[:, 1])
+        return grip_mod.run(ctrl_state.gripper_action[arm][:, :rng.shape[0]], rng[:, 0], rng[:, 1])
 
     def run_controllers(self, kin, M, bias, qpos, qvel, ctrl_state: RobotCtrlState, ctrl):
         """Substep-rate torques written into the full (B, nu) ctrl

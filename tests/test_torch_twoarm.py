@@ -359,7 +359,7 @@ def test_peg_in_hole_mppi_solve_matches_jax():
     keys = jax.vmap(jax.random.split)(mss.rng)
     knots = np.asarray(jax.vmap(lambda key: jax.random.normal(key, (2, 2, penv.action_dim)))(keys[:, 1]))
     a_j, mss2, _ = jax.jit(jmpc.make_solve_batch())(js, mss)
-    assert pmpc.nx == penv.model.nq + penv.model.nv  # the null grippers carry no ramp
+    assert pmpc.nx == jmpc.nx == penv.model.nq + penv.model.nv + 2  # each null gripper's ramp is one pad entry
     a_p, ms2, met = pmpc.make_solve_batch()(penv.state_from_flattened(flat), pmpc.init_state(2, None),
                                             knots=torch.as_tensor(knots))
     np.testing.assert_allclose(a_p.numpy(), np.asarray(a_j), rtol=0, atol=1e-4)
