@@ -112,11 +112,9 @@ Phases (any failure exits non-zero):
      valid_resets; K1 = one a reset_batch call) + 10 step_batch policy
      steps (K1 = 27 a step, K2 = 25 a step, K3 = 0), finite observations,
      rewards and done, the eef wrench zero, the host-clock rate with the
-     reset, and on the last three worlds the rate over 10 more steady steps
-     and a profiled step (PickPlaceCan, TwoArmLift, TwoArmPegInHole,
-     NutAssemblySingle and Wipe run cut in depth: no steady rate, no
-     profiled step or MPC tick); the first policy steps (EARLIER_HELD, 2,
-     on those five; all 10 on the last three worlds) substep by substep, every K1 and K2 launch against its
+     reset (every world from PickPlaceCan to TwoArmTransport runs cut in
+     depth: no steady rate, no profiled step or MPC tick); the first
+     policy steps (EARLIER_HELD, 2) substep by substep, every K1 and K2 launch against its
      plain version on its own operands (a K2 scenario set aside only on
      solve_conditioning_witness), the kernel substep (K1 + K2) and the
      plain one from the same input under hold_all's rule (with
@@ -219,6 +217,25 @@ Phases (any failure exits non-zero):
      fx/fu against forward differences, the associative gains against
      the sequential pass); and the one-scenario make_solve on Lift against
      solve_batch at B=1 (unbatched_tick).
+ 71-80. the remaining arm controllers (controllers_slice), last: 71-74,
+     Lift-Panda with IK_POSE, unfused as the JAX gate decides (K1, the 66
+     static rows' CUDA graph, K2): the gate, K1 at B=512 and 32, counts
+     zeroed, reset + 10 step_batch steps with every substep held (as 26),
+     10 steady steps and a profiled step, K2 at nv 15 and 66 static rows at
+     the last step's state (the cube resting: 4 active rows), one MPPI tick
+     (B=32, H=64, K=16) and one tick with an iLQR iteration linearized by
+     forward differences (83,968 scenarios in the sweep), each with the
+     launches its config implies and profiled; 75, Lift-Panda OSC_POSITION,
+     fused (K3): reset + 10 step_batch steps, each held substep by substep
+     against the plain path (hold_all's rule: a free cube's row decision
+     that float32 rounding takes either way diverges over a whole step),
+     its orientation goal the eef's, 10 steady steps, one MPPI tick
+     through K3-aux; 76-80, reset + EARLIER_HELD steps held substep by
+     substep (the fused ones under hold_all's rule, with a goal row a
+     substep under interpolation), no steady rate: Lift OSC_POSE with
+     linear goal interpolation, Door OSC_POSE with absolute world-frame
+     goals (fused), Lift JOINT_VELOCITY and JOINT_TORQUE, Sawyer-Lift
+     IK_POSE (unfused, its rows compacted into 96 slots).
 The count of (substep, scenario) cases that the holds set aside on a
 float64 near-tie witness is printed at the end.
 Timings use CUDA events (profiler passes show one policy step's and one
@@ -1884,9 +1901,9 @@ def valid_resets(env, n, gen, rounds=20):
     return states, obs, calls
 
 
-def unfused_step_slice(tag, name, env, gen, results, key, actions=None, full=True):
-    """The step slice of an unfused world: counts zeroed, reset_batch + STEPS
-    step_batch policy steps at B (K1 for the goals, one a substep and one
+def unfused_step_slice(tag, name, env, gen, results, key, actions=None, full=True, steps=STEPS):
+    """The step slice of an unfused world: counts zeroed, reset_batch + `steps`
+    (STEPS) step_batch policy steps at B (K1 for the goals, one a substep and one
     for the observations; K2 one a substep; no K3), finite observations and
     rewards, the reset's keys, a proprio modality per robot, the eef force
     zero on a world that compacts its rows (the JAX package's is 0 there),
@@ -1894,8 +1911,8 @@ def unfused_step_slice(tag, name, env, gen, results, key, actions=None, full=Tru
     episodes early, add keys and replace the reward); host-clock rates with
     the reset, and, with `full`, over STEPS more steady steps and a profiled
     step; then every substep held (hold_unfused_steps; with a step hook,
-    the reward held is the hook's) over the STEPS policy steps (with
-    `full`) or the first EARLIER_HELD, with the count of cases set aside.
+    the reward held is the hook's) over the policy steps (with `full`) or
+    the first EARLIER_HELD, with the count of cases set aside.
     The actions: small random deltas, or `actions`.
     -> (the launch counts of the reset + steps, the last states, the step
     outputs (trail, obs, dones))."""
@@ -1913,7 +1930,7 @@ def unfused_step_slice(tag, name, env, gen, results, key, actions=None, full=Tru
     t0 = time.perf_counter()
     states, obs0, calls = valid_resets(env, B, gen)
     trail, rewards, dones, obs_all = [states], [], [], []
-    for _ in range(STEPS):
+    for _ in range(steps):
         states, obs, r, done, _ = env.step_batch(states, actions)
         trail.append(states)
         rewards.append(r)
@@ -1923,9 +1940,9 @@ def unfused_step_slice(tag, name, env, gen, results, key, actions=None, full=Tru
     dt = time.perf_counter() - t0
     counts = kcounts()
     take_widths(name)
-    print(f"{name} main path launches over reset ({calls} reset_batch calls) + {STEPS} step_batch policy steps: "
+    print(f"{name} main path launches over reset ({calls} reset_batch calls) + {steps} step_batch policy steps: "
           f"{counts}")
-    if counts != {"K1": calls + (env.n_substeps + 2) * STEPS, "K2": env.n_substeps * STEPS, "K3": 0, "K3-aux": 0,
+    if counts != {"K1": calls + (env.n_substeps + 2) * steps, "K2": env.n_substeps * steps, "K3": 0, "K3-aux": 0,
                   "K4": 0}:
         fail(f"unexpected {name} launch counts {counts}")
     rew = torch.stack(rewards)
@@ -1939,9 +1956,9 @@ def unfused_step_slice(tag, name, env, gen, results, key, actions=None, full=Tru
             fail(f"{name} step_batch: no robot{i}_proprio-state")
         if C.uses_row_compaction(env.model) and any(bool(o[f"robot{i}_eef_force"].any()) for o in obs_all):
             fail(f"{name} step_batch: an eef force on a world that compacts its rows (the JAX package's is 0)")
-    print(f"{tag} {name} env policy-steps/s (B={B}, host clock): {B * STEPS / dt:.1f} with the reset (reset + "
-          f"{STEPS} steps); rewards mean {float(rew.mean()):.4f} max {float(rew.max()):.4f}")
-    results.update({f"{key}_policy_steps_per_s_with_reset": B * STEPS / dt, f"{key}_launches": counts})
+    print(f"{tag} {name} env policy-steps/s (B={B}, host clock): {B * steps / dt:.1f} with the reset (reset + "
+          f"{steps} steps); rewards mean {float(rew.mean()):.4f} max {float(rew.max()):.4f}")
+    results.update({f"{key}_policy_steps_per_s_with_reset": B * steps / dt, f"{key}_launches": counts})
     if full:
         t1 = time.perf_counter()
         steady = states
@@ -1955,7 +1972,7 @@ def unfused_step_slice(tag, name, env, gen, results, key, actions=None, full=Tru
                                                      lambda: env.step_batch(states, actions), 8)
         results.update({f"{key}_policy_steps_per_s": B * STEPS / dt_steady, f"{key}_profile_wall_ms": wall_ms,
                         f"{key}_profile_device_ms": dev_ms, f"{key}_profile_top": top, f"{key}_profile_port": port})
-    held = STEPS if full else EARLIER_HELD
+    held = steps if full else min(steps, EARLIER_HELD)
     before = len(ASIDE)
     reward_fn = None
     if hooked:  # the step hook's reward, from the step's input state and its observations
@@ -1964,7 +1981,7 @@ def unfused_step_slice(tag, name, env, gen, results, key, actions=None, full=Tru
             return env._step_hook(trail[i], nxt, dict(obs_all[i]), zero, dones[i], kin_p)[2]
     hold_unfused_steps(name, env, trail[:held + 1], actions, rewards, forward.runtime_leaves(env.model, B), reward_fn)
     print(f"{name} step slice: {len(ASIDE) - before} (substep, scenario) cases set aside on a float64 witness, "
-          f"of {held * env.n_substeps * B} (the first {held} of {STEPS} steps held)")
+          f"of {held * env.n_substeps * B} (the first {held} of {steps} steps held)")
     results[f"{key}_set_aside"] = len(ASIDE) - before
     phase_done(f"{name} step slice (reset + step_batch steps, profile, kernel vs plain)")
     return counts, states, (trail, obs_all, dones)
@@ -2188,10 +2205,10 @@ def _transport_rich(env, kin, n_act):
 # ab_kernels that makes its contact state and the check of that state, the
 # first phase's number, what the fused gate refuses it for, K1's widths, the
 # MPC's timed ticks (one since the last three worlds came), and whether its
-# paths run in full (the last three worlds: all 10 steps held substep by
-# substep, the steady rate and the profiled step and tick) or cut in depth
-# (the worlds before them: EARLIER_HELD steps held, no steady rate or
-# profiles), so that the run keeps within its time
+# paths run in full (all 10 steps held substep by substep, the steady rate
+# and the profiled step and tick) or cut in depth (EARLIER_HELD steps held,
+# no steady rate or profiles): every world here runs cut, so that the run
+# keeps within its time with the arm controllers' phases 71-80
 TWO_PANDAS = dict(robots=("Panda", "Panda"), env_configuration="opposed")
 UNFUSED_WORLDS = {
     "TwoArmLift": (TWO_PANDAS, (25, 24, 47, 170, 19, 18, 170, 620), "twoarm_lift_contact_state", _twoarm_lift_rich,
@@ -2204,11 +2221,11 @@ UNFUSED_WORLDS = {
              (7, 7, 25, 116, 16, 7, 175, 448), "wipe_contact_state", _tool_pressed, 44, "compacts", (B, H64_B), 1,
              False),
     "TwoArmHandover": (TWO_PANDAS, (25, 24, 47, 161, 17, 18, 62, 203), "handover_contact_state", _handover_grasp,
-                       51, "one fixed-base robot", (B, H64_B, 1), 1, True),
+                       51, "one fixed-base robot", (B, H64_B, 1), 1, False),
     "ToolHang": (dict(robots="Panda"), (30, 27, 28, 102, 14, 9, 172, 656), "tool_hang_contact_state",
-                 _tool_hang_rich, 56, "compacts", (B, H64_B), 1, True),
+                 _tool_hang_rich, 56, "compacts", (B, H64_B), 1, False),
     "TwoArmTransport": (TWO_PANDAS, (39, 36, 53, 170, 23, 18, 250, 905), "transport_contact_state",
-                        _transport_rich, 61, "one fixed-base robot", (B, H64_B, 1), 1, True),
+                        _transport_rich, 61, "one fixed-base robot", (B, H64_B, 1), 1, False),
 }
 
 
@@ -2701,6 +2718,349 @@ def unbatched_tick(tag, env, mpc_cfg, results):
     return counts
 
 
+# ---- the remaining arm controllers (phases 71-80) -------------------------------------
+LINEAR = {"right": {"type": "OSC_POSE", "interpolation": "linear"}}
+ABS_WORLD = {"right": {"type": "OSC_POSE", "input_type": "absolute", "input_ref_frame": "world"}}
+# the shorter holds (phases 76-80): name -> (env, make's keywords, fused, absolute world-frame actions)
+CTRL_HELD = {
+    "Lift OSC_POSE linear": ("Lift", dict(robots="Panda", controller_configs=LINEAR), True, False),
+    "Door OSC_POSE absolute world": ("Door", dict(robots="Panda", controller_configs=ABS_WORLD, seed=0), True, True),
+    "Lift JOINT_VELOCITY": ("Lift", dict(robots="Panda", controller_configs="JOINT_VELOCITY"), False, False),
+    "Lift JOINT_TORQUE": ("Lift", dict(robots="Panda", controller_configs="JOINT_TORQUE"), False, False),
+    "Sawyer-Lift IK_POSE": ("Lift", dict(robots="Sawyer", controller_configs="IK_POSE"), False, False),
+}
+
+
+def ctrl_env(name, env_name, kw, fused):
+    """make(env_name, **kw) on CUDA, its fused gate deciding as the JAX
+    gate does: `fused` (an OSC arm on a world of static rows), or
+    UnsupportedFused. -> the env."""
+    import copy
+
+    import robosuite_tpu_torch as R
+    from robosuite_tpu_torch.ops import substep
+
+    env = R.make(env_name, reward_shaping=True, **copy.deepcopy(kw))
+    try:
+        spec = substep.extract_spec(env, env.model)
+        why = f"fused ({spec['ctrl_type']} law)"
+    except substep.UnsupportedFused as e:
+        spec, why = None, f"UnsupportedFused({e})"
+    cfg = env.robots[0].arm_cfg["right"]
+    print(f"{name}: {type(cfg).__name__}, action_dim {env.action_dim}, nq {env.model.nq}, nv {env.model.nv}; "
+          f"the fused gate: {why}")
+    if (spec is not None) != fused or (env._fused_for(env.model) is not None) != fused:
+        fail(f"the fused gate does not decide {name} as the JAX gate does ({'fused' if fused else 'unfused'})")
+    return env
+
+
+def ctrl_actions(env, states, gen, absolute=False):
+    """Small random deltas (B, A), the gripper's too; with `absolute`, OSC
+    goals in the world frame near the eef: its position plus up to 2 cm,
+    its orientation's axis-angle plus up to 0.05 rad; clipped to the
+    action spec ([-1, 1]), as the env clips them."""
+    import torch
+
+    from robosuite_tpu_torch.physics import engine
+    from robosuite_tpu_torch.utils import transforms as T
+
+    a = torch.clamp(0.3 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
+    if absolute:
+        kin = engine.forward_products(env.model, states.physics.qpos, states.physics.qvel)[0]
+        site = env.robots[0].eef_site_id["right"]
+        noise = 2.0 * torch.rand(B, 6, generator=gen, device="cuda") - 1.0
+        a[:, :3] = kin.site_xpos[:, site] + 0.02 * noise[:, :3]
+        a[:, 3:6] = T.quat2axisangle(T.mat2quat(kin.site_xmat[:, site])) + 0.05 * noise[:, 3:]
+    return env._clip(a)
+
+
+def fused_step_slice(tag, name, env, gen, results, key, actions, steps):
+    """A fused world's step slice: counts zeroed, reset_batch + `steps`
+    step_batch policy steps at B (K1 = 2 a step + 1, K3 = 25 a step),
+    finite observations and rewards, done only at the horizon, the rate
+    with the reset; then each policy step from the same input against the
+    plain path, substep by substep (the goal rows of each substep, the
+    kernel and the plain substep) under hold_all's rule, the kernel's last
+    substep being the step's next state bit for bit; the reward on the
+    plain poses; how far the goal row moves within a step (goal
+    interpolation). -> (the launch counts, the trail of states)."""
+    import torch
+
+    from robosuite_tpu_torch.ops import forward, substep
+    from robosuite_tpu_torch.physics import engine
+
+    model, robot = env.model, env.robots[0]
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states, obs0 = env.reset_batch(B, gen)
+    trail, rewards, obs_all = [states], [], []
+    for _ in range(steps):
+        states, obs, r, done, _ = env.step_batch(states, actions)
+        trail.append(states)
+        rewards.append(r)
+        obs_all.append(obs)
+        if bool(done.any()):
+            fail(f"{name} step_batch: done before the horizon")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kcounts()
+    take_widths(name.split()[0])
+    print(f"{name} main path launches over reset + {steps} step_batch policy steps: {counts}")
+    if counts != {"K1": 2 * steps + 1, "K2": 0, "K3": env.n_substeps * steps, "K3-aux": 0, "K4": 0}:
+        fail(f"unexpected {name} launch counts {counts}")
+    rew = torch.stack(rewards)
+    if not (all(torch.isfinite(v.float()).all() for o in obs_all for v in o.values()) and torch.isfinite(rew).all()):
+        fail(f"non-finite observations or rewards on the {name} path")
+    print(f"{tag} {name} env policy-steps/s (B={B}, host clock): {B * steps / dt:.1f} with the reset (reset + "
+          f"{steps} steps); rewards mean {float(rew.mean()):.4f} max {float(rew.max()):.4f}")
+    results.update({f"{key}_policy_steps_per_s_with_reset": B * steps / dt, f"{key}_launches": counts})
+    fused, leaves = env._fused_for(model), forward.runtime_leaves(model, B)
+    worst, worst_r, moved, before = 0.0, 0.0, 0.0, len(ASIDE)
+    for i in range(steps):
+        st, nxt = trail[i], trail[i + 1]
+        kin, M, bias = engine.forward_products(model, st.physics.qpos, st.physics.qvel)
+        ctrl_i = env._set_goals(kin, M, bias, st.physics.qpos, st.physics.qvel, st.ctrl, actions)
+        goal_at = env._fused_goals(robot, "right", ctrl_i, kin)
+        grip = robot.gripper_ctrl("right", ctrl_i).contiguous()
+        moved = max(moved, max_err(goal_at(0)[0], goal_at(env.n_substeps - 1)[0]))
+        qp, qv = st.physics.qpos, st.physics.qvel
+        for j in range(env.n_substeps):
+            sub = (qp, qv, *leaves, *goal_at(j), grip)
+            out_k, out_p = fused(*sub), substep.substep_plain(env, model, *sub)
+            worst = max(worst, hold_all(f"{name} step {i + 1} substep {j + 1}", model, qp, out_k, out_p, quiet=True))
+            qp, qv = out_k[0], out_k[1]
+        if not (torch.equal(qp, nxt.physics.qpos) and torch.equal(qv, nxt.physics.qvel)):
+            fail(f"{name} policy step {i + 1}: step_batch differs from its substep-by-substep kernel run")
+        kin_p = forward.forward_plain(model, qp, qv, *leaves)[0]
+        worst_r = max(worst_r, max_err(rewards[i], env.reward(nxt.physics, kin_p)))
+    torch.cuda.synchronize()
+    print(f"{name} {steps} policy steps against the plain path from the same input, substep by substep: largest "
+          f"qpos / qvel error held {worst:.3e}; the goal row moves {moved:.3e} within a step; {len(ASIDE) - before} "
+          f"(substep, scenario) cases set aside on a float64 witness")
+    check(f"{name} {steps} policy steps: reward (kernel path vs plain path)", worst_r, 1e-4)
+    results.update({f"{key}_set_aside": len(ASIDE) - before, f"{key}_goal_moves": moved})
+    return counts, trail
+
+
+def fused_mppi_tick(tag, name, env, results, key, seed):
+    """One MPPI tick of a fused world at tools/bench_configs.py's width
+    (B=32, H=64, K=16): a warm-up tick, then one timed tick with the
+    launches the config implies (K3-aux per planned substep), finite
+    actions in [-1, 1]. -> the launch counts."""
+    import torch
+
+    from robosuite_tpu_torch.mpc import receding
+
+    cfg = receding.MPCConfig(**H64_MPC)
+    mpc = receding.RecedingMPC(env, cfg)
+    solve = mpc.make_solve_batch()
+    states = env.reset_batch(H64_B, torch.Generator(device="cuda").manual_seed(seed))[0]
+    ms = mpc.init_state(H64_B, torch.Generator(device="cuda").manual_seed(seed + 1))
+
+    def tick(st, m):
+        acts, m2, _ = solve(st, m)
+        st2, rew = env.rollout_batch(st, acts)
+        return st2, m2, acts, rew
+
+    t0 = time.perf_counter()
+    states, ms, _, _ = tick(states, ms)
+    torch.cuda.synchronize()
+    print(f"{tag} {name} MPC warm-up tick s: {time.perf_counter() - t0:.3f}")
+    zero_counts()
+    t0 = time.perf_counter()
+    states, ms, acts, rew = tick(states, ms)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kcounts()
+    take_widths(name.split()[0])
+    want = tick_launches(cfg, mpc, env, False)
+    print(f"{name} MPC tick launches: {counts}")
+    if counts != want:
+        fail(f"{name} MPC tick: launches {counts}, the config implies {want}")
+    if not (torch.isfinite(acts).all() and acts.abs().max() <= 1.0 and torch.isfinite(rew).all()):
+        fail(f"{name} MPC tick: non-finite or out-of-range actions, or non-finite rewards")
+    print(f"{tag} {name} MPC solves/s (B={H64_B}, H={cfg.horizon}, K={cfg.n_samples}, MPPI only; one tick, host "
+          f"clock): {H64_B / dt:.2f}")
+    results.update({f"{key}_mpc_solves_per_s": H64_B / dt, f"{key}_mpc_launches": counts})
+    return counts
+
+
+def fd_ilqr_tick(tag, name, env, results, key, seed):
+    """One MPC tick with MPPI and one iLQR iteration linearized by forward
+    differences (relinearized every tick, linearization dt 50 ms) at
+    B=32, H=64, K=16: a warm-up tick, one timed tick with the launches the
+    config implies, finite actions in [-1, 1], the finite iLQR plans, the
+    peak memory and a profiled tick (the device alone). -> the launch
+    counts of the timed tick."""
+    import torch
+
+    from robosuite_tpu_torch.mpc import receding
+
+    cfg = receding.MPCConfig(**dict(H64_MPC, n_ilqr_iters=1, relin_every=1, fd_timestep=0.05))
+    mpc = receding.RecedingMPC(env, cfg)
+    solve = mpc.make_solve_batch()
+    states = valid_resets(env, H64_B, torch.Generator(device="cuda").manual_seed(seed))[0]
+    ms = mpc.init_state(H64_B, torch.Generator(device="cuda").manual_seed(seed + 1))
+
+    def tick(st, m):
+        acts, m2, met = solve(st, m)
+        st2, rew = env.rollout_batch(st, acts)
+        return st2, m2, met, acts, rew
+
+    t0 = time.perf_counter()
+    states, ms, *_ = tick(states, ms)
+    torch.cuda.synchronize()
+    print(f"{tag} {name} MPC (FD iLQR) warm-up tick s: {time.perf_counter() - t0:.3f}")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    states, ms, met, acts, rew = tick(states, ms)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kcounts()
+    take_widths(f"{name} (fd MPC)")
+    want = ad_tick_launches(cfg, mpc, env, env._fused_for(env.model) is not None, 1)
+    print(f"{name} MPC (FD iLQR) tick launches: {counts}")
+    if counts != want:
+        fail(f"{name} MPC (FD iLQR) tick: launches {counts}, the config implies {want}")
+    if not (torch.isfinite(acts).all() and acts.abs().max() <= 1.0 and torch.isfinite(rew).all()):
+        fail(f"{name} MPC (FD iLQR) tick: non-finite or out-of-range actions, or non-finite rewards")
+    peak, fin = torch.cuda.max_memory_allocated() / 1e9, int(met["ilqr_accepted"].sum())
+    print(f"{tag} {name} MPC solves/s (B={H64_B}, H={cfg.horizon}, K={cfg.n_samples}, MPPI + 1 iLQR iteration "
+          f"linearized by forward differences, {H64_B * cfg.horizon * (1 + mpc.nx + env.action_dim)} scenarios "
+          f"in the sweep; one tick, host clock): {H64_B / dt:.2f}; finite iLQR plans {fin}/{H64_B}; iLQR improved "
+          f"on MPPI {int(met['ilqr_improved'].sum())}; peak device memory {peak:.2f} GB")
+    _, wall_ms, dev_ms, top, port = profile_once(tag, f"one {name} MPC tick (FD iLQR)", lambda: tick(states, ms), 8,
+                                                 kernels_only=True)
+    results.update({f"{key}_ilqr_solves_per_s": H64_B / dt, f"{key}_ilqr_launches": counts,
+                    f"{key}_ilqr_peak_gb": peak, f"{key}_ilqr_finite": fin, f"{key}_ilqr_profile_wall_ms": wall_ms,
+                    f"{key}_ilqr_profile_device_ms": dev_ms, f"{key}_ilqr_profile_port": port})
+    return counts
+
+
+def controllers_slice(tag, results):
+    """Phases 71-80, the remaining arm controllers. 71-74: Lift-Panda with
+    IK_POSE, the headline path, unfused (K1, the 66 static contact rows as
+    one CUDA graph, K2; the gate refuses the IK arm as the JAX gate does):
+    71, the world, K1 at B=512 and 32 against its plain version and timed;
+    72, counts zeroed, reset + 10 step_batch policy steps, every substep
+    held (as phase 26), 10 steady steps and a profiled step; 73, K2 at nv
+    15 and 66 static rows on the plain path's operands at the step's last
+    state (the cube resting on the table), against its plain version,
+    timed; 74, one MPPI tick (B=32, H=64, K=16; profiled) and one tick
+    with an iLQR iteration linearized by forward differences (profiled).
+    75: Lift-Panda OSC_POSITION, fused (K3; the orientation goal frozen at
+    the eef's): reset + 10 step_batch steps, each held substep by substep
+    against the plain path under hold_all's rule, 10 steady steps, one
+    MPPI tick through K3-aux. 76-80, the
+    shorter holds (CTRL_HELD), reset + EARLIER_HELD step_batch steps held
+    substep by substep, no steady rate: Lift OSC_POSE with linear goal
+    interpolation (fused, a goal row a substep), Door OSC_POSE with
+    absolute world-frame goals (fused), Lift JOINT_VELOCITY and
+    JOINT_TORQUE (unfused), Sawyer-Lift IK_POSE (unfused, its rows
+    compacted into 96 slots). -> {path: launch counts}."""
+    import torch
+
+    from robosuite_tpu_torch.physics import contact as C
+
+    out = {}
+    # ---- 71. Lift-Panda IK_POSE: the world, the gate, K1
+    name = "Lift IK_POSE"
+    env = ctrl_env(name, "Lift", dict(robots="Panda", controller_configs="IK_POSE"), False)
+    model = env.model
+    nrows = sum(len(r) for r in C.contact_row_layout(model).values())
+    if C.uses_row_compaction(model) or nrows != 66 or env.action_dim != 7:
+        fail(f"{name}: {nrows} rows (compacted {C.uses_row_compaction(model)}), action_dim {env.action_dim}")
+    world_k = results.setdefault("unfused_kernels", {}).setdefault(name, {})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    states = env.reset_batch(B, gen)[0]
+    unfused_k1(tag, name, model, states, (B, H64_B), world_k, results)
+    phase_done(f"{name} world, gate, K1")
+    # ---- 72. the step slice, every substep held
+    actions = ctrl_actions(env, states, gen)
+    out[f"{name} step"], last, _ = unfused_step_slice(tag, name, env, gen, results, "lift_ik", actions, True)
+    # ---- 73. K2 at the 66 static rows, at the step's last state
+    from robosuite_tpu_torch.ops import forward
+
+    q, qd = last.physics.qpos, last.physics.qvel
+    kin, M, bias = forward.forward_plain(model, q, qd, *forward.runtime_leaves(model, B))
+    con = C.narrowphase(model, kin)
+    n_act = (con["dist"] < con["margin"]).sum(1)
+    print(f"{name} K2 state (the last step's): active rows per scenario min {int(n_act.min())} median "
+          f"{int(n_act.median())} max {int(n_act.max())} of {nrows}")
+    if 2 * int((n_act >= 4).sum()) < B:
+        fail(f"{name}: fewer than 4 active rows in half the scenarios at the K2 state")
+    unfused_k2(name, env, states, last, kin, M, bias, con, nrows, world_k)
+    # ---- 74. the MPC: an MPPI tick, then a tick with an FD-linearized iLQR iteration
+    out[f"{name} MPC"] = unfused_mpc(tag, name, env, H64_MPC, H64_B, 1,
+                                     torch.Generator(device="cuda").manual_seed(SEED + 72),
+                                     torch.Generator(device="cuda").manual_seed(SEED + 73), results, "lift_ik",
+                                     (states, last), world_k, True)
+    out[f"{name} iLQR"] = fd_ilqr_tick(tag, name, env, results, "lift_ik", SEED + 74)
+    phase_done(f"{name} MPC ticks (MPPI, FD iLQR)")
+    del env
+
+    # ---- 75. Lift-Panda OSC_POSITION, fused: the step held whole, the steady rate, an MPPI tick through K3-aux
+    name = "Lift OSC_POSITION"
+    env = ctrl_env(name, "Lift", dict(robots="Panda", controller_configs="OSC_POSITION"), True)
+    if env.action_dim != 4:
+        fail(f"{name}: action_dim {env.action_dim}, not 4")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 75)
+    actions = ctrl_actions(env, None, gen)
+    out[f"{name} step"], trail = fused_step_slice(tag, name, env, gen, results, "lift_osc_position", actions, STEPS)
+    # the orientation goal: the eef's orientation in the base frame at the start of the step that set it
+    from robosuite_tpu_torch.controllers.parts import osc
+    from robosuite_tpu_torch.physics import engine
+
+    st = trail[-2].physics
+    kin, M, bias = engine.forward_products(env.model, st.qpos, st.qvel)
+    view = env.robots[0].arm_view(kin, M, bias, st.qpos, st.qvel, "right")
+    check(f"{name} orientation goal held at the eef's", max_err(trail[-1].ctrl.arm["right"].goal_ori,
+                                                                 osc._eef_pose(env.robots[0].arm_cfg["right"], view)[1]),
+          1e-6)
+    t0, s_ss = time.perf_counter(), trail[-1]
+    for _ in range(STEPS):
+        s_ss = env.step_batch(s_ss, actions)[0]
+    torch.cuda.synchronize()
+    steady = B * STEPS / (time.perf_counter() - t0)
+    print(f"{tag} {name} env policy-steps/s (B={B}, host clock): {steady:.1f} steady ({STEPS} step_batch steps "
+          f"after the run)")
+    results["lift_osc_position_policy_steps_per_s"] = steady
+    out[f"{name} MPC"] = fused_mppi_tick(tag, name, env, results, "lift_osc_position", SEED + 76)
+    phase_done(f"{name} step slice and MPPI tick")
+    del env
+
+    out.update(ctrl_held_slice(tag, results))
+    return out
+
+
+def ctrl_held_slice(tag, results):
+    """Phases 76-80, the shorter holds of CTRL_HELD (controllers_slice).
+    -> {path: launch counts}."""
+    import torch
+
+    out = {}
+    for i, (name, (env_name, kw, fused, absolute)) in enumerate(CTRL_HELD.items()):
+        env = ctrl_env(name, env_name, kw, fused)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 77 + i)
+        key = name.lower().replace(" ", "_").replace("-", "_")
+        if fused:
+            reset = env.reset_batch(B, torch.Generator(device="cuda").manual_seed(SEED + 77 + i))[0]
+            actions = ctrl_actions(env, reset, gen, absolute)
+            out[name], _ = fused_step_slice(tag, name, env, gen, results, key, actions, EARLIER_HELD)
+            moves = results[f"{key}_goal_moves"]
+            interp = env.robots[0].arm_cfg["right"].interpolation == "linear"
+            if interp != (moves > 0.0):
+                fail(f"{name}: the goal row moves {moves:.3e} within a step (interpolation {interp})")
+        else:
+            actions = ctrl_actions(env, None, gen)
+            out[name] = unfused_step_slice(tag, name, env, gen, results, key, actions, False, EARLIER_HELD)[0]
+        phase_done(f"{name} reset + {EARLIER_HELD} steps held substep by substep")
+        del env
+    return out
+
+
 def main():
     try:
         import torch
@@ -3161,14 +3521,15 @@ def main():
     pick_counts, pick_mpc_counts = pickplace_slice(tag, results)
     unfused = {name: unfused_world_slice(tag, results, name) for name in UNFUSED_WORLDS}
     variable_gains_check(results)
+    ctrl = controllers_slice(tag, results)
 
     # ---- report ------------------------------------------------------------------
     # launches on each path, counted from zero just before it: Lift's env step
     # and MPC ticks run K3 / K3-aux with the OSC law, Stack's with JOINT_POSITION
     osc = (counts, sb_counts, mpc_counts, door_counts, door_mpc_counts, lift_ad_counts,
-           unbatched_counts)  # K3 / K3-aux with the OSC law
+           unbatched_counts) + tuple(c for k, c in ctrl.items() if "OSC" in k)  # K3 / K3-aux with the OSC law
     every = osc + (counts_u, door_counts_u, stack_counts, stack_counts_u, stack_mpc_counts, pick_counts,
-                   pick_mpc_counts) + sum(unfused.values(), ())
+                   pick_mpc_counts) + sum(unfused.values(), ()) + tuple(c for k, c in ctrl.items() if "OSC" not in k)
     paths = {"K1": every, "K2": every, "K3": osc, "K3-aux": osc, "K4": every}
     launches = {k: sum(c.get(k, 0) for c in cs) for k, cs in paths.items()}
     launches["K3-JP"] = stack_counts["K3"] + stack_mpc_counts["K3"]
@@ -3193,7 +3554,8 @@ def main():
           f"1-{PICK_TICKS} {pick_mpc_counts}; " + "; ".join(
               f"over {n} reset + {STEPS} step_batch steps {c}, MPC ticks 1-{UNFUSED_WORLDS[n][-2]} {m}"
               + (f", AD-linearized MPC ticks 1-2 {ad[0]}" if ad else "") for n, (c, m, *ad) in unfused.items())
-          + f"; Lift AD-linearized MPC ticks 1-2 {lift_ad_counts}, make_solve {unbatched_counts}")
+          + f"; Lift AD-linearized MPC ticks 1-2 {lift_ad_counts}, make_solve {unbatched_counts}; "
+          + "; ".join(f"{k} {c}" for k, c in ctrl.items()))
     by_label = {}
     for a in ASIDE:
         by_label[a.split()[0]] = by_label.get(a.split()[0], 0) + 1

@@ -1,10 +1,13 @@
 """Controller config resolution (the JAX package's controllers/factory.py;
 robosuite controller_factory.py and composite_controller_factory.py),
-for the BASIC composite with OSC_POSE or JOINT_POSITION arms.
+for the BASIC composite with any of the six part controllers.
 
 Search order as in robosuite: an explicit dict, a composite name
 (config/default/composite/<name>.json), the per-robot default
-(config/robots/default_<robot>.json).
+(config/robots/default_<robot>.json); a part-controller name ("IK_POSE")
+takes the JAX factory's defaults for that type, and
+`load_part_controller_config` reads robosuite's part JSONs
+(config/default/parts/<name>.json).
 """
 
 from __future__ import annotations
@@ -14,28 +17,66 @@ import json
 import os
 from typing import Optional, Union
 
+from robosuite_tpu_torch.controllers.parts import ik as ik_mod
 from robosuite_tpu_torch.controllers.parts import joint_pos as jp_mod
+from robosuite_tpu_torch.controllers.parts import joint_tor as jt_mod
+from robosuite_tpu_torch.controllers.parts import joint_vel as jv_mod
 from robosuite_tpu_torch.controllers.parts import osc as osc_mod
 
 _CFG_ROOT = os.path.join(os.path.dirname(__file__), "config")
 
+ALL_PART_CONTROLLERS = {"OSC_POSE", "OSC_POSITION", "JOINT_POSITION", "JOINT_VELOCITY", "JOINT_TORQUE", "IK_POSE"}
+
+# the JAX factory's defaults of each type (robosuite config/default/composite/
+# basic.json for OSC): a config class and the fields it sets over the class's
+_OSC_DEFAULTS = dict(damping_ratio_limits=(0.0, 10.0))
+_DEFAULTS = {
+    "OSC_POSE": (osc_mod.OSCConfig, dict(_OSC_DEFAULTS, control_ori=True)),
+    "OSC_POSITION": (osc_mod.OSCConfig, dict(_OSC_DEFAULTS, control_ori=False, output_max=(0.05, 0.05, 0.05),
+                                             output_min=(-0.05, -0.05, -0.05))),
+    "JOINT_POSITION": (jp_mod.JointPosConfig, dict(input_max=1.0, input_min=-1.0, output_max=0.05, output_min=-0.05,
+                                                   kp=50.0)),
+    "JOINT_VELOCITY": (jv_mod.JointVelConfig, dict(input_max=1.0, input_min=-1.0, output_max=1.0, output_min=-1.0,
+                                                   kp=0.25)),
+    "IK_POSE": (ik_mod.IKConfig, {}),
+    "JOINT_TORQUE": (jt_mod.JointTorConfig, dict(input_max=1.0, input_min=-1.0, output_max=0.05, output_min=-0.05)),
+}
+
 
 def arm_controller_config(ctrl_type: str, dim: int = 7, **overrides):
     """A part-controller config dataclass (robosuite controller_factory.py
-    arm_controller_factory); OSC_POSE and JOINT_POSITION are ported. Keys
-    the dataclass has no field for (kd/velocity_limits of the reference
-    JSON) are dropped."""
+    arm_controller_factory) with the JAX factory's defaults. OSC's
+    control_ori follows the type name (OSC_POSE or OSC_POSITION) whatever
+    the overrides say; keys the dataclass has no field for (kd/kv or
+    qpos_limits of the reference JSON) are dropped, lists become tuples."""
     t = ctrl_type.upper()
-    if t == "OSC_POSE":  # the JAX factory's OSC defaults: its damping-ratio limits are (0, 10)
-        cls, kw = osc_mod.OSCConfig, dict(damping_ratio_limits=(0.0, 10.0))
-    elif t == "JOINT_POSITION":
-        cls, kw = jp_mod.JointPosConfig, dict(dim=dim, input_max=1.0, input_min=-1.0, output_max=0.05,
-                                              output_min=-0.05, kp=50.0)
-    else:
-        raise NotImplementedError(f"controller type {ctrl_type!r} is not ported (OSC_POSE, JOINT_POSITION)")
-    fields = {f.name for f in dataclasses.fields(cls)}
+    if t not in _DEFAULTS:
+        raise ValueError(f"unknown controller type {ctrl_type!r}; known: {sorted(ALL_PART_CONTROLLERS)}")
+    cls, kw = _DEFAULTS[t]
+    kw = dict(kw)
+    if cls is not osc_mod.OSCConfig:
+        kw["dim"] = dim
+    fields = {f.name for f in dataclasses.fields(cls)} - {"control_ori"}
     kw.update({k: tuple(v) if isinstance(v, list) else v for k, v in overrides.items() if k in fields})
     return cls(**kw)
+
+
+def load_part_controller_config(name: str) -> dict:
+    """robosuite's part-controller JSON for a type name
+    (config/default/parts/<name>.json), a dict with its "type"."""
+    with open(os.path.join(_CFG_ROOT, "default", "parts", name.lower() + ".json")) as f:
+        return json.load(f)
+
+
+def robot_config_name(robot: str) -> str:
+    """The per-robot config file's stem (robosuite
+    composite_controller_factory.py _get_robot_name): robot variants share
+    one default file."""
+    for key, stem in (("GR1FloatingBody", "gr1_floating_body"), ("GR1FixedLowerBody", "gr1_fixed_lower_body"),
+                      ("GR1", "gr1"), ("PandaDex", "panda_dex"), ("SpotWithArm", "spotwitharm")):
+        if key in robot:
+            return stem
+    return robot.lower()
 
 
 def resolve_controller_json(controller: Union[None, str, dict], robot: Optional[str]) -> Optional[dict]:
@@ -45,16 +86,31 @@ def resolve_controller_json(controller: Union[None, str, dict], robot: Optional[
         path = controller if controller.endswith(".json") else os.path.join(
             _CFG_ROOT, "default", "composite", controller.lower() + ".json")
     else:
-        path = os.path.join(_CFG_ROOT, "robots", f"default_{robot.lower()}.json")
+        path = os.path.join(_CFG_ROOT, "robots", f"default_{robot_config_name(robot)}.json")
     if not os.path.exists(path):
         return None
     with open(path) as f:
         return json.load(f)
 
 
+def _body_part_config(cfg: dict):
+    """One arm's entry of a composite JSON's body_parts as the JAX factory
+    flattens it: goal interpolation is kept for the OSC types only, and
+    only where it is set; the limits and the gripper are dropped."""
+    cfg = dict(cfg)
+    t = cfg.pop("type")
+    cfg.pop("gripper", None)
+    if not t.upper().startswith("OSC") or cfg.get("interpolation", "linear") is None:
+        cfg.pop("interpolation", None)
+        cfg.pop("ramp_ratio", None)
+    cfg.pop("position_limits", None)
+    cfg.pop("orientation_limits", None)
+    return arm_controller_config(t, **cfg)
+
+
 def load_composite_controller_config(controller=None, robot: Optional[str] = None, arms=("right",)):
-    """Resolve to {arm: OSCConfig or JointPosConfig}. `controller` may also
-    be a dict of part configs by arm, {"right": {"type": "OSC_POSE",
+    """Resolve to {arm: a part-controller config}. `controller` may also be
+    a dict of part configs by arm, {"right": {"type": "OSC_POSE",
     "impedance_mode": "variable_kp"}} (the JAX factory's form), which is
     not modified."""
     if isinstance(controller, dict) and "body_parts" not in controller and "type" not in controller:
@@ -70,8 +126,4 @@ def load_composite_controller_config(controller=None, robot: Optional[str] = Non
         return {arm: arm_controller_config("OSC_POSE") for arm in arms}
     if resolved.get("type", "BASIC") != "BASIC":
         raise NotImplementedError(f"composite controller {resolved.get('type')!r} is not ported")
-    out = {}
-    for arm in arms:
-        cfg = dict(resolved["body_parts"]["arms"][arm])
-        out[arm] = arm_controller_config(cfg.pop("type"), **cfg)
-    return out
+    return {arm: _body_part_config(resolved["body_parts"]["arms"][arm]) for arm in arms}

@@ -1,22 +1,30 @@
-"""Operational Space Controller (OSC_POSE) on batched tensors (the JAX
-package's controllers/parts/osc.py; robosuite controllers/parts/arm/osc.py).
+"""Operational Space Controller (OSC_POSE, and OSC_POSITION with
+control_ori=False) on batched tensors (the JAX package's
+controllers/parts/osc.py; robosuite controllers/parts/arm/osc.py).
 
   * set_goal (robosuite osc.py:225-283): delta actions scaled into the
-    output range and applied to the achieved eef pose in the base frame;
+    output range and applied to the achieved eef pose (or, with
+    goal_update_mode "desired", to the previous goal), or absolute goals;
+    in the base frame of the robot or the world frame (input_ref_frame);
+    OSC_POSITION freezes the orientation goal at the current eef
+    orientation. In a variable-impedance mode (robosuite osc.py:190-211)
+    "variable" reads six damping ratios and six gains from the front of
+    the arm's action, "variable_kp" six gains; both clip them to their
+    limits and keep the per-scenario kp and kd in OSCState;
+  * interpolation="linear" (robosuite utils/traj_utils.py, wired by
+    controller_factory.py:118-133): the goal ramps from the previous one
+    over the first interp_steps substeps of the policy step, linearly in
+    position and by slerp in orientation; set_goal keeps the previous goal
+    as OSCState.start_pos / start_ori, and the substep index is the
+    interpolator's step;
   * run_world (osc.py:403-495): F = kp e + kd (v_base - v_ref),
     tau = J^T (Lambda F) + qfrc_bias + nullspace torques.
-
-The port covers delta input in the base reference frame with no goal
-interpolation, at fixed impedance or with the variable-impedance modes
-(robosuite osc.py:190-211, 225-245): "variable" reads six damping ratios
-and six gains from the front of the arm's action, "variable_kp" six
-gains; both clip them to their limits and keep the per-scenario kp and kd
-in OSCState. Other settings raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional, Tuple
 
 import torch
@@ -41,30 +49,38 @@ class OSCConfig:
     impedance_mode: str = "fixed"
     kp_limits: Tuple[float, float] = (0.0, 300.0)
     damping_ratio_limits: Tuple[float, float] = (0.0, 100.0)
+    policy_freq: int = 20
     input_type: str = "delta"
     input_ref_frame: str = "base"
     uncouple_pos_ori: bool = True
-    interpolation: Optional[str] = None
+    interpolation: Optional[str] = None  # None | "linear"
+    ramp_ratio: float = 0.2
+    controller_freq: float = 500.0
 
     def __post_init__(self):
         if self.impedance_mode not in IMPEDANCE_MODES:
             raise ValueError(f"impedance_mode {self.impedance_mode!r}: one of {IMPEDANCE_MODES}")
-        if (self.input_type != "delta" or self.input_ref_frame != "base" or self.interpolation is not None
-                or not self.control_ori):
-            raise NotImplementedError(
-                "the port's OSC covers OSC_POSE with delta input, base frame, no interpolation"
-            )
+
+    @property
+    def interp_steps(self) -> int:
+        """Substeps over which the goal ramps (robosuite traj_utils.py:63-66)."""
+        return max(int(math.ceil(self.ramp_ratio * self.controller_freq / self.policy_freq)), 1)
+
+    @property
+    def base_dim(self) -> int:
+        return 6 if self.control_ori else 3
 
     @property
     def control_dim(self) -> int:
-        return 6 + {"fixed": 0, "variable": 12, "variable_kp": 6}[self.impedance_mode]
+        return self.base_dim + {"fixed": 0, "variable": 12, "variable_kp": 6}[self.impedance_mode]
 
     def arrays(self, device):
         def t(x, n):
             return torch.as_tensor(nums2array(x, n), device=device)
 
-        return dict(input_max=t(self.input_max, 6), input_min=t(self.input_min, 6),
-                    output_max=t(self.output_max, 6), output_min=t(self.output_min, 6),
+        d = self.base_dim
+        return dict(input_max=t(self.input_max, d), input_min=t(self.input_min, d),
+                    output_max=t(self.output_max, d), output_min=t(self.output_min, d),
                     kp=t(self.kp, 6), damping_ratio=t(self.damping_ratio, 6),
                     kp_min=t(self.kp_limits[0], 6), kp_max=t(self.kp_limits[1], 6),
                     dr_min=t(self.damping_ratio_limits[0], 6), dr_max=t(self.damping_ratio_limits[1], 6))
@@ -72,10 +88,14 @@ class OSCConfig:
 
 @dataclasses.dataclass
 class OSCState:
-    goal_pos: torch.Tensor   # (B, 3) in the base frame
-    goal_ori: torch.Tensor   # (B, 3, 3) in the base frame
+    goal_pos: torch.Tensor   # (B, 3) in the controller's reference frame
+    goal_ori: torch.Tensor   # (B, 3, 3) in the controller's reference frame
     kp: torch.Tensor         # (B, 6)
     kd: torch.Tensor         # (B, 6)
+    # the interpolation's start: the previous goal, kept by set_goal (the
+    # goal itself after init_state)
+    start_pos: Optional[torch.Tensor] = None
+    start_ori: Optional[torch.Tensor] = None
 
 
 def _eef_pose_in_origin(view: ArmView):
@@ -85,23 +105,37 @@ def _eef_pose_in_origin(view: ArmView):
     return pos, Rt @ view.ref_ori_mat
 
 
+def _eef_pose(cfg: OSCConfig, view: ArmView):
+    """The eef pose in the controller's reference frame."""
+    if cfg.input_ref_frame == "base":
+        return _eef_pose_in_origin(view)
+    return view.ref_pos, view.ref_ori_mat
+
+
 def init_state(cfg: OSCConfig, view: ArmView) -> OSCState:
     """The goal starts at the current pose (robosuite osc.py:306-350)."""
     arrs = cfg.arrays(view.ref_pos.device)
     B = view.ref_pos.shape[0]
     kp = arrs["kp"].expand(B, 6)
     kd = 2.0 * torch.sqrt(kp) * arrs["damping_ratio"]
-    pos, ori = _eef_pose_in_origin(view)
-    return OSCState(goal_pos=pos, goal_ori=ori, kp=kp, kd=kd)
+    pos, ori = _eef_pose(cfg, view)
+    return OSCState(goal_pos=pos, goal_ori=ori, kp=kp, kd=kd, start_pos=pos, start_ori=ori)
 
 
-def set_goal(cfg: OSCConfig, state: OSCState, view: ArmView, action) -> OSCState:
-    """robosuite osc.py:225-283: goal = achieved pose (+ scaled delta); in
-    a variable mode the gains first, from the front of the action, clipped
-    to their limits: kd = 2 sqrt(kp) * the clipped damping ratio
-    ("variable") or 2 sqrt(kp) ("variable_kp")."""
+def set_goal(cfg: OSCConfig, state: OSCState, view: ArmView, action, goal_update_mode: str = "achieved",
+             wrt_origin=None) -> OSCState:
+    """robosuite osc.py:225-283 with compute_goal_pos / ori (:306-404): in a
+    variable mode the gains first, from the front of the action, clipped to
+    their limits: kd = 2 sqrt(kp) * the clipped damping ratio ("variable")
+    or 2 sqrt(kp) ("variable_kp"). Delta input moves the achieved pose
+    (goal_update_mode "achieved") or the previous goal ("desired"); a (B,)
+    bool `wrt_origin` picks "desired" per scenario. Absolute input is the
+    goal position and, for OSC_POSE, its axis-angle orientation; OSC_POSITION
+    holds the current eef orientation. The previous goal becomes the
+    interpolation's start."""
     arrs = cfg.arrays(action.device)
     kp, kd = state.kp, state.kd
+    d = cfg.base_dim
     if cfg.impedance_mode == "variable":
         kp = torch.clamp(action[:, 6:12], arrs["kp_min"], arrs["kp_max"])
         kd = 2.0 * torch.sqrt(kp) * torch.clamp(action[:, 0:6], arrs["dr_min"], arrs["dr_max"])
@@ -110,19 +144,47 @@ def set_goal(cfg: OSCConfig, state: OSCState, view: ArmView, action) -> OSCState
         kp = torch.clamp(action[:, 0:6], arrs["kp_min"], arrs["kp_max"])
         kd = 2.0 * torch.sqrt(kp)
         action = action[:, 6:]
-    scaled = C.scale_action(action[:, :6], arrs["input_min"], arrs["input_max"],
-                            arrs["output_min"], arrs["output_max"])
-    cur_pos, cur_ori = _eef_pose_in_origin(view)
-    goal_pos = cur_pos + scaled[:, 0:3]
-    goal_ori = T.quat2mat(T.axisangle2quat(scaled[:, 3:6])) @ cur_ori
-    return OSCState(goal_pos=goal_pos, goal_ori=goal_ori, kp=kp, kd=kd)
+    if cfg.input_type == "delta":
+        scaled = C.scale_action(action[:, :d], arrs["input_min"], arrs["input_max"],
+                                arrs["output_min"], arrs["output_max"])
+        ori_delta = scaled[:, 3:6] if cfg.control_ori else torch.zeros_like(scaled)
+        cur_pos, cur_ori = _eef_pose(cfg, view)
+        if wrt_origin is not None:
+            base_pos = torch.where(wrt_origin[:, None], state.goal_pos, cur_pos)
+            base_ori = torch.where(wrt_origin[:, None, None], state.goal_ori, cur_ori)
+        elif goal_update_mode == "achieved":
+            base_pos, base_ori = cur_pos, cur_ori
+        else:
+            base_pos, base_ori = state.goal_pos, state.goal_ori
+        goal_pos = base_pos + scaled[:, 0:3]
+        goal_ori = T.quat2mat(T.axisangle2quat(ori_delta)) @ base_ori
+    else:  # absolute
+        goal_pos = action[:, 0:3]
+        goal_ori = T.quat2mat(T.axisangle2quat(action[:, 3:6])) if cfg.control_ori else _eef_pose(cfg, view)[1]
+    return OSCState(goal_pos=goal_pos, goal_ori=goal_ori, kp=kp, kd=kd, start_pos=state.goal_pos,
+                    start_ori=state.goal_ori)
 
 
-def desired_world_pose(cfg: OSCConfig, state: OSCState, origin_pos, origin_ori):
-    """The goal in the WORLD frame given the base-frame origin pose; the
-    fused substep takes it as its goal input."""
-    pos = origin_pos + (origin_ori @ state.goal_pos[..., None])[..., 0]
-    return pos, origin_ori @ state.goal_ori
+def _interpolated_goal(cfg: OSCConfig, state: OSCState, substep):
+    """The goal at substep `substep` of the policy step: linear in position,
+    slerp in orientation (robosuite traj_utils.py:119-141)."""
+    frac = min((substep + 1.0) / cfg.interp_steps, 1.0)
+    pos = state.start_pos + (state.goal_pos - state.start_pos) * frac
+    q = T.quat_slerp(T.mat2quat(state.start_ori), T.mat2quat(state.goal_ori), frac)
+    return pos, T.quat2mat(q)
+
+
+def desired_world_pose(cfg: OSCConfig, state: OSCState, origin_pos, origin_ori, substep=None):
+    """The goal in the WORLD frame given the base-frame origin pose, at
+    substep `substep` of the policy step under interpolation (None: the
+    goal itself); the fused substep takes it as its goal input."""
+    if cfg.interpolation == "linear" and substep is not None and state.start_pos is not None:
+        goal_pos, goal_ori = _interpolated_goal(cfg, state, substep)
+    else:
+        goal_pos, goal_ori = state.goal_pos, state.goal_ori
+    if cfg.input_ref_frame == "base":
+        return origin_pos + (origin_ori @ goal_pos[..., None])[..., 0], origin_ori @ goal_ori
+    return goal_pos, goal_ori
 
 
 def run_world(cfg: OSCConfig, view: ArmView, desired_pos, desired_ori, kp, kd):
@@ -151,7 +213,8 @@ def run_world(cfg: OSCConfig, view: ArmView, desired_pos, desired_ori, kp, kd):
     )
 
 
-def run(cfg: OSCConfig, state: OSCState, view: ArmView):
-    """robosuite osc.py:403-495 run_controller: joint torques."""
-    desired_pos, desired_ori = desired_world_pose(cfg, state, view.origin_pos, view.origin_ori)
+def run(cfg: OSCConfig, state: OSCState, view: ArmView, substep=None):
+    """robosuite osc.py:403-495 run_controller: joint torques; `substep`,
+    the index within the policy step, drives the goal interpolation."""
+    desired_pos, desired_ori = desired_world_pose(cfg, state, view.origin_pos, view.origin_ori, substep)
     return run_world(cfg, view, desired_pos, desired_ori, state.kp, state.kd)

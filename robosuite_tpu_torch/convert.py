@@ -18,7 +18,10 @@ from typing import Dict
 import numpy as np
 import torch
 
+from robosuite_tpu_torch.controllers.parts.ik import IKState
 from robosuite_tpu_torch.controllers.parts.joint_pos import JointPosState
+from robosuite_tpu_torch.controllers.parts.joint_tor import JointTorState
+from robosuite_tpu_torch.controllers.parts.joint_vel import JointVelState
 from robosuite_tpu_torch.controllers.parts.osc import OSCState
 from robosuite_tpu_torch.envs.base import EnvState
 from robosuite_tpu_torch.models.model import Model
@@ -60,19 +63,27 @@ def state_from_numpy(qpos, qvel=None, ctrl_leaves: Dict[str, np.ndarray] = None,
       state's leaves, built as `task_state_cls`, or None); other keys
       (the JAX rng, obs_cache) are not carried; or
     - numpy qpos (B, nq), qvel (B, nv) and one arm's controller leaves:
-      OSC goal_pos (B, 3), goal_ori (B, 3, 3), kp (B, 6), kd (B, 6), or
+      OSC goal_pos (B, 3), goal_ori (B, 3, 3), kp (B, 6), kd (B, 6) and
+      the interpolation's start_pos, start_ori (or None), or
       JOINT_POSITION goal_qpos (B, na), kp (B, na), kd (B, na); and
       gripper_action (B, n).
 
-    The controller state's class follows its leaves (goal_qpos:
-    JOINT_POSITION, else OSC); leaves the port's class lacks (the JAX
-    OSC's interpolation start pose) are not carried."""
+    The controller state's class follows its leaves: goal_qpos
+    JOINT_POSITION, joint IK_POSE (a JOINT_POSITION state inside),
+    goal_vel JOINT_VELOCITY (saturated a bool), goal_torque JOINT_TORQUE,
+    else OSC."""
     def t(x, dtype=torch.float32):
         return torch.tensor(np.array(x), dtype=dtype, device=device)
 
     def arm_state(leaves):
-        cls = JointPosState if "goal_qpos" in leaves else OSCState
-        return cls(**{f.name: t(leaves[f.name]) for f in dataclasses.fields(cls)})
+        if "joint" in leaves:
+            return IKState(joint=arm_state(leaves["joint"]))
+        cls = next((c for key, c in (("goal_qpos", JointPosState), ("goal_vel", JointVelState),
+                                     ("goal_torque", JointTorState)) if key in leaves), OSCState)
+        optional = {f.name for f in dataclasses.fields(cls) if f.default is None}  # OSC's start pose
+        return cls(**{f.name: None if f.name in optional and leaves.get(f.name) is None else
+                      t(leaves[f.name], torch.bool if f.name == "saturated" else torch.float32)
+                      for f in dataclasses.fields(cls)})
 
     def robot(tree):
         return RobotCtrlState(arm={a: arm_state(v) for a, v in tree["arm"].items()},

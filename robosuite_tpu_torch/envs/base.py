@@ -8,8 +8,12 @@ each ONE launch of the fused substep kernel (K3) on CUDA — then the
 end-of-step forward products (K1) and the reward. With `_disable_fused`
 set, each substep instead runs forward products (K1), the controllers,
 the contact rows and the contact-solve kernel (K2), as the JAX package's
-unfused path does. `step_batch` is the RL entry point: the step, then the
-observations through the Observable pipeline (observables.py), with the
+unfused path does. The substep's index reaches the controllers: under
+OSC's linear goal interpolation the fused kernel gets a goal row a
+substep (resolved from the step's start poses, as the JAX goal_fn(k)),
+the unfused law interpolates itself. `step_batch` is the RL entry point:
+the step, then the observations through the Observable pipeline
+(observables.py), with the
 gripper's contact wrench from the last substep's solver forces, the
 reward and `done` at the horizon; an env with a task state (Wipe) sets it
 at the reset (`_reset_task_state`) and updates it after each step from the
@@ -475,25 +479,46 @@ class RobotEnv:
             self._fused_cache[key] = (model, fn)
         return self._fused_cache[key][1]
 
-    def _fused_goal_fn(self, robot, arm, ctrl_state, kin):
-        """(goal, gains) rows for the fused kernel, resolved at policy rate:
-        OSC, the goal in the world frame (B, 12) and [kp, kd] (B, 12);
-        JOINT_POSITION, goal_qpos (B, na) and [kp, kd] (B, 2 na)."""
+    def _fused_goal_fn(self, robot, arm, ctrl_state, kin, k=None):
+        """(goal, gains) rows for the fused kernel at substep k of the policy
+        step (the JAX goal_fn(k)): OSC, the goal in the world frame (B, 12)
+        from the origin pose in kin, the one at the step's start, interpolated
+        at k under interpolation="linear" (k None: the goal itself), and [kp,
+        kd] (B, 12); JOINT_POSITION, goal_qpos (B, na) and [kp, kd] (B, 2 na)."""
         cfg = robot.arm_cfg[arm]
         st = ctrl_state.arm[arm]
         gains = torch.cat([st.kp, st.kd], dim=-1).contiguous()
         if isinstance(cfg, jp_mod.JointPosConfig):
             return st.goal_qpos.contiguous(), gains
         cen = robot.center_site_id[arm]
-        despos, desori = osc_mod.desired_world_pose(cfg, st, kin.site_xpos[:, cen], kin.site_xmat[:, cen])
+        despos, desori = osc_mod.desired_world_pose(cfg, st, kin.site_xpos[:, cen], kin.site_xmat[:, cen], k)
         B = despos.shape[0]
         return torch.cat([despos, desori.reshape(B, 9)], dim=-1).contiguous(), gains
 
+    def _fused_goals(self, robot, arm, ctrl_state, kin):
+        """goal_at(k) -> (goal, gains) of substep k (None: the goal itself):
+        resolved once a policy step, or, under OSC's goal interpolation, once
+        for each of the interp_steps substeps whose goal differs (the goal
+        stays at the ramp's end from there)."""
+        cfg = robot.arm_cfg[arm]
+        if getattr(cfg, "interpolation", None) != "linear":
+            rows = self._fused_goal_fn(robot, arm, ctrl_state, kin)
+            return lambda k: rows
+        cache = {}
+
+        def goal_at(k):
+            k = None if k is None else min(k, cfg.interp_steps - 1)
+            if k not in cache:
+                cache[k] = self._fused_goal_fn(robot, arm, ctrl_state, kin, k)
+            return cache[k]
+
+        return goal_at
+
     def _fused_substep_fn(self, model, ctrl_state, kin):
-        """substep(physics) -> (physics, f) using the fused kernel, or None
-        (the gate refuses an env with more than one robot, so ctrl_state is
-        the one robot's); f (B, 3R) is the substep's solver forces in the
-        static row layout."""
+        """substep(physics, k) -> (physics, f) using the fused kernel at
+        substep k of the policy step, or None (the gate refuses an env with
+        more than one robot, so ctrl_state is the one robot's); f (B, 3R) is
+        the substep's solver forces in the static row layout."""
         if getattr(self, "_disable_fused", False):
             return None
         fused = self._fused_for(model)
@@ -501,36 +526,40 @@ class RobotEnv:
             return None
         robot = self.robots[0]
         arm = robot.arms[0]
-        goal, gains = self._fused_goal_fn(robot, arm, ctrl_state, kin)
+        goal_at = self._fused_goals(robot, arm, ctrl_state, kin)
         grip = robot.gripper_ctrl(arm, ctrl_state).contiguous()
-        leaves = runtime_leaves(model, goal.shape[0])
+        leaves = runtime_leaves(model, kin.site_xpos.shape[0])
 
-        def substep(phys):
+        def substep(phys, k=None):
+            goal, gains = goal_at(k)
             qpos, qvel, f = fused(phys.qpos, phys.qvel, *leaves, goal, gains, grip)
             return State(qpos=qpos, qvel=qvel, time=phys.time + model.timestep), f
 
         return substep
 
-    def run_controllers(self, kin, M, bias, qpos, qvel, ctrl):
+    def run_controllers(self, kin, M, bias, qpos, qvel, ctrl, substep=None):
         """The substep-rate ctrl (B, nu): every robot's torques and gripper
-        ctrl written into one vector (the JAX envs/base.py:876-881)."""
+        ctrl written into one vector (the JAX envs/base.py:876-881);
+        `substep`, the index within the policy step, drives OSC's goal
+        interpolation."""
         c = torch.zeros(qpos.shape[0], self.model.nu, dtype=qpos.dtype, device=qpos.device)
         for robot, cs in zip(self.robots, self._unpack_ctrl(ctrl)):
-            c = robot.run_controllers(kin, M, bias, qpos, qvel, cs, c)
+            c = robot.run_controllers(kin, M, bias, qpos, qvel, cs, c, substep)
         return c
 
     def _substep_fn(self, model, ctrl_state, kin):
-        """substep(physics) -> (physics, f): the fused kernel, or (unsupported
-        or `_disable_fused`) forward products + controllers + contact solve.
-        Both give f in the static row layout [normals | t1 | t2]."""
+        """substep(physics, k) -> (physics, f) at substep k of the policy
+        step: the fused kernel, or (unsupported or `_disable_fused`) forward
+        products + controllers + contact solve. Both give f in the static
+        row layout [normals | t1 | t2]."""
         substep = self._fused_substep_fn(model, ctrl_state, kin)
         if substep is not None:
             return substep
 
-        def substep(phys):
-            k, Mk, bk = engine.forward_products(model, phys.qpos, phys.qvel)
-            c = self.run_controllers(k, Mk, bk, phys.qpos, phys.qvel, ctrl_state)
-            return engine.integrate(model, phys, c, k, Mk, bk)
+        def substep(phys, k=None):
+            kk, Mk, bk = engine.forward_products(model, phys.qpos, phys.qvel)
+            c = self.run_controllers(kk, Mk, bk, phys.qpos, phys.qvel, ctrl_state, k)
+            return engine.integrate(model, phys, c, kk, Mk, bk)
 
         return substep
 
@@ -541,8 +570,8 @@ class RobotEnv:
         ctrl = self._set_goals(kin, M, bias, physics.qpos, physics.qvel, state.ctrl, action)
         substep = self._substep_fn(model, ctrl, kin)
         f = None
-        for _ in range(n_substeps):
-            physics, f = substep(physics)
+        for k in range(n_substeps):
+            physics, f = substep(physics, k)
         return physics, ctrl, f
 
     def _rollout_with_products(self, state: EnvState, action, model, n_substeps, kin, M, bias):
@@ -641,10 +670,10 @@ class RobotEnv:
             for h in range(seqs.shape[1]):
                 kl = self._kin_lite(model, *aux)
                 ctrl = robot.set_goals(kl, M0, b0, qpos, qvel, ctrl, self._clip(seqs[:, h]))
-                goal, gains = self._fused_goal_fn(robot, arm, ctrl, kl)
+                goal_at = self._fused_goals(robot, arm, ctrl, kl)
                 grip = robot.gripper_ctrl(arm, ctrl).contiguous()
-                for _ in range(n_substeps):
-                    qpos, qvel, _f, *aux = fused(qpos, qvel, *leaves, goal, gains, grip)
+                for k in range(n_substeps):
+                    qpos, qvel, _f, *aux = fused(qpos, qvel, *leaves, *goal_at(k), grip)
                     time = time + model.timestep
                 rewards.append(self.reward(State(qpos=qpos, qvel=qvel, time=time), self._kin_lite(model, *aux)))
             return (torch.stack(rewards, dim=-1) * discounts).sum(dim=-1)

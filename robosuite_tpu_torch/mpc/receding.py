@@ -135,7 +135,10 @@ class RecedingMPC:
 
         # template state for x <-> EnvState: the arm controller's goals are
         # rewritten by set_goals every tick; kp/kd are constants (fixed
-        # impedance)
+        # impedance). The rest of the arm state comes from the template too,
+        # as in the JAX package: under OSC's goal interpolation the first
+        # planned step ramps from the template's goal, not the scenario's
+        # last one (MPPI's rollouts start from the real states)
         self._template = env.reset_batch(1, torch.Generator().manual_seed(0))[0]
         self._nq, self._nv = env.model.nq, env.model.nv
         # (robot, arm, ramp width) of each gripper ramp in x, in robot order

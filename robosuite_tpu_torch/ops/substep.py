@@ -16,8 +16,10 @@ CPU tensors and launches csrc/substep.cu on CUDA tensors (counted in
 `make_fused_substep.launches`, or `.aux_launches` for emit_aux), through
 `K3Function` (ops/tangent.py) where an operand carries a derivative.
 
-Goal encoding. OSC: goal (B, 12) = [desired_pos (3), desired_ori (3x3,
-row-major)] in the world frame, gains (B, 12) = [kp (6), kd (6)].
+Goal encoding. OSC (every setting: OSC_POSITION, absolute input, the
+world frame; under goal interpolation one row a substep): goal (B, 12) =
+[desired_pos (3), desired_ori (3x3, row-major)] in the world frame, gains
+(B, 12) = [kp (6), kd (6)].
 JOINT_POSITION: goal (B, na) = goal_qpos, gains (B, 2 na) = [kp, kd].
 grip (B, ng) = gripper actuator ctrl.
 """
@@ -62,7 +64,10 @@ def extract_spec(env, model) -> dict:
     Raises UnsupportedFused where the reference's gate refuses (it runs
     unfused there, and the env here), and ValueError or NotImplementedError
     where the reference fuses but the kernel cannot, so that such a world
-    fails loudly and never steps the plain path on the card."""
+    fails loudly and never steps the plain path on the card. As the
+    reference's, it takes OSC (any setting) and JOINT_POSITION arms and
+    refuses JOINT_VELOCITY, JOINT_TORQUE and IK_POSE; the OSC law's
+    uncouple_pos_ori and the torque compensation come from the config."""
     if len(env.robots) != 1 or not isinstance(env.robots[0], FixedBaseRobot):
         raise UnsupportedFused("one fixed-base robot only")
     robot = env.robots[0]

@@ -18,12 +18,16 @@ import torch
 from robosuite_tpu_torch.controllers.base import ArmView
 from robosuite_tpu_torch.controllers.factory import load_composite_controller_config
 from robosuite_tpu_torch.controllers.parts import gripper as grip_mod
+from robosuite_tpu_torch.controllers.parts import ik as ik_mod
 from robosuite_tpu_torch.controllers.parts import joint_pos as jp_mod
+from robosuite_tpu_torch.controllers.parts import joint_tor as jt_mod
+from robosuite_tpu_torch.controllers.parts import joint_vel as jv_mod
 from robosuite_tpu_torch.controllers.parts import osc as osc_mod
 from robosuite_tpu_torch.physics import kinematics
 
 # config class -> controller module (init_state / set_goal / run)
-_CTRL_DISPATCH = {osc_mod.OSCConfig: osc_mod, jp_mod.JointPosConfig: jp_mod}
+_CTRL_DISPATCH = {osc_mod.OSCConfig: osc_mod, jp_mod.JointPosConfig: jp_mod, ik_mod.IKConfig: ik_mod,
+                  jv_mod.JointVelConfig: jv_mod, jt_mod.JointTorConfig: jt_mod}
 
 
 def ctrl_module(cfg):
@@ -38,7 +42,7 @@ def ctrl_module(cfg):
 class RobotCtrlState:
     """Per-robot controller state: arm goal states + gripper ramp."""
 
-    arm: Dict[str, Any]  # arm -> OSCState / JointPosState
+    arm: Dict[str, Any]  # arm -> the arm controller's state (OSCState, JointPosState, IKState, ...)
     gripper_action: Dict[str, torch.Tensor]  # arm -> (B, n_gripper_actuators) in [-1, 1]
 
 
@@ -116,7 +120,7 @@ class FixedBaseRobot:
         idx = self.action_split_indexes()
         for arm in self.arms:
             cfg, (s, _) = self.arm_cfg[arm], idx[arm]
-            mode = getattr(cfg, "impedance_mode", "fixed")
+            mode = cfg.impedance_mode if isinstance(cfg, osc_mod.OSCConfig) else "fixed"
             if mode == "variable":
                 low[s:s + 6], high[s:s + 6] = cfg.damping_ratio_limits
                 low[s + 6:s + 12], high[s + 6:s + 12] = cfg.kp_limits
@@ -183,9 +187,13 @@ class FixedBaseRobot:
         new_arm, new_grip = {}, {}
         for arm in self.arms:
             s, e = idx[arm]
-            view = self.arm_view(kin, M, bias, qpos, qvel, arm)
             cfg = self.arm_cfg[arm]
-            new_arm[arm] = ctrl_module(cfg).set_goal(cfg, ctrl_state.arm[arm], view, action[:, s:e])
+            if isinstance(cfg, jt_mod.JointTorConfig):  # the goal torques clip to the arm's limits
+                d = self._dev[arm]
+                new_arm[arm] = jt_mod.set_goal(cfg, ctrl_state.arm[arm], action[:, s:e], d["lo"], d["hi"])
+            else:
+                view = self.arm_view(kin, M, bias, qpos, qvel, arm)
+                new_arm[arm] = ctrl_module(cfg).set_goal(cfg, ctrl_state.arm[arm], view, action[:, s:e])
             gs, ge = idx[f"{arm}_gripper"]
             cur = ctrl_state.gripper_action[arm]
             new_grip[arm] = self._gripper_goal(arm, cur, action[:, gs:ge]) if self.rm.grippers[arm].dof else cur
@@ -203,15 +211,24 @@ class FixedBaseRobot:
         rng = self._dev[arm]["grip_range"]
         return grip_mod.run(ctrl_state.gripper_action[arm][:, :rng.shape[0]], rng[:, 0], rng[:, 1])
 
-    def run_controllers(self, kin, M, bias, qpos, qvel, ctrl_state: RobotCtrlState, ctrl):
+    def run_controllers(self, kin, M, bias, qpos, qvel, ctrl_state: RobotCtrlState, ctrl, substep=None):
         """Substep-rate torques written into the full (B, nu) ctrl
-        (robosuite fixed_base_robot.py:149-153)."""
+        (robosuite fixed_base_robot.py:149-153); `substep`, the index within
+        the policy step, drives OSC's goal interpolation. JOINT_VELOCITY
+        clips to the actuator limits, and its new PID state is dropped, as
+        the JAX package drops it (robot.py:555): the error history stays at
+        init_state's zeros."""
         ctrl = ctrl.clone()
         for arm in self.arms:
             view = self.arm_view(kin, M, bias, qpos, qvel, arm)
             cfg = self.arm_cfg[arm]
-            tau = ctrl_module(cfg).run(cfg, ctrl_state.arm[arm], view)
             d = self._dev[arm]
+            if isinstance(cfg, jv_mod.JointVelConfig):
+                tau, _ = jv_mod.run(cfg, ctrl_state.arm[arm], view, d["lo"], d["hi"])
+            elif isinstance(cfg, osc_mod.OSCConfig):
+                tau = osc_mod.run(cfg, ctrl_state.arm[arm], view, substep=substep)
+            else:
+                tau = ctrl_module(cfg).run(cfg, ctrl_state.arm[arm], view)
             ctrl[:, d["act"]] = torch.clamp(tau, d["lo"], d["hi"])
             ctrl[:, d["grip_act"]] = self.gripper_ctrl(arm, ctrl_state)
         return ctrl

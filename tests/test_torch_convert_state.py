@@ -55,7 +55,7 @@ def test_jax_reset_state_carries_across_and_steps(name):
     # every leaf the port's state has, as the JAX state has it
     got = _leaves(convert.numpy_tree(ps))
     want = _leaves(tree)
-    assert set(got) == {k for k in want if not k.startswith(("/rng", "/obs_cache")) and "/start_" not in k}
+    assert set(got) == {k for k in want if not k.startswith(("/rng", "/obs_cache"))}
     for k, v in got.items():
         np.testing.assert_array_equal(v, want[k], err_msg=k)
     assert isinstance(ps.ctrl, tuple) == (name != "Wipe")

@@ -86,5 +86,5 @@ def test_factory_resolves_joint_position_as_jax():
     want = jfactory.load_composite_controller_config("JOINT_POSITION", robot="Panda", arms=["right"])["right"]
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.control_dim == 7 and got.damping_ratio_limits == (0.0, 100.0)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        factory.arm_controller_config("JOINT_VELOCITY")
+    with pytest.raises(ValueError, match="unknown controller type"):
+        factory.arm_controller_config("JOINT_ACCELERATION")
