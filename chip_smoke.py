@@ -236,6 +236,37 @@ Phases (any failure exits non-zero):
      linear goal interpolation, Door OSC_POSE with absolute world-frame
      goals (fused), Lift JOINT_VELOCITY and JOINT_TORQUE, Sawyer-Lift
      IK_POSE (unfused, its rows compacted into 96 slots).
+ 81-92. the robots that need no new physics (robots_slice), last: 81,
+     Lift-PandaDexRH (nq 26, nv 25; an Inspire hand: a 6-wide action on
+     12 position actuators, K3's gripper maximum 12), fused: K3's and
+     K3-aux's carve (rs_substep_smem_bytes, rs_substep_resident), reset +
+     10 rollout_batch steps with the first EARLIER_HELD held substep by
+     substep, 10 steady steps, one K3 launch held at the last state; one
+     MPC tick at bench.py's Lift shape (B=128, H=64, K=32, an FD iLQR
+     iteration every tick: a 622,592-scenario sweep) with its launches,
+     then K3-aux at B*K=4096, K4 at 128 and 8192 and K1 at the sweep's
+     width held against their plain versions, K1 timed there; 82,
+     Lift-SpotArm (6 arm dofs, the BD gripper), fused: reset +
+     EARLIER_HELD step_batch steps held, one K3 launch held, one MPPI tick
+     (B=32, H=64, K=16); 83-84, Stack-PandaDexLH (nv 31, the widest fused
+     carve) and Door-PandaDexRH (24 sites, plane-cylinder and
+     cylinder-cylinder pairs): the carve, one K3 and one K3-aux launch at
+     B=512 at a state in contact (the PandaDex hands touch nothing: the
+     cubes stacked, the latch against the frame) against their plain
+     versions; 85-92, Baxter (bimanual, unfused: the gate refuses it as
+     multi-arm) on Lift, on TwoArmLift and on TwoArmTransport in the
+     "single-robot" configuration (351, 761 and 1,179 candidate pairs
+     compacted into 96 slots): each world's contact state (ab_kernels.
+     lift_grasp_state, twoarm_lift_contact_state, transport_contact_state)
+     and its contact rows graph (rows_graph_report: a fresh capture's
+     time, the replay's time at B=512, the device activities of one eager
+     run and of one replay), K2 (nv 24 or 36, 96 slots) against its plain
+     version and the graph against the eager rows; Lift-Baxter also K1 at
+     512 and 32, reset + 10 step_batch steps with the first EARLIER_HELD
+     held substep by substep (robot0_left_eef_force present and zero) and
+     one MPPI tick; TwoArmLift-Baxter reset + EARLIER_HELD steps, all
+     held; TwoArmTransport-Baxter one K1 and one K2 launch at its contact
+     state.
 The count of (substep, scenario) cases that the holds set aside on a
 float64 near-tie witness is printed at the end.
 Timings use CUDA events (profiler passes show one policy step's and one
@@ -515,14 +546,14 @@ def hold_pair_dist(label, model, pd_k, pd_p, qpos_k, qpos_p, tol=2e-5, tie=1e-5)
     return float(err.max())
 
 
-def op_counts(model, nrows, nact=0.0, iters=30, power_iters=8, ctrl="osc"):
+def op_counts(model, nrows, nact=0.0, iters=30, power_iters=8, ctrl="osc", na=7):
     """Float operations per scenario of each kernel, counted from the
     kernels' arithmetic stage by stage (multiply and add count one each),
     for `nrows` contact rows of which `nact` are active (the mean over this
     run's scenarios: the solve whitens, multiplies and projects only the
     active rows' columns), the contact solve's iteration counts and the
-    arm's torque law (`ctrl`, "osc" or "joint_pos"), split by the type the
-    function needs: the CRBA/RNEA sums, the Cholesky factorisations and
+    arm's torque law (`ctrl`, "osc" or "joint_pos", over `na` arm dofs),
+    split by the type the function needs: the CRBA/RNEA sums, the Cholesky factorisations and
     solves, the whitening and the OSC law in float64, as the kernels and
     the plain versions compute them; the rest in float32, the solve's
     products with the whitened operator included. Returns
@@ -547,7 +578,6 @@ def op_counts(model, nrows, nact=0.0, iters=30, power_iters=8, ctrl="osc"):
     k2_32 = ((power_iters + iters + 2) * yx + (power_iters + iters + 1) * ytx  # products with Y
              + 2 * ntot + power_iters * 3 * nac + iters * 20 * nact)           # norms, the cone projection
     k2 = (k2_32, k2_64)
-    na = 7
     if ctrl == "osc":
         law = (0, 2 * na ** 3 + 3 * 6 * na * na + 6 * 6 * na + 2 * 6 ** 3 + nv * 24)
     else:                                                        # kp e - kd qdot, M_arm times it, + bias, clip
@@ -1760,6 +1790,9 @@ def pose_rounding_witness(env, model, ctrl_state, phys, bad, out_k, out_p, tol_v
             out.append(f"ill-conditioned float32 solve: the plain version {own[1]:.2f} x the tolerance from the "
                        f"float64 solve from its own poses, the kernel {own[0]:.2f} x from its own, apart {gap:.2f} x")
         else:
+            print(f"scenario {b}, no float64 witness: the kernel {own[0]:.2f} x the tolerance from the float64 solve "
+                  f"from its own poses, the plain version {own[1]:.2f} x, the two float64 solves {apart:.2f} x apart, "
+                  f"the float32 results {gap:.2f} x")
             out.append(None)
     return out
 
@@ -2774,13 +2807,14 @@ def ctrl_actions(env, states, gen, absolute=False):
     return env._clip(a)
 
 
-def fused_step_slice(tag, name, env, gen, results, key, actions, steps):
+def fused_step_slice(tag, name, env, gen, results, key, actions, steps, held=None, rollout=False):
     """A fused world's step slice: counts zeroed, reset_batch + `steps`
-    step_batch policy steps at B (K1 = 2 a step + 1, K3 = 25 a step),
-    finite observations and rewards, done only at the horizon, the rate
-    with the reset; then each policy step from the same input against the
-    plain path, substep by substep (the goal rows of each substep, the
-    kernel and the plain substep) under hold_all's rule, the kernel's last
+    step_batch (with `rollout`, rollout_batch) policy steps at B (K1 = 2 a
+    step + 1, K3 = 25 a step), finite observations and rewards, done only
+    at the horizon, the rate with the reset; then each policy step (the
+    first `held`, all by default) from the same input against the plain
+    path, substep by substep (the goal rows of each substep, the kernel
+    and the plain substep) under hold_all's rule, the kernel's last
     substep being the step's next state bit for bit; the reward on the
     plain poses; how far the goal row moves within a step (goal
     interpolation). -> (the launch counts, the trail of states)."""
@@ -2796,17 +2830,21 @@ def fused_step_slice(tag, name, env, gen, results, key, actions, steps):
     states, obs0 = env.reset_batch(B, gen)
     trail, rewards, obs_all = [states], [], []
     for _ in range(steps):
-        states, obs, r, done, _ = env.step_batch(states, actions)
+        if rollout:
+            states, r = env.rollout_batch(states, actions)
+        else:
+            states, obs, r, done, _ = env.step_batch(states, actions)
+            obs_all.append(obs)
+            if bool(done.any()):
+                fail(f"{name} step_batch: done before the horizon")
         trail.append(states)
         rewards.append(r)
-        obs_all.append(obs)
-        if bool(done.any()):
-            fail(f"{name} step_batch: done before the horizon")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = kcounts()
     take_widths(name.split()[0])
-    print(f"{name} main path launches over reset + {steps} step_batch policy steps: {counts}")
+    print(f"{name} main path launches over reset + {steps} {'rollout_batch' if rollout else 'step_batch'} policy "
+          f"steps: {counts}")
     if counts != {"K1": 2 * steps + 1, "K2": 0, "K3": env.n_substeps * steps, "K3-aux": 0, "K4": 0}:
         fail(f"unexpected {name} launch counts {counts}")
     rew = torch.stack(rewards)
@@ -2817,7 +2855,8 @@ def fused_step_slice(tag, name, env, gen, results, key, actions, steps):
     results.update({f"{key}_policy_steps_per_s_with_reset": B * steps / dt, f"{key}_launches": counts})
     fused, leaves = env._fused_for(model), forward.runtime_leaves(model, B)
     worst, worst_r, moved, before = 0.0, 0.0, 0.0, len(ASIDE)
-    for i in range(steps):
+    held = steps if held is None else held
+    for i in range(held):
         st, nxt = trail[i], trail[i + 1]
         kin, M, bias = engine.forward_products(model, st.physics.qpos, st.physics.qvel)
         ctrl_i = env._set_goals(kin, M, bias, st.physics.qpos, st.physics.qvel, st.ctrl, actions)
@@ -2835,10 +2874,10 @@ def fused_step_slice(tag, name, env, gen, results, key, actions, steps):
         kin_p = forward.forward_plain(model, qp, qv, *leaves)[0]
         worst_r = max(worst_r, max_err(rewards[i], env.reward(nxt.physics, kin_p)))
     torch.cuda.synchronize()
-    print(f"{name} {steps} policy steps against the plain path from the same input, substep by substep: largest "
-          f"qpos / qvel error held {worst:.3e}; the goal row moves {moved:.3e} within a step; {len(ASIDE) - before} "
-          f"(substep, scenario) cases set aside on a float64 witness")
-    check(f"{name} {steps} policy steps: reward (kernel path vs plain path)", worst_r, 1e-4)
+    print(f"{name} the first {held} of {steps} policy steps against the plain path from the same input, substep by "
+          f"substep: largest qpos / qvel error held {worst:.3e}; the goal row moves {moved:.3e} within a step; "
+          f"{len(ASIDE) - before} (substep, scenario) cases set aside on a float64 witness")
+    check(f"{name} {held} policy steps: reward (kernel path vs plain path)", worst_r, 1e-4)
     results.update({f"{key}_set_aside": len(ASIDE) - before, f"{key}_goal_moves": moved})
     return counts, trail
 
@@ -3058,6 +3097,435 @@ def ctrl_held_slice(tag, results):
             out[name] = unfused_step_slice(tag, name, env, gen, results, key, actions, False, EARLIER_HELD)[0]
         phase_done(f"{name} reset + {EARLIER_HELD} steps held substep by substep")
         del env
+    return out
+
+
+# ---- phases 81-92: the robots that need no new physics (SpotArm, PandaDexRH / LH, Baxter)
+DEX_MPC = dict(horizon=64, n_samples=32, noise_sigma=0.4, temperature=0.2, n_knots=8, n_ilqr_iters=1,
+               plan_timestep=0.025, relin_every=1, fd_timestep=0.05, plan_pair_points=2)  # bench.py's Lift shape
+DEX_MB = 128
+
+
+def hold_fused_launch(tag, label, env, model, s, emit_aux, results, key):
+    """One K3 (or K3-aux) launch on `model` at the state s (its batch)
+    against its plain version: qpos 1e-5, qvel 1e-3 and, for K3, f 1e-4 of
+    its largest under hold_all's rule; for K3-aux the post-step poses
+    (2e-5) and pair distances (hold_pair_dist) against the plain version at
+    the kernel's own post-step qpos, as phases 14 and 20 hold them; timed
+    (events, device, the plain version, the bound at this state's active
+    rows) into results["robot_kernels"][key]. -> the largest error held."""
+    import torch
+
+    from robosuite_tpu_torch.ops import forward, substep
+    from robosuite_tpu_torch.physics import contact as C
+
+    q, qd = s.physics.qpos.contiguous(), s.physics.qvel.contiguous()
+    n = q.shape[0]
+    fused = env._fused_for(model, emit_aux=emit_aux)
+    plain = substep.substep_aux_plain if emit_aux else substep.substep_plain
+    leaves = forward.runtime_leaves(model, n)
+    kin = forward.forward_plain(model, q, qd, *leaves)[0]
+    robot = env.robots[0]
+    goal, gains = env._fused_goal_fn(robot, "right", s.ctrl, kin)
+    args = (q, qd, *leaves, goal, gains, robot.gripper_ctrl("right", s.ctrl).contiguous())
+    act = C.solver_inputs(model, kin, C.narrowphase(model, kin), qd, model.timestep)[-1].sum(1)
+    out_k, out_p = fused(*args), plain(env, model, *args)
+    torch.cuda.synchronize()
+    nrows = sum(len(r) for r in C.contact_row_layout(model).values())
+    print(f"{label} (B={n}): active rows per scenario min {int(act.min())} median {int(act.median())} max "
+          f"{int(act.max())} of {nrows}; {len(robot.gripper_actuator_ids['right'])} gripper actuators, "
+          f"{len(robot.arm_qvel_idx['right'])} arm dofs")
+    n_out = 2 if emit_aux else 3
+    err = hold_all(label, model, q, out_k[:n_out], out_p[:n_out])
+    if emit_aux:
+        kin2 = forward.forward_plain(model, out_k[0], out_k[1], *leaves)[0]
+        for name, a, b in zip(("site_xpos", "site_xmat", "xpos"), out_k[3:6],
+                              (kin2.site_xpos, kin2.site_xmat, kin2.xpos)):
+            check(f"{label} {name} (the plain poses at the kernel's post-step qpos)", max_err(a, b), 2e-5)
+            err = max(err, max_err(a, b))
+        pd = C.pair_min_dists(model, kin2)
+        err = max(err, hold_pair_dist(label, model, out_k[-1], pd, out_k[0], out_k[0]))
+    flops = op_counts(model, nrows, float(act.float().mean()), iters=model.solver_iters or C.APGD_ITERS,
+                      na=len(robot.arm_qvel_idx["right"]))["K3-aux" if emit_aux else "K3"]
+    r = dict(max_abs_err=err, batch=n, ms=cuda_ms(lambda: fused(*args), 10),
+             dev_ms=device_ms(lambda: fused(*args), 10), plain_ms=cuda_ms(lambda: plain(env, model, *args), 2),
+             bound=bound(nbytes(*args, *out_k), flops, n))
+    print(f"{tag} {label} (B={n}): {r['ms']:.4f} ms by events, {r['dev_ms']:.4f} ms device, plain "
+          f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    results.setdefault("robot_kernels", {})[key] = r
+    return err
+
+
+def fused_carve(tag, name, env, model, results):
+    """K3's and K3-aux's shared memory a scenario and scenarios resident an
+    SM at this world's carve, against the card's opt-in limit a block."""
+    import torch
+
+    from robosuite_tpu_torch.ops import substep
+
+    optin = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", 232448)
+    out = {}
+    for aux, m in ((False, model), (True, model.replace(timestep=0.025, solver_iters=10, pair_points_cap=2))):
+        fused = env._fused_for(m, emit_aux=aux)
+        smem, res = substep.smem_bytes(fused), substep.resident_per_sm(fused)
+        out["K3-aux" if aux else "K3"] = (smem, res)
+        print(f"{name} {'K3-aux (planning model)' if aux else 'K3'}: rs_substep_smem_bytes {smem} B a scenario, "
+              f"rs_substep_resident {res} scenarios an SM; the card's opt-in limit {optin} B a block")
+        if not 0 < smem <= optin or res < 1:
+            fail(f"{name}: the fused substep's carve ({smem} B) does not fit the card")
+    results.setdefault("robot_carves", {})[name] = out
+
+
+def fused_world(name, env_name, robot, fused=True, **kw):
+    """make(env_name, robots=robot) on CUDA, its sizes printed, the fused
+    gate deciding as the JAX gate does. -> the env."""
+    from robosuite_tpu_torch.physics import contact as C
+
+    env = ctrl_env(name, env_name, dict(robots=robot, **kw), fused)
+    m = env.model
+    rows = sum(len(r) for r in C.contact_row_layout(m).values())
+    print(f"{name} world: nq={m.nq} nv={m.nv} nbody={m.nbody} ngeom={m.ngeom} nsite={m.nsite} nu={m.nu} "
+          f"npair={m.npair} rows={rows} (compacted {C.uses_row_compaction(m)}); gripper actuators "
+          f"{[len(r.gripper_actuator_ids[a]) for r in env.robots for a in r.arms]}")
+    return env
+
+
+def dex_mpc_tick(tag, name, env, results, key, seed):
+    """Lift-PandaDexRH's MPC at bench.py's Lift shape (B=128, H=64, K=32,
+    MPPI + one iLQR iteration linearized by forward differences, every
+    tick): a warm-up tick, one timed tick with the launches the config
+    implies, finite actions in [-1, 1]; the sweep's width; then K3-aux at
+    the MPPI width B*K against its plain version, K4 at the iLQR costs'
+    widths (B, B*H) against its plain version, and K1 at the sweep's width
+    against its plain version on strided rows, timed. -> the tick's
+    launch counts."""
+    import torch
+
+    from robosuite_tpu_torch.envs.base import map_state
+    from robosuite_tpu_torch.mpc import receding
+    from robosuite_tpu_torch.ops import fk, forward
+
+    cfg = receding.MPCConfig(**DEX_MPC)
+    mpc = receding.RecedingMPC(env, cfg)
+    solve = mpc.make_solve_batch()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    states = env.reset_batch(DEX_MB, gen)[0]
+    ms = mpc.init_state(DEX_MB, torch.Generator(device="cuda").manual_seed(seed + 1))
+
+    def tick(st, m):
+        acts, m2, met = solve(st, m)
+        st2, rew = env.rollout_batch(st, acts)
+        return st2, m2, met, acts, rew
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    states, ms, *_ = tick(states, ms)
+    torch.cuda.synchronize()
+    print(f"{tag} {name} MPC warm-up tick s: {time.perf_counter() - t0:.3f}")
+    zero_counts()
+    t0 = time.perf_counter()
+    states, ms, met, acts, rew = tick(states, ms)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kcounts()
+    take_widths(name)
+    want = tick_launches(cfg, mpc, env, True)
+    N = DEX_MB * cfg.horizon * (1 + mpc.nx + env.action_dim)
+    print(f"{name} MPC tick launches: {counts}; the forward-difference sweep: {N} scenarios (nx {mpc.nx}, "
+          f"{env.action_dim} actions)")
+    if counts != want:
+        fail(f"{name} MPC tick: launches {counts}, the config implies {want}")
+    if not (torch.isfinite(acts).all() and acts.abs().max() <= 1.0 and torch.isfinite(rew).all()):
+        fail(f"{name} MPC tick: non-finite or out-of-range actions, or non-finite rewards")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{tag} {name} MPC solves/s (B={DEX_MB}, H={cfg.horizon}, K={cfg.n_samples}, MPPI + 1 iLQR iteration "
+          f"linearized by forward differences every tick; one tick, host clock): {DEX_MB / dt:.2f}; finite iLQR "
+          f"plans {int(met['ilqr_accepted'].sum())}/{DEX_MB}; peak device memory {peak:.2f} GB")
+    results.update({f"{key}_mpc_solves_per_s": DEX_MB / dt, f"{key}_mpc_launches": counts,
+                    f"{key}_mpc_peak_gb": peak, f"{key}_fd_sweep": N})
+    # K3-aux at the MPPI width B*K on the planning model, from the tick's states (each copy after the first
+    # with its own small arm velocity)
+    plan = mpc.plan_model
+    BK = DEX_MB * cfg.n_samples
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    wide = map_state(lambda x: x.repeat((cfg.n_samples,) + (1,) * (x.dim() - 1)), states)
+    qd = wide.physics.qvel.clone()
+    qd[DEX_MB:, :7] += 0.05 * torch.randn(BK - DEX_MB, 7, generator=g, device="cuda")
+    wide.physics.qvel = qd
+    hold_fused_launch(tag, f"{name} K3-aux (planning model)", env, plan, wide, True, results, f"{key} K3-aux")
+    # K4 at the iLQR costs' widths
+    q = states.physics.qpos
+    for n in (DEX_MB, DEX_MB * cfg.horizon):
+        qq = q.repeat(n // DEX_MB, 1)
+        qq[:, :7] += 0.3 * torch.randn(n, 7, generator=g, device="cuda")
+        xp_k, xq_k = fk.fk_pose(plan, qq)
+        xp_p, xq_p = fk.fk_pose_plain(plan, qq)
+        torch.cuda.synchronize()
+        check(f"{name} K4 xpos (B={n})", max_err(xp_k, xp_p), 2e-5)
+        check(f"{name} K4 xquat (B={n})", max_err(xq_k, xq_p), 2e-5)
+    # K1 at the sweep's width on states like the sweep's (the tick's, each with its own arm pose and velocity)
+    reps = N // DEX_MB
+    qx = q.repeat(reps, 1)
+    qx[:, :7] += 0.3 * torch.randn(N, 7, generator=g, device="cuda")
+    qvx = 0.2 * torch.randn(N, env.model.nv, generator=g, device="cuda")
+    lin = mpc.lin_model
+    rows = torch.cat([torch.arange(0, N, 257, device="cuda"), torch.tensor([N - 1], device="cuda")])
+    kin_k, M_k, bias_k = forward.forward_products(lin, qx, qvx)
+    kin_k = {f: v[rows] for f, v in kin_k.__dict__.items() if v is not None}
+    M_k, bias_k = M_k[rows], bias_k[rows]
+    torch.cuda.empty_cache()
+    kin_p, M_p, bias_p = forward.forward_plain(lin, qx[rows], qvx[rows], *forward.model_leaves(lin, rows.numel()))
+    check(f"{name} K1 poses (B={N}, {rows.numel()} strided rows)",
+          max(max_err(v, getattr(kin_p, f)) for f, v in kin_k.items()), 2e-5)
+    check(f"{name} K1 M (relative, B={N})", max_err(M_k, M_p) / max(1.0, float(M_p.abs().max())), 1e-5)
+    check(f"{name} K1 bias (relative, B={N})", max_err(bias_k, bias_p) / max(1.0, float(bias_p.abs().max())), 1e-4)
+    del kin_k, M_k, bias_k, kin_p, M_p, bias_p
+    results["k1_widths"].append(dict(world=name, **time_width(
+        tag, f"K1 {name}", lambda: forward.forward_products(lin, qx, qvx),
+        lambda: forward.forward_plain(lin, qx, qvx, *forward.model_leaves(lin, N)), 5, k1_bytes(lin, N),
+        op_counts(lin, 0)["K1"], N)))
+    del qx, qvx
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dex_contact_state(env, states, name):
+    """A state in contact for the PandaDex worlds, whose hands (meshes with
+    no hull) touch nothing: Stack, cubeA dropped onto cubeB in every other
+    scenario and four zero-action steps to land (the others' cubes on the
+    table); Door, the reset (the latch against the frame)."""
+    import torch
+
+    if not name.startswith("Stack"):
+        return states
+    m = env.model
+    qa = m.jnt_qposadr[m.body_jntadr[env.cubeA_body_id]]
+    qb = m.jnt_qposadr[m.body_jntadr[env.cubeB_body_id]]
+    qpos = states.physics.qpos.clone()
+    qpos[::2, qa:qa + 3] = qpos[::2, qb:qb + 3] + torch.tensor([0.0, 0.0, 0.025 + 0.02 + 0.002], device="cuda")
+    s = env.state_from_flattened(torch.cat([states.physics.time[:, None], qpos, states.physics.qvel], 1).cpu())
+    zero = torch.zeros(B, env.action_dim, device="cuda")
+    for _ in range(4):
+        s, _ = env.rollout_batch(s, zero)
+    stacked = int((s.physics.qpos[:, qa + 2] > s.physics.qpos[:, qb + 2] + 0.03).sum())
+    print(f"{name} contact state: cubeA resting on cubeB in {stacked}/{B} scenarios")
+    if stacked < B // 4:
+        fail(f"the {name} contact state has too few stacked scenarios")
+    return s
+
+
+def rows_graph_report(tag, name, model, kin, qvel, results):
+    """The unfused substep's contact rows graph (physics/contact._RowsGraph)
+    for this world at this batch: the capture's time (a fresh graph: two
+    eager warm-up runs and the capture), its replay's time by events, and
+    the device activities in one eager run of the captured code and in one
+    replay (the profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from robosuite_tpu_torch.physics import contact as C
+
+    dt = model.timestep
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = C._RowsGraph(model, kin, qvel, dt)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    replay_ms = cuda_ms(lambda: graph(kin, qvel), 5)
+    counts = []
+    for fn in (lambda: C.solver_inputs(model, kin, C.narrowphase(model, kin), qvel, dt), lambda: graph(kin, qvel)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(r[2] for r in kernel_rows(prof)))
+    print(f"{tag} {name} contact rows graph (B={qvel.shape[0]}, {model.npair} pairs): capture {capture_s:.2f} s, "
+          f"replay {replay_ms:.3f} ms by events; device activities {counts[0]} in one eager run, {counts[1]} "
+          f"recorded in one replay")
+    results.setdefault("rows_graphs", {})[name] = dict(capture_s=capture_s, replay_ms=replay_ms,
+                                                       eager_kernels=counts[0], replay_kernels=counts[1])
+
+
+def _lift_grasped(env, kin, n_act):
+    grasp, rich = int(env.check_grasp(kin, *env._grasp_pairs).sum()), int((n_act >= 4).sum())
+    return f"the right gripper grasps the cube in {grasp}/{B}; >= 4 active rows in {rich}/{B}", 2 * rich >= B
+
+
+# the Baxter worlds (phases 85-92): make's arguments, (nq, nv, nbody, ngeom,
+# nsite, nu, npair), the contact state of ab_kernels and its check, the
+# first phase, and what runs: "full" (K1 at B and 32, K2, reset + STEPS
+# steps with EARLIER_HELD held, one MPPI tick), "held" (K2, reset +
+# EARLIER_HELD steps, all held) or "launches" (one K1 and one K2 launch)
+BAXTER_WORLDS = {
+    "Lift-Baxter": (("Lift", dict(seed=SEED)), (25, 24, 44, 118, 17, 18, 351), "lift_grasp_state", _lift_grasped,
+                    85, "full"),
+    "TwoArmLift-Baxter": (("TwoArmLift", {}), (25, 24, 44, 127, 20, 18, 761), "twoarm_lift_contact_state",
+                          _twoarm_lift_rich, 88, "held"),
+    "TwoArmTransport-Baxter": (("TwoArmTransport", {}), (39, 36, 50, 127, 24, 18, 1179), "transport_contact_state",
+                               _transport_rich, 91, "launches"),
+}
+
+
+def baxter_world(tag, results, name):
+    """One Baxter world on the unfused path (the fused gate refuses the
+    bimanual robot as multi-arm, as the JAX gate does): the world and the
+    gate, K1's and K2's shared memory a block, the contact state, the
+    contact rows graph (rows_graph_report), then what BAXTER_WORLDS gives
+    it. -> {path: launch counts}."""
+    import torch
+
+    import robosuite_tpu_torch as R
+    from robosuite_tpu_torch import ab_kernels
+    from robosuite_tpu_torch.ops import build, forward, substep
+    from robosuite_tpu_torch.physics import contact as C
+
+    (env_name, kw), sizes, state_fn, state_check, ph, depth = BAXTER_WORLDS[name]
+    env = R.make(env_name, robots="Baxter", reward_shaping=True, **kw)
+    model = env.model
+    nrows = sum(len(r) for r in C.contact_row_layout(model).values())
+    K = min(C.ROW_CAP, nrows)
+    got = (model.nq, model.nv, model.nbody, model.ngeom, model.nsite, model.nu, model.npair)
+    print(f"{name} world: nq={got[0]} nv={got[1]} nbody={got[2]} ngeom={got[3]} nsite={got[4]} nu={got[5]} "
+          f"npair={got[6]}, {nrows} candidate rows compacted into {K} slots; action_dim {env.action_dim}; "
+          f"configuration {getattr(env, 'env_configuration', 'one robot')}")
+    if got != sizes or not C.uses_row_compaction(model) or env.action_dim != 14:
+        fail(f"the {name} world is {got}, not {sizes}, or does not compact its rows, or its action is not 14 wide")
+    try:
+        substep.extract_spec(env, model)
+        fail(f"the fused substep's gate takes {name}")
+    except substep.UnsupportedFused as e:
+        print(f"{name} fused gate: UnsupportedFused({e})")
+        if "multi-arm" not in str(e):
+            fail(f"the fused gate does not refuse {name} as multi-arm")
+    lib = build.library()
+    k1_smem = lib.rs_forward_smem_bytes(forward.model_tables(model)[1].data_ptr())
+    k2_smem = lib.rs_contact_solve_smem_bytes(model.nv, K)
+    print(f"{name} shared memory a block: K1 {k1_smem} B (4 scenarios), K2 {k2_smem} B (2 scenarios at nv "
+          f"{model.nv}, {K} slots)")
+    results["smem_bytes"].update({f"K1 {name} block": k1_smem, f"K2 {name} block": k2_smem})
+    world_k = results.setdefault("unfused_kernels", {}).setdefault(name, {})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + ph)
+    states = valid_resets(env, B, gen)[0]
+    if depth == "full":
+        unfused_k1(tag, name, model, states, (B, H64_B), world_k, results)
+    phase_done(f"{name} world, gate" + (", K1" if depth == "full" else ""))
+    s = getattr(ab_kernels, state_fn)(env, states)
+    q, qd = s.physics.qpos, s.physics.qvel
+    if not (torch.isfinite(q).all() and torch.isfinite(qd).all()):
+        fail(f"the {name} contact state is not finite")
+    kin, M, bias = forward.forward_plain(model, q, qd, *forward.runtime_leaves(model, B))
+    con = C.narrowphase(model, kin)
+    n_act = (con["dist"] < con["margin"]).sum(1)
+    report, rich = state_check(env, kin, n_act)
+    print(f"{name} contact state: active rows per scenario min {int(n_act.min())} median {int(n_act.median())} "
+          f"max {int(n_act.max())}; the {K}-slot cap drops rows in {int((n_act > K).sum())}/{B}; {report}")
+    if not rich:
+        fail(f"the {name} contact state is too poor: {report}")
+    rows_graph_report(tag, name, model, kin, qd, results)
+    if depth == "launches":
+        world_k["K1"] = dict(max_abs_err=hold_k1(f"{name} K1 (B={B}, the contact state)", model, q, qd),
+                             **{k: v for k, v in time_width(
+                                 tag, f"K1 {name}", lambda: forward.forward_products(model, q, qd),
+                                 lambda: forward.forward_plain(model, q, qd, *forward.model_leaves(model, B)), 20,
+                                 k1_bytes(model, B), op_counts(model, 0)["K1"], B).items() if k != "B"})
+        world_k["K1"]["bound"] = (world_k["K1"].pop("bound_ms"), world_k["K1"].pop("bound_by"))
+    phase_done(f"{name} contact state, rows graph")
+    unfused_k2(name, env, states, s, kin, M, bias, con, K, world_k)
+    out = {}
+    if depth != "launches":
+        steps = STEPS if depth == "full" else EARLIER_HELD
+        key = name.lower().replace("-", "_")
+        counts, _, (trail, obs_all, _) = unfused_step_slice(tag, name, env, gen, results, key, None, False, steps)
+        left = [o.get("robot0_left_eef_force") for o in obs_all]
+        if any(f is None or f.shape != (B, 3) or bool(f.any()) for f in left):
+            fail(f"{name} step_batch: robot0_left_eef_force missing or nonzero (the JAX package's is 0 on a world "
+                 f"that compacts its rows)")
+        out[f"{name} step"] = counts
+        if depth == "full":
+            out[f"{name} MPC"] = unfused_mpc(tag, name, env, H64_MPC, H64_B, 1,
+                                             torch.Generator(device="cuda").manual_seed(SEED + ph + 1),
+                                             torch.Generator(device="cuda").manual_seed(SEED + ph + 2), results, key,
+                                             (states, s), world_k, False)
+    for k, r in world_k.items():
+        print(f"{tag} {name} {k}: {r['ms']:.4f} ms/launch at B={B} ({r['dev_ms']:.4f} ms device), plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    return out
+
+
+def dex_contact_holds(tag, results):
+    """Phases 83-84: Stack-PandaDexLH and Door-PandaDexRH, one K3 and one
+    K3-aux launch each at B=512 at a state in contact
+    (dex_contact_state), against their plain versions; the carve."""
+    import torch
+
+    for name, env_name, robot, kw in (("Stack-PandaDexLH", "Stack", "PandaDexLH", {}),
+                                      ("Door-PandaDexRH", "Door", "PandaDexRH", dict(seed=SEED))):
+        env = fused_world(name, env_name, robot, **kw)
+        fused_carve(tag, name, env, env.model, results)
+        states = env.reset_batch(B, torch.Generator(device="cuda").manual_seed(SEED + 85))[0]
+        s = dex_contact_state(env, states, name)
+        plan = env.model.replace(timestep=0.025, solver_iters=10)
+        hold_fused_launch(tag, f"{name} K3", env, env.model, s, False, results, f"{name} K3")
+        hold_fused_launch(tag, f"{name} K3-aux (planning model)", env, plan, s, True, results, f"{name} K3-aux")
+        phase_done(f"{name} K3 and K3-aux at a state in contact")
+        del env
+
+
+def robots_slice(tag, results):
+    """Phases 81-92, the robots that need no new physics. 81, Lift with
+    PandaDexRH (an Inspire hand: a 12-wide gripper command, K3's gripper
+    maximum raised to 12), fused: the carve, counts zeroed, reset + STEPS
+    rollout_batch policy steps, the first EARLIER_HELD held substep by
+    substep, STEPS steady steps, and the MPC at bench.py's Lift shape
+    (dex_mpc_tick: K3-aux, K4 and K1 at the sweep's width held); 82, Lift
+    with SpotArm (6 arm dofs, the BD gripper), fused: reset + EARLIER_HELD
+    step_batch steps held, one MPPI tick; 83-84, Stack with PandaDexLH
+    (nv 31, the widest fused world: its carve) and Door with PandaDexRH (24
+    sites, plane-cylinder and cylinder-cylinder pairs): one K3 and one
+    K3-aux launch each at B=512, at a state in contact, against their plain
+    versions; 85-92, the Baxter worlds (baxter_world), unfused. -> {path:
+    launch counts}."""
+    import torch
+
+    out = {}
+    # ---- 81. Lift-PandaDexRH
+    name = "Lift-PandaDexRH"
+    env = fused_world(name, "Lift", "PandaDexRH", seed=SEED)
+    fused_carve(tag, name, env, env.model, results)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
+    actions = ctrl_actions(env, None, gen)
+    out[f"{name} step"], trail = fused_step_slice(tag, name, env, gen, results, "lift_dex", actions, STEPS,
+                                                  held=EARLIER_HELD, rollout=True)
+    t0, s_ss = time.perf_counter(), trail[-1]
+    for _ in range(STEPS):
+        s_ss = env.rollout_batch(s_ss, actions)[0]
+    torch.cuda.synchronize()
+    steady = B * STEPS / (time.perf_counter() - t0)
+    print(f"{tag} {name} env policy-steps/s (B={B}, host clock): {steady:.1f} steady ({STEPS} rollout_batch steps "
+          f"after the run)")
+    results["lift_dex_policy_steps_per_s"] = steady
+    hold_fused_launch(tag, f"{name} K3", env, env.model, trail[-1], False, results, f"{name} K3")
+    phase_done(f"{name} rollout slice")
+    out[f"{name} MPC"] = dex_mpc_tick(tag, name, env, results, "lift_dex", SEED + 82)
+    phase_done(f"{name} MPC tick (FD iLQR) at bench.py's shape, K3-aux, K4, K1 at the sweep's width")
+    del env
+
+    # ---- 82. Lift-SpotArm
+    name = "Lift-SpotArm"
+    env = fused_world(name, "Lift", "SpotArm", seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 83)
+    actions = ctrl_actions(env, None, gen)
+    out[f"{name} step"], trail = fused_step_slice(tag, name, env, gen, results, "lift_spot", actions, EARLIER_HELD)
+    hold_fused_launch(tag, f"{name} K3", env, env.model, trail[-1], False, results, f"{name} K3")
+    out[f"{name} MPC"] = fused_mppi_tick(tag, name, env, results, "lift_spot", SEED + 84)
+    phase_done(f"{name} step slice and MPPI tick")
+    del env
+
+    dex_contact_holds(tag, results)
+    # ---- 85-92. the Baxter worlds, unfused
+    for name in BAXTER_WORLDS:
+        out.update(baxter_world(tag, results, name))
+        phase_done(f"{name}")
     return out
 
 
@@ -3522,14 +3990,17 @@ def main():
     unfused = {name: unfused_world_slice(tag, results, name) for name in UNFUSED_WORLDS}
     variable_gains_check(results)
     ctrl = controllers_slice(tag, results)
+    robots = robots_slice(tag, results)
 
     # ---- report ------------------------------------------------------------------
     # launches on each path, counted from zero just before it: Lift's env step
     # and MPC ticks run K3 / K3-aux with the OSC law, Stack's with JOINT_POSITION
     osc = (counts, sb_counts, mpc_counts, door_counts, door_mpc_counts, lift_ad_counts,
-           unbatched_counts) + tuple(c for k, c in ctrl.items() if "OSC" in k)  # K3 / K3-aux with the OSC law
+           unbatched_counts) + tuple(c for k, c in ctrl.items() if "OSC" in k) + tuple(
+        c for k, c in robots.items() if "Baxter" not in k)  # K3 / K3-aux with the OSC law
     every = osc + (counts_u, door_counts_u, stack_counts, stack_counts_u, stack_mpc_counts, pick_counts,
-                   pick_mpc_counts) + sum(unfused.values(), ()) + tuple(c for k, c in ctrl.items() if "OSC" not in k)
+                   pick_mpc_counts) + sum(unfused.values(), ()) + tuple(
+        c for k, c in ctrl.items() if "OSC" not in k) + tuple(c for k, c in robots.items() if "Baxter" in k)
     paths = {"K1": every, "K2": every, "K3": osc, "K3-aux": osc, "K4": every}
     launches = {k: sum(c.get(k, 0) for c in cs) for k, cs in paths.items()}
     launches["K3-JP"] = stack_counts["K3"] + stack_mpc_counts["K3"]
@@ -3555,7 +4026,7 @@ def main():
               f"over {n} reset + {STEPS} step_batch steps {c}, MPC ticks 1-{UNFUSED_WORLDS[n][-2]} {m}"
               + (f", AD-linearized MPC ticks 1-2 {ad[0]}" if ad else "") for n, (c, m, *ad) in unfused.items())
           + f"; Lift AD-linearized MPC ticks 1-2 {lift_ad_counts}, make_solve {unbatched_counts}; "
-          + "; ".join(f"{k} {c}" for k, c in ctrl.items()))
+          + "; ".join(f"{k} {c}" for k, c in ctrl.items()) + "; " + "; ".join(f"{k} {c}" for k, c in robots.items()))
     by_label = {}
     for a in ASIDE:
         by_label[a.split()[0]] = by_label.get(a.split()[0], 0) + 1

@@ -169,8 +169,8 @@ PICK_GRASP_DZ = 0.015  # the grip site this far above the can's origin: the pads
 PICK_CLOSE_STEPS = 3
 
 
-def site_ik(env, s, target, robot_idx=0, site=None, target_rot=None, iters=40, lam=0.05):
-    """Joint positions (B, na) of robot `robot_idx`'s arm that put `site`
+def site_ik(env, s, target, robot_idx=0, site=None, target_rot=None, iters=40, lam=0.05, arm="right"):
+    """Joint positions (B, na) of robot `robot_idx`'s `arm` that put `site`
     (its eef site by default) at `target` (B, 3) with its orientation at
     `target_rot` (B, 3, 3; by default its orientation at s): damped least
     squares on the plain forward kinematics, the Jacobian by forward
@@ -180,8 +180,8 @@ def site_ik(env, s, target, robot_idx=0, site=None, target_rot=None, iters=40, l
     from robosuite_tpu_torch.physics import kinematics
 
     m, robot = env.model, env.robots[robot_idx]
-    site = robot.eef_site_id["right"] if site is None else site
-    qi = torch.as_tensor(robot.arm_qpos_idx["right"], device=s.physics.qpos.device)
+    site = robot.eef_site_id[arm] if site is None else site
+    qi = torch.as_tensor(robot.arm_qpos_idx[arm], device=s.physics.qpos.device)
     q = s.physics.qpos.clone()
     B, na = q.shape[0], len(qi)
     R0 = kinematics.fk(m, q).site_xmat[:, site] if target_rot is None else target_rot
@@ -234,25 +234,51 @@ def pickplace_contact_state(env, s):
 TWOARM_CLOSE_STEPS = 4
 
 
-def twoarm_lift_contact_state(env, s):
-    """The contact-rich TwoArmLift state that chip_smoke.py holds the
-    kernels on: the pot where the reset put it, each robot's arm moved
-    (site_ik, its orientation kept) so that its open gripper's grip site
-    sits at its handle's crossbar, then TWOARM_CLOSE_STEPS policy steps of
-    zero arm deltas and both grippers closing on the bars."""
+def gripper_columns(env):
+    """{(robot index, arm): the action column of its gripper} for every
+    gripper with a 1-dof action (the binary ones)."""
+    out, off = {}, 0
+    for i, robot in enumerate(env.robots):
+        idx = robot.action_split_indexes()
+        for arm in robot.arms:
+            a, b = idx[f"{arm}_gripper"]
+            if b - a == 1:
+                out[i, arm] = off + a
+        off += robot.action_dim
+    return out
+
+
+def _gripper_action(env, B, device, closed):
+    """(B, action_dim) zeros but each binary gripper's column: +1 (closing)
+    where closed(robot index, arm), else -1."""
     import torch
 
+    a = torch.zeros(B, env.action_dim, device=device)
+    for (i, arm), col in gripper_columns(env).items():
+        a[:, col] = 1.0 if closed(i, arm) else -1.0
+    return a
+
+
+def twoarm_lift_contact_state(env, s):
+    """The contact-rich TwoArmLift state that chip_smoke.py holds the
+    kernels on: the pot where the reset put it, each endpoint's arm (each
+    robot's, or the bimanual robot's right and left) moved (site_ik, its
+    orientation kept) so that its open gripper's grip site sits at its
+    handle's crossbar, then TWOARM_CLOSE_STEPS policy steps of zero arm
+    deltas and both grippers closing on the bars."""
+    import torch
+
+    from robosuite_tpu_torch.envs.two_arm import _two_arm_pairs
     from robosuite_tpu_torch.physics import kinematics
 
     q = s.physics.qpos.clone()
     kin = kinematics.fk(env.model, q)
-    for i, robot in enumerate(env.robots):
-        target = kin.site_xpos[:, env.handle_site_ids[i]]
-        q[:, torch.as_tensor(robot.arm_qpos_idx["right"], device=q.device)] = site_ik(env, s, target, robot_idx=i)
+    for k, (i, robot, arm) in enumerate(_two_arm_pairs(env.robots)):
+        target = kin.site_xpos[:, env.handle_site_ids[k]]
+        q[:, torch.as_tensor(robot.arm_qpos_idx[arm], device=q.device)] = site_ik(env, s, target, robot_idx=i,
+                                                                                  arm=arm)
     s = env.state_from_flattened(torch.cat([s.physics.time[:, None], q, torch.zeros_like(s.physics.qvel)], 1).cpu())
-    a = torch.zeros(q.shape[0], env.action_dim, device=q.device)
-    for r in env._split_robot_actions(a):
-        r[:, -1] = 1.0
+    a = _gripper_action(env, q.shape[0], q.device, lambda i, arm: True)
     for _ in range(TWOARM_CLOSE_STEPS):
         s, _ = env.rollout_batch(s, a)
     return s
@@ -391,19 +417,15 @@ def _grip_frame(x, xmat_g):
 
 def _settle(env, s, steps):
     """`steps` policy steps of zero arm deltas with every gripper open."""
-    import torch
-
-    a = torch.zeros(s.physics.qpos.shape[0], env.action_dim, device=s.physics.qpos.device)
-    for r in env._split_robot_actions(a):
-        r[:, -1] = -1.0
+    a = _gripper_action(env, s.physics.qpos.shape[0], s.physics.qpos.device, lambda i, arm: False)
     for _ in range(steps):
         s, _ = env.rollout_batch(s, a)
     return s
 
 
-def _grasp(env, s, robot_idx, target, x_axis, close_steps, iters=60):
-    """Robot `robot_idx`'s arm moved (site_ik) so that its grip site sits at
-    `target` (B, 3), the gripper pointing down with its fingers opening
+def _grasp(env, s, robot_idx, target, x_axis, close_steps, iters=60, arm="right"):
+    """Robot `robot_idx`'s `arm` moved (site_ik) so that its grip site sits
+    at `target` (B, 3), the gripper pointing down with its fingers opening
     along the horizontal part of `x_axis` (B, 3); then `close_steps`
     policy steps of zero arm deltas, that gripper closing and the others
     open."""
@@ -413,14 +435,12 @@ def _grasp(env, s, robot_idx, target, x_axis, close_steps, iters=60):
 
     q = s.physics.qpos.clone()
     robot = env.robots[robot_idx]
-    site = robot.eef_site_id["right"]
+    site = robot.eef_site_id[arm]
     rot = _grip_frame(x_axis, kinematics.fk(env.model, q).site_xmat[:, site])
-    q[:, torch.as_tensor(robot.arm_qpos_idx["right"], device=q.device)] = site_ik(
-        env, s, target, robot_idx=robot_idx, target_rot=rot, iters=iters)
+    q[:, torch.as_tensor(robot.arm_qpos_idx[arm], device=q.device)] = site_ik(
+        env, s, target, robot_idx=robot_idx, target_rot=rot, iters=iters, arm=arm)
     s = env.state_from_flattened(torch.cat([s.physics.time[:, None], q, torch.zeros_like(s.physics.qvel)], 1).cpu())
-    a = torch.zeros(q.shape[0], env.action_dim, device=q.device)
-    for i, r in enumerate(env._split_robot_actions(a)):
-        r[:, -1] = 1.0 if i == robot_idx else -1.0
+    a = _gripper_action(env, q.shape[0], q.device, lambda i, a_: (i, a_) == (robot_idx, arm))
     for _ in range(close_steps):
         s, _ = env.rollout_batch(s, a)
     return s
@@ -487,6 +507,24 @@ def tool_hang_contact_state(env, s):
     bar = kin.xpos[:, env.tool_body_id] + torch.tensor([0.0, 0.0, TOOL_HANG_GRIP_DZ], dtype=kin.xpos.dtype,
                                                        device=kin.xpos.device)
     return _grasp(env, s, 0, bar, kin.xmat[:, env.tool_body_id, :, 1], TOOL_HANG_CLOSE_STEPS)
+
+
+LIFT_SETTLE_STEPS = 3  # the cube drops its 1 cm onto the table and rests
+
+
+def lift_grasp_state(env, s, arm="right"):
+    """A contact-rich Lift state for a robot with a binary gripper on `arm`
+    (chip_smoke.py's Lift-Baxter phases): LIFT_SETTLE_STEPS policy steps
+    with the grippers open, so that the cube rests on the table; the grip
+    site moved to the cube's centre, pointing down, its fingers opening
+    along the cube's x axis; then GRASP_CLOSE_STEPS steps of that gripper
+    closing on the cube."""
+    from robosuite_tpu_torch.physics import kinematics
+
+    s = _settle(env, s, LIFT_SETTLE_STEPS)
+    kin = kinematics.fk(env.model, s.physics.qpos)
+    return _grasp(env, s, 0, kin.xpos[:, env.cube_body_id], kin.xmat[:, env.cube_body_id, :, 0], GRASP_CLOSE_STEPS,
+                  arm=arm)
 
 
 TRANSPORT_SETTLE_STEPS = 8  # the payload and the lid drop into and onto the start bin, the trash onto table 0

@@ -129,7 +129,7 @@ static __device__ long long rs_stage_clock[RS_NSTAGES];
 #define RS_MAXP1 65    // RS_MAXP + 1: a prefix table over the pairs
 #define RS_MAXCT 1600  // RS_MAXP * 25: narrowphase candidates, all pairs
 #define RS_MAXA 8      // arm dofs
-#define RS_MAXGR 4     // gripper actuators
+#define RS_MAXGR 12    // gripper actuators (an Inspire hand's 12)
 #define RS_MAXPR 384   // (body, dof) pairs with anc != 0
 #define RS_MAXV1 37    // RS_MAXV + 1 and RS_MAXB + 1: prefix tables over the dofs and the bodies
 #define RS_MAXB1 57
@@ -243,20 +243,36 @@ struct Carver {
 
 // ---- small vector algebra ------------------------------------------------
 
+// A product, sum or difference rounded on its own, never fused into an FMA
+// with its neighbour: the cross products and the quaternion algebra below
+// round as their plain PyTorch versions do (utils/transforms.py, one
+// rounding an operation), so the poses of the tree walk (K1, K3, K4) equal
+// kinematics.fk's bit for bit in most entries and near-ties in the contact
+// decisions fall the same way in both. The host build fuses nothing.
+#ifdef __CUDA_ARCH__
+#define RS_MUL(a, b) __fmul_rn((a), (b))
+#define RS_ADD(a, b) __fadd_rn((a), (b))
+#define RS_SUB(a, b) __fsub_rn((a), (b))
+#else
+#define RS_MUL(a, b) ((a) * (b))
+#define RS_ADD(a, b) ((a) + (b))
+#define RS_SUB(a, b) ((a) - (b))
+#endif
+
 RS_DEV void v3_cross(const float* a, const float* b, float* o) {
-  float x = a[1] * b[2] - a[2] * b[1];
-  float y = a[2] * b[0] - a[0] * b[2];
-  float z = a[0] * b[1] - a[1] * b[0];
+  float x = RS_SUB(RS_MUL(a[1], b[2]), RS_MUL(a[2], b[1]));
+  float y = RS_SUB(RS_MUL(a[2], b[0]), RS_MUL(a[0], b[2]));
+  float z = RS_SUB(RS_MUL(a[0], b[1]), RS_MUL(a[1], b[0]));
   o[0] = x; o[1] = y; o[2] = z;
 }
 
 RS_DEV float v3_dot(const float* a, const float* b) { return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]; }
 
 RS_DEV void quat_mul(const float* q, const float* r, float* o) {
-  float w = q[0] * r[0] - q[1] * r[1] - q[2] * r[2] - q[3] * r[3];
-  float x = q[0] * r[1] + q[1] * r[0] + q[2] * r[3] - q[3] * r[2];
-  float y = q[0] * r[2] - q[1] * r[3] + q[2] * r[0] + q[3] * r[1];
-  float z = q[0] * r[3] + q[1] * r[2] - q[2] * r[1] + q[3] * r[0];
+  float w = RS_SUB(RS_SUB(RS_SUB(RS_MUL(q[0], r[0]), RS_MUL(q[1], r[1])), RS_MUL(q[2], r[2])), RS_MUL(q[3], r[3]));
+  float x = RS_SUB(RS_ADD(RS_ADD(RS_MUL(q[0], r[1]), RS_MUL(q[1], r[0])), RS_MUL(q[2], r[3])), RS_MUL(q[3], r[2]));
+  float y = RS_ADD(RS_ADD(RS_SUB(RS_MUL(q[0], r[2]), RS_MUL(q[1], r[3])), RS_MUL(q[2], r[0])), RS_MUL(q[3], r[1]));
+  float z = RS_ADD(RS_SUB(RS_ADD(RS_MUL(q[0], r[3]), RS_MUL(q[1], r[2])), RS_MUL(q[2], r[1])), RS_MUL(q[3], r[0]));
   o[0] = w; o[1] = x; o[2] = y; o[3] = z;
 }
 
@@ -265,7 +281,7 @@ RS_DEV void quat_rot(const float* q, const float* v, float* o) {
   float uv[3], uuv[3];
   v3_cross(q + 1, v, uv);
   v3_cross(q + 1, uv, uuv);
-  for (int i = 0; i < 3; ++i) o[i] = v[i] + 2.0f * (q[0] * uv[i] + uuv[i]);
+  for (int i = 0; i < 3; ++i) o[i] = RS_ADD(v[i], RS_MUL(2.0f, RS_ADD(RS_MUL(q[0], uv[i]), uuv[i])));
 }
 
 // row-major 3x3 rotation of a wxyz quaternion, normalised first

@@ -147,8 +147,8 @@ class RobotEnv:
 
         # the robot models, each with its base and grippers, named by its
         # index (the JAX envs/base.py:114-131): gripper_types and base_types
-        # are "default" (each robot's own), one name (None: no gripper) for
-        # every robot, or a list of one per robot
+        # are "default" (each robot's own), one name (None: no gripper, the
+        # NullMount) for every robot, or a list of one per robot
         def per_robot(spec, i):
             return spec[i] if isinstance(spec, (list, tuple)) else spec
 
@@ -156,8 +156,8 @@ class RobotEnv:
         for i, name in enumerate(self.robot_names):
             rm = create_robot(name, idn=i)
             base_t = per_robot(base_types, i)
-            rm.add_base(robot_base_factory(_ported("base", rm.default_base if base_t == "default" else base_t,
-                                                   REGISTERED_BASES), idn=i))
+            bname = rm.default_base if base_t == "default" else "NullMount" if base_t is None else base_t
+            rm.add_base(robot_base_factory(_ported("base", bname, REGISTERED_BASES), idn=i))
             grip_t = per_robot(gripper_types, i)
             for arm in rm.arms:
                 gname = rm.default_gripper[arm] if grip_t == "default" else "NullGripper" if grip_t is None else grip_t

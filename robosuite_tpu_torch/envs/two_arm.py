@@ -5,12 +5,14 @@ environments/manipulation/two_arm_env.py (placements), two_arm_lift.py
 reward, the peg and the plate welded at the eefs), two_arm_handover.py
 (the staged reach / grasp / hover reward, success :545+)).
 
-env_configuration "opposed" (the default: the robots face each other
-across the table, turned by +-pi/2) or "parallel" (side by side, +-0.25 m).
-The "single-robot" configuration (one bimanual robot) raises until a
-bimanual robot is ported. Both worlds step unfused (two robots), as the
-JAX package's do: TwoArmLift compacts its 620 candidate rows and
-TwoArmHandover its 203, and TwoArmPegInHole solves its 117 static rows.
+With two robots, env_configuration "opposed" (the default: the robots
+face each other across the table, turned by +-pi/2) or "parallel" (side by
+side, +-0.25 m); with one, the "single-robot" configuration: one bimanual
+robot (Baxter) at its table offset, its right and left arms the two
+endpoints. Every such world steps unfused (two robots, or two arms), as
+the JAX package's do: TwoArmLift compacts its candidate rows (620 with two
+Pandas) and TwoArmHandover its 203, and TwoArmPegInHole solves its 117
+static rows.
 """
 
 from __future__ import annotations
@@ -32,13 +34,13 @@ from robosuite_tpu_torch.utils.placement import PlacementSpec, sample_placements
 
 
 def _normalize_two_arm(robots, env_configuration):
-    """robosuite two_arm_env.py:29-55: one (bimanual) robot selects the
-    "single-robot" configuration, which is not ported; two robots take
-    "opposed" (the default) or "parallel"."""
+    """robosuite two_arm_env.py:29-55: one robot selects the "single-robot"
+    configuration, which takes a bimanual robot (checked once the robot is
+    built, _place_two_robots); two robots take "opposed" (the default) or
+    "parallel"."""
     robots = [robots] if isinstance(robots, str) else list(robots)
     if len(robots) == 1:
-        raise NotImplementedError("the 'single-robot' two-arm configuration needs a bimanual robot, which the port "
-                                  "does not have yet: pass two robots")
+        return robots, "single-robot"
     if env_configuration in ("default", None):
         env_configuration = "opposed"
     if env_configuration not in ("opposed", "parallel"):
@@ -47,9 +49,17 @@ def _normalize_two_arm(robots, env_configuration):
 
 
 def _place_two_robots(robot_models, env_configuration, table_length):
-    """robosuite two_arm_lift.py:302-326: opposed, each base at its table
+    """robosuite two_arm_lift.py:302-326: single-robot, the one base at its
+    table offset (a one-arm robot raises ValueError, robosuite
+    two_arm_env.py's configuration check); opposed, each base at its table
     offset turned by +pi/2 and -pi/2 about z; parallel, side by side."""
-    if env_configuration == "opposed":
+    if env_configuration == "single-robot":
+        rm = robot_models[0]
+        if rm.arm_type != "bimanual":
+            raise ValueError(f"the 'single-robot' two-arm configuration needs a bimanual robot (Baxter); "
+                             f"{type(rm).__name__} has one arm: pass two robots")
+        rm.set_base_xpos(np.array(rm.base_xpos_offset["table"](table_length)))
+    elif env_configuration == "opposed":
         for rm, rotation in zip(robot_models, (np.pi / 2, -np.pi / 2)):
             xpos = np.array(rm.base_xpos_offset["table"](table_length))
             c, s = math.cos(rotation), math.sin(rotation)
@@ -62,8 +72,12 @@ def _place_two_robots(robot_models, env_configuration, table_length):
 
 def _two_arm_pairs(items):
     """[(robot index, item, arm)] of the two manipulation endpoints: the
-    right arm of each of the two robots (robosuite two_arm_env.py's
-    gripper0 / gripper1)."""
+    right and the left arm of the one bimanual robot, or the right arm of
+    each of the two robots (robosuite two_arm_env.py's gripper0 /
+    gripper1)."""
+    items = list(items)
+    if len(items) == 1:
+        return [(0, items[0], "right"), (0, items[0], "left")]
     return [(i, r, "right") for i, r in enumerate(items)]
 
 
@@ -173,6 +187,7 @@ class TwoArmPegInHole(RobotEnv):
         super().__init__(robots=robots, reward_scale=reward_scale, reward_shaping=reward_shaping, **kwargs)
 
     def _load_model(self):
+        _place_two_robots(self.robot_models, self.env_configuration, 0.8)
         # no grippers: each default gripper (its bodies under the eef, its
         # actuators) gives way to a NullGripper (two_arm_peg_in_hole.py:262-270)
         pairs = _two_arm_pairs(self.robot_models)
@@ -181,9 +196,8 @@ class TwoArmPegInHole(RobotEnv):
             pref = f"gripper{i}_{arm}_"
             eef_body.children = [c for c in eef_body.children if not c.name.startswith(pref)]
             rm._actuators = [a for a in rm._actuators if not a.name.startswith(pref)]
-            rm.grippers.clear()
+            rm.grippers.pop(arm)
             rm.add_gripper(gripper_factory("NullGripper", idn=i, arm=arm), arm)
-        _place_two_robots(self.robot_models, self.env_configuration, 0.8)
         # the peg under robot0's eef body, the plate under robot1's (:278-299)
         peg = S.BodySpec("peg", pos=(0, 0, self.peg_length))
         peg.add_geom(S.GeomSpec("peg_g0", type="cylinder", size=(self.peg_radius[0], self.peg_length), density=500))

@@ -1,5 +1,6 @@
-"""Robot bases (robosuite models/bases/*.py), trimmed to the fixed mount
-the Panda uses by default (RethinkMount)."""
+"""Robot bases (robosuite models/bases/*.py), trimmed to the fixed mounts:
+RethinkMount (Panda, Sawyer, SpotArm), RethinkMinimalMount (Baxter) and
+NullMount (a bare body)."""
 
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ def register_base(cls):
 
 
 def robot_base_factory(name: str, idn=0):
-    """robosuite bases/robot_base_factory.py."""
+    """robosuite bases/robot_base_factory.py (None: the NullMount)."""
+    if name is None:
+        name = "NullMount"
     if name not in REGISTERED_BASES:
         raise ValueError(f"unknown base {name}; known: {sorted(REGISTERED_BASES)}")
     return REGISTERED_BASES[name](idn=idn)
@@ -57,6 +60,10 @@ class RobotBaseModel:
     def bottom_offset(self):
         return np.array((0.0, 0.0, 0.0))
 
+    @property
+    def horizontal_radius(self):
+        return 0.0
+
     def root_subtree(self):
         return self._root
 
@@ -78,3 +85,34 @@ class RethinkMount(RobotBaseModel):
     @property
     def bottom_offset(self):
         return np.array((0.0, 0.0, -0.922))
+
+    @property
+    def horizontal_radius(self):
+        return 0.25
+
+
+@register_base
+class RethinkMinimalMount(RobotBaseModel):
+    """robosuite bases/rethink_minimal_mount.py (Baxter's): top_offset
+    (0,0,-0.01), bottom_offset (0,0,-0.9)."""
+
+    card_name = "rethink_minimal_mount"
+
+    @property
+    def top_offset(self):
+        return np.array((0.0, 0.0, -0.01))
+
+    @property
+    def bottom_offset(self):
+        return np.array((0.0, 0.0, -0.9))
+
+    @property
+    def horizontal_radius(self):
+        return 0.25
+
+
+@register_base
+class NullMount(RobotBaseModel):
+    """robosuite bases/null_mount.py: one empty body, zero offsets."""
+
+    card_name = "null_mount"

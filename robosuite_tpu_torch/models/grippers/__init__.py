@@ -1,6 +1,6 @@
 """Gripper models (robosuite models/grippers/*.py + gripper_factory.py),
-trimmed to the Panda and Rethink grippers, the null gripper and the
-wiping gripper.
+trimmed to the Panda, Rethink and Boston Dynamics grippers, the Inspire
+hands, the null gripper and the wiping gripper.
 
 Each gripper wraps its model card with robosuite's metadata: dof, speed,
 init_qpos, important sites (grip_site for the OSC reference frame) and
@@ -97,6 +97,13 @@ class GripperModel:
         """Per-actuator sign applied to the ramped open/close command."""
         return np.ones(len(self._actuators))
 
+    def format_action_indices(self):
+        """For a dexterous hand, each actuator's index into the dof-wide
+        action, which drives the actuators directly (robosuite
+        inspire_hands.py:22-28 `action[indices]`); None for a binary gripper,
+        whose one action ramps every actuator."""
+        return None
+
 
 @register_gripper
 class PandaGripper(GripperModel):
@@ -174,3 +181,76 @@ class WipingGripper(GripperModel):
     @property
     def _important_sites(self):
         return {"grip_site": "grip_site", "grip_cylinder": "grip_site_cylinder", "ee": "ft_frame"}
+
+
+@register_gripper
+class BDGripper(GripperModel):
+    """robosuite bd_gripper.py (Boston Dynamics, SpotArm's): dof=1,
+    speed=0.2, ramped binary action."""
+
+    card_name = "bd_gripper"
+    dof = 1
+    speed = 0.2
+
+    @property
+    def init_qpos(self):
+        return np.array([-1.57])
+
+    @property
+    def _important_geoms(self):
+        # robosuite bd_gripper.py:31-36
+        return {
+            "left_finger": ["left_hinge_coll", "left_finger_coll", "left_tooth_coll"],
+            "right_finger": ["right_hinge_coll", "right_finger_coll", "right_tooth_coll"],
+            "left_fingerpad": ["left_finger_coll"],
+            "right_fingerpad": ["right_finger_coll"],
+        }
+
+
+def _hand_geoms(prefix):
+    """An Inspire hand's finger geoms (robosuite inspire_hands.py:127-160):
+    the thumb's stand for the left finger and pad, the four fingers' for
+    the right."""
+    thumb = [f"{prefix}_thumb_proximal_col", f"{prefix}_thumb_proximal_2_col",
+             f"{prefix}_thumb_middle_col", f"{prefix}_thumb_distal_col"]
+    fingers = [f"{prefix}_{f}_{seg}_col" for f in ("index", "middle", "ring", "pinky")
+               for seg in ("proximal", "distal")]
+    return {"left_finger": thumb, "right_finger": fingers, "left_fingerpad": thumb, "right_fingerpad": fingers}
+
+
+@register_gripper
+class InspireLeftHand(GripperModel):
+    """robosuite inspire_hands.py:10-85: a 6-dof dexterous hand whose 6-wide
+    action drives its 12 position actuators directly, with no ramp."""
+
+    card_name = "inspire_left_hand"
+    dof = 6
+    speed = 0.15
+
+    def __init__(self, idn=0, arm="left"):
+        super().__init__(idn=idn, arm=arm)
+
+    def format_action_indices(self):
+        # actuators: pinky, ring, middle, index (distal, proximal each),
+        # then the thumb's distal, middle, proximal_2, proximal_1
+        return np.array([0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 4, 5])
+
+    @property
+    def init_qpos(self):
+        return np.zeros(12)
+
+    @property
+    def _important_geoms(self):
+        return _hand_geoms("l")
+
+
+@register_gripper
+class InspireRightHand(InspireLeftHand):
+    card_name = "inspire_right_hand"
+
+    def __init__(self, idn=0, arm="right"):
+        super().__init__(idn=idn, arm=arm)
+
+    @property
+    def _important_geoms(self):
+        return _hand_geoms("r")

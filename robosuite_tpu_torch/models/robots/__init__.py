@@ -1,9 +1,10 @@
 """Robot models: spec factories + metadata for the built-in manipulators.
 
 Copy of the JAX package's robot model layer, trimmed to the fixed-mount
-single-arm robots, the Panda and the Sawyer (robosuite
-models/robots/robot_model.py, manipulators/panda_robot.py,
-sawyer_robot.py). Each robot is a thin class over its
+robots that need no tendon or equality: the Panda, the Sawyer, the
+SpotArm, the PandaDexRH / PandaDexLH (a Panda with an Inspire hand) and
+the bimanual Baxter (robosuite models/robots/robot_model.py,
+manipulators/*.py, compositional.py). Each robot is a thin class over its
 committed model card plus robosuite's published metadata (init_qpos,
 default gripper/base, placement offsets).
 """
@@ -75,6 +76,19 @@ class ManipulatorModel:
         }
 
     @property
+    def top_offset(self):
+        return np.array((0, 0, 1.0))
+
+    @property
+    def horizontal_radius(self):
+        return 0.5
+
+    @property
+    def arm_type(self):
+        """"single", or "bimanual" (two arms, right and left, in one robot)."""
+        return "single"
+
+    @property
     def card_joint_names(self) -> List[str]:
         """All prefixed robot-card joints in card order (robosuite
         robot.py _ref_joint_indexes); init_qpos covers exactly these."""
@@ -93,7 +107,8 @@ class ManipulatorModel:
 
     @property
     def eef_name(self) -> Dict[str, str]:
-        return {"right": self.naming_prefix + "right_hand"}
+        """The eef body of each arm (robosuite manipulator_model.py:176)."""
+        return {arm: f"{self.naming_prefix}{arm}_hand" for arm in self.arms}
 
     @property
     def base_offset(self):
@@ -141,10 +156,25 @@ class ManipulatorModel:
         self._actuators.extend(base.actuators())
         self.base = base
 
+    # a gripper root's pos / quat (wxyz) replaced at mounting, by arm
+    # (robosuite robot.py:198-212); empty: the card's own
+    @property
+    def gripper_mount_pos_offset(self) -> dict:
+        return {}
+
+    @property
+    def gripper_mount_quat_offset(self) -> dict:
+        return {}
+
     def add_gripper(self, gripper, arm: str):
         eef_body = self._root.find_body(self.eef_name[arm])
         assert eef_body is not None, f"eef body {self.eef_name[arm]} not found"
-        eef_body.children.append(gripper.root_subtree())
+        sub = gripper.root_subtree()
+        if arm in self.gripper_mount_pos_offset:
+            sub.pos = np.asarray(self.gripper_mount_pos_offset[arm], dtype=float)
+        if arm in self.gripper_mount_quat_offset:
+            sub.quat = np.asarray(self.gripper_mount_quat_offset[arm], dtype=float)
+        eef_body.children.append(sub)
         self._actuators.extend(gripper.actuators())
         self.grippers[arm] = gripper
 
@@ -179,8 +209,17 @@ class ManipulatorModel:
 
     @property
     def arm_joint_names(self) -> Dict[str, List[str]]:
-        """Prefixed arm joint names, card order (single-arm robots)."""
-        return {"right": list(self.card_joint_names)}
+        """Prefixed arm joint names by arm, card order: the card's joints
+        but torso, mobile, head and leg ones (robosuite
+        manipulator_model.py:97-114); a bimanual robot's split in half,
+        right first (fixed_base_robot.py:91-93)."""
+        pre = len(self.naming_prefix)
+        flat = [j for j in self.card_joint_names
+                if not any(tag in j[pre:] for tag in ("torso", "mobile", "head", "leg"))]
+        if self.arm_type == "single":
+            return {"right": flat}
+        half = len(flat) // 2
+        return {"right": flat[:half], "left": flat[half:]}
 
     @property
     def arm_actuator_names(self) -> Dict[str, List[str]]:
@@ -236,3 +275,106 @@ class Sawyer(ManipulatorModel):
     @property
     def init_qpos(self):
         return np.array([0, -1.18, 0.00, 2.18, 0.00, 0.57, -1.57])
+
+
+@register_robot
+class SpotArm(ManipulatorModel):
+    """robosuite manipulators/spot_arm.py: the Spot arm (6 joints) on a
+    RethinkMount, with its joint damping override (0.1 x5, 0.01)."""
+
+    card_name = "spot_arm"
+
+    def _build(self):
+        super()._build()
+        damping = [0.1, 0.1, 0.1, 0.1, 0.1, 0.01]
+        i = 0
+        for b in self._root.walk():
+            for j in b.joints:
+                if i < len(damping):
+                    j.damping = damping[i]
+                    i += 1
+
+    @property
+    def default_gripper(self):
+        return {"right": "BDGripper"}
+
+    @property
+    def init_qpos(self):
+        return np.array([0.0, -1.2, 1.85, 0.0, 0.862, 0.0])
+
+    @property
+    def base_xpos_offset(self):
+        return {
+            "bins": (-0.5, -0.1, 0),
+            "empty": (-0.6, 0, 0),
+            "table": lambda table_length: (-0.16 - 0.9 - table_length / 2, 0.0, 0.0),
+        }
+
+
+@register_robot
+class PandaDexRH(Panda):
+    """robosuite compositional.py:79-90: a Panda with an Inspire right hand,
+    mounted at the wrist turned by the quat (-0.5, 0.5, 0.5, -0.5)."""
+
+    @property
+    def default_gripper(self):
+        return {"right": "InspireRightHand"}
+
+    @property
+    def gripper_mount_pos_offset(self):
+        return {"right": [0.0, 0.0, 0.0]}
+
+    @property
+    def gripper_mount_quat_offset(self):
+        return {"right": [-0.5, 0.5, 0.5, -0.5]}
+
+
+@register_robot
+class PandaDexLH(Panda):
+    """robosuite compositional.py:93-104: a Panda with an Inspire left hand."""
+
+    @property
+    def default_gripper(self):
+        return {"right": "InspireLeftHand"}
+
+    @property
+    def gripper_mount_pos_offset(self):
+        return {"right": [0.0, 0.0, 0.0]}
+
+    @property
+    def gripper_mount_quat_offset(self):
+        return {"right": [0.5, -0.5, 0.5, -0.5]}
+
+
+@register_robot
+class Baxter(ManipulatorModel):
+    """robosuite manipulators/baxter_robot.py: two 7-joint arms (right, then
+    left) in one robot on a RethinkMinimalMount, a Rethink gripper on each."""
+
+    card_name = "baxter"
+    arms = ["right", "left"]
+
+    @property
+    def arm_type(self):
+        return "bimanual"
+
+    @property
+    def default_base(self):
+        return "RethinkMinimalMount"
+
+    @property
+    def default_gripper(self):
+        return {"right": "RethinkGripper", "left": "RethinkGripper"}
+
+    @property
+    def init_qpos(self):
+        return np.array(
+            [0.403, -0.636, 0.114, 1.432, 0.735, 1.205, -0.269, -0.403, -0.636, -0.114, 1.432, -0.735, 1.205, 0.269])
+
+    @property
+    def base_xpos_offset(self):
+        return {
+            "bins": (-0.5, -0.1, 0),
+            "empty": (-0.29, 0, 0),
+            "table": lambda table_length: (-0.26 - table_length / 2, 0, 0),
+        }

@@ -155,7 +155,11 @@ def _combine(later, earlier):
         b_ij = A_j (I + C_i J_j)^-1 (b_i + C_i eta_j) + b_j
         C_ij = A_j (I + C_i J_j)^-1 C_i A_j^T + C_j
       eta_ij = A_i^T (I + J_j C_i)^-1 (eta_j - J_j b_i) + eta_i
-        J_ij = A_i^T (I + J_j C_i)^-1 J_j A_i + J_i"""
+        J_ij = A_i^T (I + J_j C_i)^-1 J_j A_i + J_i
+    C and J (a cost-to-go Hessian) are symmetric; each combine keeps them
+    so, as the sequential pass keeps Vxx: on a stiff linearization (|fx| in
+    the thousands) the rounding's asymmetry otherwise grows through the
+    scan and moves gains the sequential pass determines."""
     Aj, bj, Cj, etaj, Jj = later
     Ai, bi, Ci, etai, Ji = earlier
     eye = torch.eye(Ai.shape[-1], dtype=Ai.dtype, device=Ai.device)
@@ -166,7 +170,7 @@ def _combine(later, earlier):
     C_ij = Aj @ torch.linalg.solve(M1, Ci @ _mT(Aj)) + Cj
     eta_ij = _mv(_mT(Ai), torch.linalg.solve(M2, etaj - _mv(Jj, bi))) + etai
     J_ij = _mT(Ai) @ torch.linalg.solve(M2, Jj @ Ai) + Ji
-    return A_ij, b_ij, C_ij, eta_ij, J_ij
+    return A_ij, b_ij, 0.5 * (C_ij + _mT(C_ij)), eta_ij, 0.5 * (J_ij + _mT(J_ij))
 
 
 def _suffix_scan(elems):

@@ -81,7 +81,9 @@ def mppi_step_batch(cfg: MPPIConfig, rollout_return_fn: Callable, env_states, me
     any_finite = finite.any(dim=1)
     w = torch.softmax(masked / cfg.temperature, dim=1)
     w = torch.where(any_finite[:, None], w, torch.zeros_like(w))
-    new_means = torch.einsum("bk,bkha->bha", w, seqs)
+    # a convex combination of samples in [-1, 1]; the float32 rounding of
+    # the weights' sum can carry it an ulp past the bound, so clamp
+    new_means = torch.clamp(torch.einsum("bk,bkha->bha", w, seqs), -1.0, 1.0)
     new_means = torch.where(any_finite[:, None, None], new_means, means)
     metrics = dict(
         best_return=masked.max(dim=1).values,

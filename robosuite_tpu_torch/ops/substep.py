@@ -72,7 +72,7 @@ def extract_spec(env, model) -> dict:
         raise UnsupportedFused("one fixed-base robot only")
     robot = env.robots[0]
     if len(robot.arms) != 1:
-        raise UnsupportedFused("single-arm robots only")
+        raise UnsupportedFused("multi-arm")  # Baxter, as the reference's gate
     arm = robot.arms[0]
     cfg = robot.arm_cfg[arm]
     if isinstance(cfg, osc_mod.OSCConfig):

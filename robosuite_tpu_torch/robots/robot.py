@@ -89,7 +89,7 @@ class FixedBaseRobot:
         # the per-substep indices and constants on the model's device (an
         # index from the host is a copy, and a copy waits for the device)
         dev = model.device
-        idx = lambda a: torch.as_tensor(a, dtype=torch.long, device=dev)  # noqa: E731
+        idx = lambda a: None if a is None else torch.as_tensor(a, dtype=torch.long, device=dev)  # noqa: E731
         self._dev = {arm: dict(
             qp=idx(self.arm_qpos_idx[arm]), qv=idx(self.arm_qvel_idx[arm]), act=idx(self.arm_actuator_ids[arm]),
             grip_act=idx(self.gripper_actuator_ids[arm]),
@@ -97,7 +97,8 @@ class FixedBaseRobot:
             hi=torch.as_tensor(self.torque_limits[arm][1], device=dev),
             grip_range=model.actuator_ctrlrange[idx(self.gripper_actuator_ids[arm])],
             grip_dir=torch.as_tensor(robot_model.grippers[arm].format_action_direction(), dtype=torch.float32,
-                                     device=dev)) for arm in self.arms}
+                                     device=dev),
+            grip_idx=idx(robot_model.grippers[arm].format_action_indices())) for arm in self.arms}
         # check_q_limits: every arm's joint positions and ranges, the limited ones
         jr = model.jnt_range.cpu().numpy()
         jids = np.concatenate([[int(model.dof_jntid[d]) for d in self.arm_qvel_idx[arm]] for arm in self.arms])
@@ -200,8 +201,14 @@ class FixedBaseRobot:
         return RobotCtrlState(arm=new_arm, gripper_action=new_grip)
 
     def _gripper_goal(self, arm, cur, grip_a):
-        """Binary ramped gripper (robosuite panda_gripper.py:42-55): each
-        policy step moves the per-actuator command by speed * sign(action)."""
+        """Per-actuator gripper command in [-1, 1] (the JAX robot.py
+        _gripper_goal). A binary gripper ramps (robosuite
+        panda_gripper.py:42-55): each policy step moves the per-actuator
+        command by speed * sign(action). A dexterous hand maps its dof-wide
+        action straight onto its actuators (inspire_hands.py:22-28)."""
+        idx = self._dev[arm]["grip_idx"]
+        if idx is not None:
+            return torch.clamp(grip_a[:, idx].to(cur.dtype), -1.0, 1.0)
         direction = self._dev[arm]["grip_dir"].to(cur.dtype)
         return torch.clamp(cur + direction * self.rm.grippers[arm].speed * torch.sign(grip_a[:, 0:1]), -1.0, 1.0)
 

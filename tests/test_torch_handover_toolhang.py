@@ -8,7 +8,8 @@ the same inputs.
     radii;
   * the fused substep's gate refuses TwoArmHandover for its two robots and
     ToolHang for its row compaction (UnsupportedFused, the JAX predicate);
-    K1's table takes both; the "single-robot" configuration raises;
+    K1's table takes both; the "single-robot" configuration with a
+    one-arm robot raises;
   * the reset placements: the sampler's ranges (the stand fixed and not
     turned), and a JAX reset injected into the port (state_from_flattened)
     giving the JAX reset's observations (1e-5);
@@ -147,9 +148,12 @@ def test_fused_gate_refuses_the_world_and_k1_takes_it(name):
 
 
 def test_handover_single_robot_configuration_raises():
+    """One robot selects the single-robot configuration, which needs a
+    bimanual robot: a Panda is refused (ValueError), as robosuite's
+    configuration check refuses it."""
     import robosuite_tpu_torch
 
-    with pytest.raises(NotImplementedError, match="single-robot"):
+    with pytest.raises(ValueError, match="single-robot"):
         robosuite_tpu_torch.make("TwoArmHandover", robots="Panda", device="cpu")
 
 

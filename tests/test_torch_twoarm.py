@@ -7,7 +7,7 @@ the same inputs.
     contact row layout, the row compaction and the action width;
   * the fused substep's gate refuses both worlds for their two robots
     (UnsupportedFused, the JAX predicate), and K1's table takes them; the
-    "single-robot" configuration raises;
+    "single-robot" configuration with a one-arm robot raises;
   * the observations (every key), the reward and _check_success on the
     same poses (1e-5): TwoArmLift at a grasp of both handles
     (ab_kernels.twoarm_lift_contact_state) with the pot lifted level and
@@ -128,10 +128,13 @@ def test_fused_gate_refuses_two_robots_and_k1_takes_the_world(name):
 
 
 def test_single_robot_configuration_raises():
+    """One robot selects the single-robot configuration, which needs a
+    bimanual robot (tests/test_torch_robots.py holds Baxter there): a
+    Panda is refused with ValueError; an unknown configuration too."""
     import robosuite_tpu_torch
 
     for name in NAMES:
-        with pytest.raises(NotImplementedError, match="single-robot"):
+        with pytest.raises(ValueError, match="single-robot"):
             robosuite_tpu_torch.make(name, robots="Panda", device="cpu")
     with pytest.raises(ValueError, match="opposed"):
         robosuite_tpu_torch.make("TwoArmLift", env_configuration="stacked", device="cpu", **KW)
