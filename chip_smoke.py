@@ -220,8 +220,9 @@ Phases (any failure exits non-zero):
  71-80. the remaining arm controllers (controllers_slice), last: 71-74,
      Lift-Panda with IK_POSE, unfused as the JAX gate decides (K1, the 66
      static rows' CUDA graph, K2): the gate, K1 at B=512 and 32, counts
-     zeroed, reset + 10 step_batch steps with every substep held (as 26),
-     10 steady steps and a profiled step, K2 at nv 15 and 66 static rows at
+     zeroed, reset + 10 step_batch steps with the first EARLIER_HELD held
+     substep by substep (cut from all 10 for the run's time), 10 steady
+     steps and a profiled step, K2 at nv 15 and 66 static rows at
      the last step's state (the cube resting: 4 active rows), one MPPI tick
      (B=32, H=64, K=16) and one tick with an iLQR iteration linearized by
      forward differences (83,968 scenarios in the sweep), each with the
@@ -236,7 +237,7 @@ Phases (any failure exits non-zero):
      linear goal interpolation, Door OSC_POSE with absolute world-frame
      goals (fused), Lift JOINT_VELOCITY and JOINT_TORQUE, Sawyer-Lift
      IK_POSE (unfused, its rows compacted into 96 slots).
- 81-92. the robots that need no new physics (robots_slice), last: 81,
+ 81-92. the robots that need no new physics (robots_slice): 81,
      Lift-PandaDexRH (nq 26, nv 25; an Inspire hand: a 6-wide action on
      12 position actuators, K3's gripper maximum 12), fused: K3's and
      K3-aux's carve (rs_substep_smem_bytes, rs_substep_resident), reset +
@@ -267,6 +268,22 @@ Phases (any failure exits non-zero):
      one MPPI tick; TwoArmLift-Baxter reset + EARLIER_HELD steps, all
      held; TwoArmTransport-Baxter one K1 and one K2 launch at its contact
      state.
+ 93-105. the tendon and equality worlds and the wide ones (tendons_slice),
+     last, all unfused: Lift with UR5e (Robotiq 85: spring tendons; K1 at
+     512 and 32, K2 at the settled state, reset + 10 step_batch steps with
+     the first EARLIER_HELD held, 10 steady steps, a profiled step, one
+     MPPI and one FD-iLQR tick at B=32, H=64, K=16), XArm7 (a `general`
+     servo on a tendon, 7 connect and joint rows; K1 at 512, K2 with its
+     rows at the grasp state, reset + 10 steps with EARLIER_HELD held, one
+     MPPI tick), IIWA (4 tendon rows) and Jaco (3 tendon rows, 96 slots;
+     K2 with its rows at the grasp state, reset + EARLIER_HELD steps held),
+     Kinova3 (reset + EARLIER_HELD steps held), each refused by the fused
+     gate for its tendons and with its carves printed; the UR5e, Kinova3,
+     IIWA and XArm7 substeps held launch by launch (TENDON_WORLDS), Jaco's
+     whole; then PickPlaceCan and NutAssemblySingle with Baxter and with
+     PandaDexRH (nq up to 47, nv up to 43, up to 31 sites: the raised
+     maxima): K1 at 512, reset + EARLIER_HELD step_batch steps held, and
+     one MPPI tick on PickPlaceCan-Baxter.
 The count of (substep, scenario) cases that the holds set aside on a
 float64 near-tie witness is printed at the end.
 Timings use CUDA events (profiler passes show one policy step's and one
@@ -546,12 +563,13 @@ def hold_pair_dist(label, model, pd_k, pd_p, qpos_k, qpos_p, tol=2e-5, tie=1e-5)
     return float(err.max())
 
 
-def op_counts(model, nrows, nact=0.0, iters=30, power_iters=8, ctrl="osc", na=7):
+def op_counts(model, nrows, nact=0.0, iters=30, power_iters=8, ctrl="osc", na=7, ne=0):
     """Float operations per scenario of each kernel, counted from the
     kernels' arithmetic stage by stage (multiply and add count one each),
     for `nrows` contact rows of which `nact` are active (the mean over this
     run's scenarios: the solve whitens, multiplies and projects only the
-    active rows' columns), the contact solve's iteration counts and the
+    active rows' columns) and `ne` equality rows (always active, never
+    projected), the contact solve's iteration counts and the
     arm's torque law (`ctrl`, "osc" or "joint_pos", over `na` arm dofs),
     split by the type the function needs: the CRBA/RNEA sums, the Cholesky factorisations and
     solves, the whitening and the OSC law in float64, as the kernels and
@@ -564,19 +582,19 @@ def op_counts(model, nrows, nact=0.0, iters=30, power_iters=8, ctrl="osc", na=7)
     nb, nv, ng, ns = model.nbody, model.nv, model.ngeom, model.nsite
     anc = model.ancestor_mask.cpu()
     pairs_db = int(anc.sum())                                    # (body, dof) pairs in a subtree
-    ntot = 3 * nrows
+    ntot = 3 * nrows + ne
     fk = nb * (27 + 24 + 27) + nv * (27 + 24 + 30)               # tree walk: rotate, compose, joint
     poses = nb * (30 + 18 + 24 + 30) + (ng + ns) * (18 + 24 + 30)
     crba = pairs_db * (6 + 15 + 6 + 15 + 6 + 6) + nv * nv * 12
     rnea = pairs_db * 24 + nv * 30 + nb * (4 * 30 + 40) + nv * nb * 6 + 30
     k1 = (fk + poses, crba + rnea)
     chol = nv ** 3 // 3 + 2 * nv * nv
-    nac = 3 * nact                                               # the active columns
+    nac = 3 * nact + ne                                          # the active columns
     yx, ytx = 2 * nv * nac, 2 * nv * nac + 2 * nac               # Y x; R x + Y^T (Y x)
     k2_64 = (2 * chol + 2 * nv * nv + nv * ntot + nv * nv       # factorisations and solves, the inactive sum
              + nac * nv * (nv + 4))                              # whitening of the active columns
     k2_32 = ((power_iters + iters + 2) * yx + (power_iters + iters + 1) * ytx  # products with Y
-             + 2 * ntot + power_iters * 3 * nac + iters * 20 * nact)           # norms, the cone projection
+             + 2 * ntot + power_iters * 3 * nac + iters * (20 * nact + 5 * ne))  # norms, the projection
     k2 = (k2_32, k2_64)
     if ctrl == "osc":
         law = (0, 2 * na ** 3 + 3 * 6 * na * na + 6 * 6 * na + 2 * 6 ** 3 + nv * 24)
@@ -606,8 +624,10 @@ def bound(bytes_, flops, n):
 
 
 # The compiled kernel of each variant (K3 and K3-JP share one instantiation,
-# K3-aux and K3-aux-JP the other; the law is chosen by the table).
-VARIANT_KERNEL = {"K1": "rs_forward_kernel", "K2": "rs_contact_solve_kernel", "K3": "rs_substep_kernelILb0",
+# K3-aux and K3-aux-JP the other; the law is chosen by the table; K2 has
+# one without equality rows and one with them, K2-eq).
+VARIANT_KERNEL = {"K1": "rs_forward_kernel", "K2": "rs_contact_solve_kernelILb0", "K2-eq": "rs_contact_solve_kernelILb1",
+                  "K3": "rs_substep_kernelILb0",
                   "K3-JP": "rs_substep_kernelILb0", "K3-aux": "rs_substep_kernelILb1",
                   "K3-aux-JP": "rs_substep_kernelILb1", "K4": "rs_fk_kernel"}
 
@@ -1617,17 +1637,20 @@ PICK_B, PICK_TICKS = 32, 1  # one timed tick (3 before the NutAssembly and Wipe 
 def hold_rows_graph(label, model, states, dt):
     """The contact rows as the unfused path builds them on the card
     (C.contact_rows: a CUDA graph of the narrowphase and solver_inputs,
-    captured once per model, batch and dt, replayed on copies of its
-    inputs) against the eager code on the same kin and qvel, all five
-    operands bit for bit, at each (kin, qvel) of `states` in turn."""
+    with the equality rows where the world has any, captured once per
+    model, batch and dt, replayed on copies of its inputs) against the
+    eager code on the same kin, qvel and qpos, all five operands bit for
+    bit, at each (kin, qvel, qpos) of `states` in turn."""
     import torch
 
     from robosuite_tpu_torch.physics import contact as C
+    from robosuite_tpu_torch.physics.equality import equality_rows
 
     names = ("JfT", "aref", "reg3", "mu", "active")
-    for i, (kin, qd) in enumerate(states):
-        got = C.contact_rows(model, kin, qd, dt)
-        want = C.solver_inputs(model, kin, C.narrowphase(model, kin), qd, dt)
+    for i, (kin, qd, q) in enumerate(states):
+        got = C.contact_rows(model, kin, qd, dt, q)
+        eq = equality_rows(model, kin, q, qd) if model.neq else None
+        want = C.solver_inputs(model, kin, C.narrowphase(model, kin), qd, dt, eq)
         differ = [n for n, a, b in zip(names, got, want) if not torch.equal(a, b)]
         print(f"{label} contact rows, graph replay vs eager at state {i + 1} of {len(states)} (B={qd.shape[0]}, "
               f"dt={dt}): {'identical' if not differ else 'DIFFER in ' + ', '.join(differ)}")
@@ -1710,7 +1733,7 @@ def held_unfused_substep(env, model, ctrl_state, phys, err, label="unfused subst
     err["K1 M"], err["K1 bias"] = max(err["K1 M"], rel(M, M_p)), max(err["K1 bias"], rel(bias, bias_p))
     c = env.run_controllers(kin, M, bias, q, qd, ctrl_state)
     qfrc, extra = engine.total_smooth_force(model, q, qd, c, M, bias)
-    JfT, aref, reg3, mu, active = C.contact_rows(model, kin, qd, dt)
+    JfT, aref, reg3, mu, active = C.contact_rows(model, kin, qd, dt, q)
     args = (M.contiguous(), JfT, aref.contiguous(), qfrc.contiguous(), qd.contiguous(),
             (model.dof_damping + extra).contiguous(), reg3.contiguous(), mu, active.contiguous(),
             *C.solver_iterations(model), dt)
@@ -1753,6 +1776,7 @@ def pose_rounding_witness(env, model, ctrl_state, phys, bad, out_k, out_p, tol_v
     from robosuite_tpu_torch.ops import contact_solve, forward
     from robosuite_tpu_torch.physics import contact as C
     from robosuite_tpu_torch.physics import engine
+    from robosuite_tpu_torch.physics.equality import equality_rows
     from robosuite_tpu_torch.physics.state import KinData
 
     if id(model) not in _CPU64:
@@ -1770,7 +1794,8 @@ def pose_rounding_witness(env, model, ctrl_state, phys, bad, out_k, out_p, tol_v
         kin64 = KinData(**{f: v.double().cpu() for f, v in kin.__dict__.items() if v is not None})
         M64, bias64 = M.double().cpu(), bias.double().cpu()
         qfrc, damp = engine.total_smooth_force(m64, q64, qd64, c.double().cpu(), M64, bias64)
-        rows = C.solver_inputs(m64, kin64, C.narrowphase(m64, kin64), qd64, m64.timestep)
+        eq = equality_rows(m64, kin64, q64, qd64) if m64.neq else None
+        rows = C.solver_inputs(m64, kin64, C.narrowphase(m64, kin64), qd64, m64.timestep, eq)
         twins.append(contact_solve.vel_update_plain(M64, rows[0], rows[1], qfrc, qd64, m64.dof_damping + damp,
                                                     *rows[2:], *C.solver_iterations(m64), m64.timestep))
         pose_diff = kin64.geom_xpos if pose_diff is None else (pose_diff - kin64.geom_xpos).abs().amax(dim=(1, 2))
@@ -1797,15 +1822,15 @@ def pose_rounding_witness(env, model, ctrl_state, phys, bad, out_k, out_p, tol_v
     return out
 
 
-def hold_unfused_steps(label, env, trail, actions, rewards, leaves, reward_fn=None):
+def hold_unfused_steps(label, env, trail, actions, rewards, leaves, reward_fn=None, whole=True):
     """Each policy step of an unfused step_batch run (trail: its states,
     the reset's first), substep by substep: its K1 and K2 launches against
-    their plain versions on the same operands, and the kernel substep
-    against the plain one (forward_plain + vel_update_plain) from the same
-    input under hold_all's rule, then on from the kernel's output, whose
-    last substep is step_batch's next state bit for bit; the reward of the
-    plain poses of that state (env.reward, or reward_fn(step, next state,
-    its plain kin))."""
+    their plain versions on the same operands, and (with `whole`) the
+    kernel substep against the plain one (forward_plain + vel_update_plain)
+    from the same input under hold_all's rule, then on from the kernel's
+    output, whose last substep is step_batch's next state bit for bit; the
+    reward of the plain poses of that state (env.reward, or reward_fn(step,
+    next state, its plain kin))."""
     import torch
 
     from robosuite_tpu_torch.ops import forward
@@ -1820,6 +1845,9 @@ def hold_unfused_steps(label, env, trail, actions, rewards, leaves, reward_fn=No
         ph = st.physics
         for j in range(env.n_substeps):
             pk, fk_ = held_unfused_substep(env, model, ctrl_i, ph, k_err, f"{label} step {i + 1} substep {j + 1}")
+            if not whole:
+                ph = pk
+                continue
             pp, fp_ = plain_unfused_substep(env, model, ctrl_i, ph)
             out_k, out_p = (pk.qpos, pk.qvel, fk_), (pp.qpos, pp.qvel, fp_)
             worst = max(worst, hold_all(
@@ -1835,7 +1863,7 @@ def hold_unfused_steps(label, env, trail, actions, rewards, leaves, reward_fn=No
     torch.cuda.synchronize()
     steps = len(trail) - 1
     print(f"{label} {steps} policy steps x {env.n_substeps} substeps, kernel vs plain from the same input: "
-          f"largest qpos / qvel error held {worst:.3e}")
+          + (f"largest qpos / qvel error held {worst:.3e}" if whole else "every launch held, not the whole substep"))
     for name, tol in (("K1 poses", 2e-5), ("K1 M", 1e-5), ("K1 bias", 1e-4), ("K2 qvel", 1e-4), ("K2 f", 1e-4)):
         check(f"{label} {steps} policy steps: every {name[:2]} launch against its plain version on its own "
               f"operands, {name[3:]}{' (relative)' if name != 'K1 poses' else ''}", k_err[name], tol)
@@ -1868,24 +1896,28 @@ def unfused_k2(name, env, states, s, kin, M, bias, con, K, world_k):
     plain forward products and narrowphase), against its plain version:
     qvel relative to max(1, its largest) (a light body, PickPlaceCan's 14 g
     can, turns f's float32 rounding into velocity), f relative to its
-    largest; timed into world_k["K2"]. Before it, the contact rows' CUDA
-    graph against the eager code at the reset (states) and at s."""
+    largest; timed into world_k["K2"]. A world with equality constraints
+    has its ne rows after the 3 K contact rows. Before it, the contact rows'
+    CUDA graph against the eager code at the reset (states) and at s."""
     import torch
 
     from robosuite_tpu_torch.ops import contact_solve, forward
     from robosuite_tpu_torch.physics import contact as C
     from robosuite_tpu_torch.physics import engine
+    from robosuite_tpu_torch.physics.equality import equality_row_count, equality_rows
 
     model = env.model
     q, qd = s.physics.qpos, s.physics.qvel
+    ne = equality_row_count(model)
     ctrl = env.run_controllers(kin, M, bias, q, qd, s.ctrl)
     qfrc, extra = engine.total_smooth_force(model, q, qd, ctrl, M, bias)
-    JfT, aref, reg3, mu, act = C.solver_inputs(model, kin, con, qd, model.timestep)
-    if JfT.shape != (B, model.nv, 3 * K):
-        fail(f"{name} solver operands {tuple(JfT.shape)}, not ({B}, {model.nv}, {3 * K})")
+    eq = equality_rows(model, kin, q, qd) if ne else None
+    JfT, aref, reg3, mu, act = C.solver_inputs(model, kin, con, qd, model.timestep, eq)
+    if JfT.shape != (B, model.nv, 3 * K + ne):
+        fail(f"{name} solver operands {tuple(JfT.shape)}, not ({B}, {model.nv}, {3 * K + ne})")
     leaves = forward.runtime_leaves(model, B)
     kin0 = forward.forward_plain(model, states.physics.qpos, states.physics.qvel, *leaves)[0]
-    hold_rows_graph(name, model, [(kin0, states.physics.qvel), (kin, qd)], model.timestep)
+    hold_rows_graph(name, model, [(kin0, states.physics.qvel, states.physics.qpos), (kin, qd, q)], model.timestep)
     args = (M.contiguous(), JfT, aref.contiguous(), qfrc.contiguous(), qd.contiguous(),
             (model.dof_damping + extra).contiguous(), reg3.contiguous(), mu, act.contiguous())
     nact = float(act.sum(1).float().mean())
@@ -1894,7 +1926,7 @@ def unfused_k2(name, env, states, s, kin, M, bias, con, K, world_k):
     qv_p, f_p = contact_solve.vel_update_plain(*args, *solve_args)
     torch.cuda.synchronize()
     v_scale = max(1.0, float(qv_p.abs().max()))
-    print(f"{name} K2 (nv {model.nv}, {K} rows, {nact:.1f} active on average): qvel max_abs_err "
+    print(f"{name} K2 (nv {model.nv}, {K} rows, {nact:.1f} active on average, {ne} equality rows): qvel max_abs_err "
           f"{max_err(qv_k, qv_p):.3e}, largest |qvel| {v_scale:.3f}")
     check(f"{name} K2 qvel (relative to max(1, |qvel|))", max_err(qv_k, qv_p) / v_scale, 1e-4)
     check(f"{name} K2 f (relative)", max_err(f_k, f_p) / max(1.0, float(f_p.abs().max())), 1e-4)
@@ -1902,7 +1934,8 @@ def unfused_k2(name, env, states, s, kin, M, bias, con, K, world_k):
                          ms=cuda_ms(lambda: contact_solve.vel_update(*args, *solve_args), 20),
                          dev_ms=device_ms(lambda: contact_solve.vel_update(*args, *solve_args), 20),
                          plain_ms=cuda_ms(lambda: contact_solve.vel_update_plain(*args, *solve_args), 3),
-                         bound=bound(nbytes(*args, qv_k, f_k), op_counts(model, K, nact)["K2"], B))
+                         bound=bound(nbytes(*args, qv_k, f_k), op_counts(model, K, nact, ne=ne)["K2"], B), ne=ne,
+                         nact=nact)
     phase_done(f"{name} K2 vs plain")
 
 
@@ -1934,7 +1967,8 @@ def valid_resets(env, n, gen, rounds=20):
     return states, obs, calls
 
 
-def unfused_step_slice(tag, name, env, gen, results, key, actions=None, full=True, steps=STEPS):
+def unfused_step_slice(tag, name, env, gen, results, key, actions=None, full=True, steps=STEPS, held=None,
+                       whole=True):
     """The step slice of an unfused world: counts zeroed, reset_batch + `steps`
     (STEPS) step_batch policy steps at B (K1 for the goals, one a substep and one
     for the observations; K2 one a substep; no K3), finite observations and
@@ -1945,7 +1979,9 @@ def unfused_step_slice(tag, name, env, gen, results, key, actions=None, full=Tru
     the reset, and, with `full`, over STEPS more steady steps and a profiled
     step; then every substep held (hold_unfused_steps; with a step hook,
     the reward held is the hook's) over the policy steps (with `full`) or
-    the first EARLIER_HELD, with the count of cases set aside.
+    the first EARLIER_HELD (or the first `held`, where given), with the
+    count of cases set aside; without `whole`, each substep's launches
+    only (hold_unfused_steps).
     The actions: small random deltas, or `actions`.
     -> (the launch counts of the reset + steps, the last states, the step
     outputs (trail, obs, dones))."""
@@ -2005,14 +2041,15 @@ def unfused_step_slice(tag, name, env, gen, results, key, actions=None, full=Tru
                                                      lambda: env.step_batch(states, actions), 8)
         results.update({f"{key}_policy_steps_per_s": B * STEPS / dt_steady, f"{key}_profile_wall_ms": wall_ms,
                         f"{key}_profile_device_ms": dev_ms, f"{key}_profile_top": top, f"{key}_profile_port": port})
-    held = steps if full else min(steps, EARLIER_HELD)
+    held = min(steps, held if held is not None else steps if full else EARLIER_HELD)
     before = len(ASIDE)
     reward_fn = None
     if hooked:  # the step hook's reward, from the step's input state and its observations
         def reward_fn(i, nxt, kin_p):
             zero = torch.zeros_like(rewards[i])
             return env._step_hook(trail[i], nxt, dict(obs_all[i]), zero, dones[i], kin_p)[2]
-    hold_unfused_steps(name, env, trail[:held + 1], actions, rewards, forward.runtime_leaves(env.model, B), reward_fn)
+    hold_unfused_steps(name, env, trail[:held + 1], actions, rewards, forward.runtime_leaves(env.model, B), reward_fn,
+                       whole)
     print(f"{name} step slice: {len(ASIDE) - before} (substep, scenario) cases set aside on a float64 witness, "
           f"of {held * env.n_substeps * B} (the first {held} of {steps} steps held)")
     results[f"{key}_set_aside"] = len(ASIDE) - before
@@ -2077,7 +2114,7 @@ def unfused_mpc(tag, name, env, mpc_cfg, batch, ticks, gm, gs, results, key, hel
     pleaves = forward.runtime_leaves(plan, n_roll)
     hold_rows_graph(f"{name} planning", plan,
                     [(forward.forward_plain(plan, st.physics.qpos[:n_roll], st.physics.qvel[:n_roll], *pleaves)[0],
-                      st.physics.qvel[:n_roll]) for st in held_states], plan.timestep)
+                      st.physics.qvel[:n_roll], st.physics.qpos[:n_roll]) for st in held_states], plan.timestep)
     solves = batch * ticks / mpc_dt
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"{tag} {name} MPC solves/s (B={batch}, H={cfg.horizon}, K={cfg.n_samples}, MPPI only, unfused; "
@@ -2131,7 +2168,7 @@ def pickplace_slice(tag, results):
         fail("the PickPlaceCan env has a fused substep")
     lib = build.library()
     k1_smem = lib.rs_forward_smem_bytes(forward.model_tables(model)[1].data_ptr())
-    k2_smem = lib.rs_contact_solve_smem_bytes(model.nv, C.ROW_CAP)
+    k2_smem = lib.rs_contact_solve_smem_bytes(model.nv, C.ROW_CAP, 0)
     print(f"PickPlaceCan shared memory a block: K1 {k1_smem} B ({k1_smem // 4} words, 4 scenarios), K2 {k2_smem} B "
           f"(2 scenarios at nv {model.nv}, {C.ROW_CAP} slots)")
     results["smem_bytes"].update({"K1 PickPlaceCan block": k1_smem, "K2 PickPlaceCan block": k2_smem})
@@ -2274,7 +2311,7 @@ def unfused_world_slice(tag, results, name):
 
     import robosuite_tpu_torch as R
     from robosuite_tpu_torch import ab_kernels
-    from robosuite_tpu_torch.ops import build, forward, substep
+    from robosuite_tpu_torch.ops import forward
     from robosuite_tpu_torch.physics import contact as C
 
     kw, sizes, state_fn, state_check, ph, refusal, k1_widths, ticks, full = UNFUSED_WORLDS[name]
@@ -2292,25 +2329,9 @@ def unfused_world_slice(tag, results, name):
           f"action_dim {env.action_dim}")
     if got != sizes:
         fail(f"the {name} world is {got}, not {sizes} (nq, nv, nbody, ngeom, nsite, nu, npair, rows)")
-    try:
-        substep.extract_spec(env, model)
-        fail(f"the fused substep's gate takes {name}")
-    except substep.UnsupportedFused as e:
-        print(f"{name} fused gate: UnsupportedFused({e}); uses_row_compaction {compacts}")
-        if refusal not in str(e):
-            fail(f"the fused gate does not refuse {name} for '{refusal}'")
-    if env._fused_for(model) is not None:
-        fail(f"the {name} env has a fused substep")
-    lib = build.library()
-    k1_smem = lib.rs_forward_smem_bytes(forward.model_tables(model)[1].data_ptr())
-    k2_smem = lib.rs_contact_solve_smem_bytes(model.nv, K)
-    # the card's opt-in limit a block (the H100's 227 KB where this torch does not report it)
-    optin = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", 232448)
-    print(f"{name} shared memory a block: K1 {k1_smem} B (4 scenarios), K2 {k2_smem} B (2 scenarios at nv "
-          f"{model.nv}, {K} rows); the card's opt-in limit {optin} B")
-    if not 0 < max(k1_smem, k2_smem) <= optin:
-        fail(f"{name}: a K1 or K2 block's shared memory is past the card's opt-in limit {optin} B")
-    results["smem_bytes"].update({f"K1 {name} block": k1_smem, f"K2 {name} block": k2_smem})
+    print(f"{name} uses_row_compaction {compacts}")
+    refused_by_gate(name, env, model, refusal)
+    unfused_smem(name, model, K, 0, results)
     world_k = results.setdefault("unfused_kernels", {}).setdefault(name, {})
     gen = torch.Generator(device="cuda").manual_seed(SEED + ph)
     states, obs, _ = valid_resets(env, B, gen)
@@ -2983,8 +3004,9 @@ def controllers_slice(tag, results):
     IK_POSE, the headline path, unfused (K1, the 66 static contact rows as
     one CUDA graph, K2; the gate refuses the IK arm as the JAX gate does):
     71, the world, K1 at B=512 and 32 against its plain version and timed;
-    72, counts zeroed, reset + 10 step_batch policy steps, every substep
-    held (as phase 26), 10 steady steps and a profiled step; 73, K2 at nv
+    72, counts zeroed, reset + 10 step_batch policy steps, the first
+    EARLIER_HELD held substep by substep (cut from all 10 for the run's
+    time), 10 steady steps and a profiled step; 73, K2 at nv
     15 and 66 static rows on the plain path's operands at the step's last
     state (the cube resting on the table), against its plain version,
     timed; 74, one MPPI tick (B=32, H=64, K=16; profiled) and one tick
@@ -3018,7 +3040,8 @@ def controllers_slice(tag, results):
     phase_done(f"{name} world, gate, K1")
     # ---- 72. the step slice, every substep held
     actions = ctrl_actions(env, states, gen)
-    out[f"{name} step"], last, _ = unfused_step_slice(tag, name, env, gen, results, "lift_ik", actions, True)
+    out[f"{name} step"], last, _ = unfused_step_slice(tag, name, env, gen, results, "lift_ik", actions, True,
+                                                      held=EARLIER_HELD)
     # ---- 73. K2 at the 66 static rows, at the step's last state
     from robosuite_tpu_torch.ops import forward
 
@@ -3376,7 +3399,7 @@ def baxter_world(tag, results, name):
 
     import robosuite_tpu_torch as R
     from robosuite_tpu_torch import ab_kernels
-    from robosuite_tpu_torch.ops import build, forward, substep
+    from robosuite_tpu_torch.ops import forward
     from robosuite_tpu_torch.physics import contact as C
 
     (env_name, kw), sizes, state_fn, state_check, ph, depth = BAXTER_WORLDS[name]
@@ -3390,19 +3413,8 @@ def baxter_world(tag, results, name):
           f"configuration {getattr(env, 'env_configuration', 'one robot')}")
     if got != sizes or not C.uses_row_compaction(model) or env.action_dim != 14:
         fail(f"the {name} world is {got}, not {sizes}, or does not compact its rows, or its action is not 14 wide")
-    try:
-        substep.extract_spec(env, model)
-        fail(f"the fused substep's gate takes {name}")
-    except substep.UnsupportedFused as e:
-        print(f"{name} fused gate: UnsupportedFused({e})")
-        if "multi-arm" not in str(e):
-            fail(f"the fused gate does not refuse {name} as multi-arm")
-    lib = build.library()
-    k1_smem = lib.rs_forward_smem_bytes(forward.model_tables(model)[1].data_ptr())
-    k2_smem = lib.rs_contact_solve_smem_bytes(model.nv, K)
-    print(f"{name} shared memory a block: K1 {k1_smem} B (4 scenarios), K2 {k2_smem} B (2 scenarios at nv "
-          f"{model.nv}, {K} slots)")
-    results["smem_bytes"].update({f"K1 {name} block": k1_smem, f"K2 {name} block": k2_smem})
+    refused_by_gate(name, env, model, "multi-arm")
+    unfused_smem(name, model, K, 0, results)
     world_k = results.setdefault("unfused_kernels", {}).setdefault(name, {})
     gen = torch.Generator(device="cuda").manual_seed(SEED + ph)
     states = valid_resets(env, B, gen)[0]
@@ -3526,6 +3538,203 @@ def robots_slice(tag, results):
     for name in BAXTER_WORLDS:
         out.update(baxter_world(tag, results, name))
         phase_done(f"{name}")
+    return out
+
+
+def _lift_resting(env, kin, n_act):
+    rich = int((n_act >= 4).sum())
+    return f"the cube rests on the table, >= 4 active rows in {rich}/{B}", 2 * rich >= B
+
+
+# the tendon and equality worlds (phases 93-100): the robot, (nq, nv, nbody,
+# nsite, nu, ntendon, neq), the contact state of ab_kernels and its check,
+# the first phase, what runs: "full" (K1 at B and 32, K2, reset + STEPS
+# steps with EARLIER_HELD held, the steady rate, a profiled step, one MPPI
+# and one FD-iLQR tick), "step" (K1 at B, K2, reset + STEPS steps with
+# EARLIER_HELD held, one MPPI tick), "k2" (K2, reset + EARLIER_HELD steps,
+# all held) or "held" (reset + EARLIER_HELD steps, all held), and how a
+# held substep is held: whole (kernel substep against plain substep from
+# the same input, hold_all) or launch by launch (every K1 and K2 launch
+# against its plain version on its own operands, the kernel chain equal to
+# step_batch's). The Robotiq 85 and 140 worlds (UR5e, Kinova3, IIWA), as
+# in the JAX package: their finger links swing at 100-200 rad/s from the
+# reset on, and their fingertip boxes meet face to face within the first
+# policy step, in more than half the scenarios at once; there the box-box
+# SAT's axes tie and the float32 solve is ill-conditioned, so the kernel
+# substep and the plain one from the same input part by up to thousands of
+# rad/s. XArm7: its four-bar's connect rows are near-dependent (each
+# regularised by 0.05 of its diagonal), and one substep's solver forces of
+# the two paths parted by 1.8x the tolerance, each within 0.9x of its own
+# float64 solve (PERF.md §6). Every launch of theirs agrees with its
+# plain version within the launch holds' tolerances (2.8e-5 at most, relative). UR5e's contact state is the settled one: a
+# grasp whips the Robotiq 85's fingers faster still, to a state that is not
+# finite in a few scenarios of 512.
+TENDON_WORLDS = {
+    "Lift-UR5e": ("UR5e", (19, 18, 27, 9, 8, 2, 0), "settled", _lift_resting, 93, "full", False),
+    "Lift-XArm7": ("XArm7", (20, 19, 27, 13, 8, 1, 3), "lift_grasp_state", _lift_grasped, 96, "step", False),
+    "Lift-IIWA": ("IIWA", (20, 19, 28, 9, 9, 4, 4), "lift_grasp_state", _lift_grasped, 98, "k2", False),
+    "Lift-Jaco": ("Jaco", (20, 19, 29, 9, 10, 3, 3), "lift_grasp_state", _lift_grasped, 99, "k2", True),
+    "Lift-Kinova3": ("Kinova3", (20, 19, 28, 9, 9, 2, 0), None, None, 100, "held", False),
+}
+# the worlds the raised maxima take (phases 101-105): the env, the robot,
+# (nq, nv, nsite), the fused gate's refusal, and one MPPI tick or not
+WIDE_WORLDS = {
+    "PickPlaceCan-Baxter": ("PickPlaceCan", "Baxter", (46, 42, 19), "multi-arm", True),
+    "PickPlaceCan-PandaDexRH": ("PickPlaceCan", "PandaDexRH", (47, 43, 22), "compacts", False),
+    "NutAssemblySingle-Baxter": ("NutAssemblySingle", "Baxter", (32, 30, 28), "multi-arm", False),
+    "NutAssemblySingle-PandaDexRH": ("NutAssemblySingle", "PandaDexRH", (33, 31, 31), "compacts", False),
+}
+
+
+def unfused_smem(name, model, K, ne, results):
+    """K1's and K2's shared memory a block at this world (K2 at nv, K
+    contact rows and ne equality rows) against the card's opt-in limit."""
+    import torch
+
+    from robosuite_tpu_torch.ops import build, forward
+
+    lib = build.library()
+    k1_smem = lib.rs_forward_smem_bytes(forward.model_tables(model)[1].data_ptr())
+    k2_smem = lib.rs_contact_solve_smem_bytes(model.nv, K, ne)
+    optin = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", 232448)
+    print(f"{name} shared memory a block: K1 {k1_smem} B (4 scenarios), K2 {k2_smem} B (2 scenarios at nv "
+          f"{model.nv}, {K} contact rows, {ne} equality rows); the card's opt-in limit {optin} B")
+    if not 0 < max(k1_smem, k2_smem) <= optin:
+        fail(f"{name}: a K1 or K2 block's shared memory is past the card's opt-in limit {optin} B")
+    results["smem_bytes"].update({f"K1 {name} block": k1_smem, f"K2 {name} block": k2_smem})
+
+
+def refused_by_gate(name, env, model, refusal):
+    """The fused gate refuses the world for `refusal`, as the JAX gate does."""
+    from robosuite_tpu_torch.ops import substep
+
+    try:
+        substep.extract_spec(env, model)
+        fail(f"the fused substep's gate takes {name}")
+    except substep.UnsupportedFused as e:
+        print(f"{name} fused gate: UnsupportedFused({e})")
+        if refusal not in str(e):
+            fail(f"the fused gate does not refuse {name} for '{refusal}'")
+    if env._fused_for(model) is not None:
+        fail(f"the {name} env has a fused substep")
+
+
+def tendon_world(tag, results, name):
+    """One Lift world whose gripper couples its fingers with fixed tendons
+    and equality constraints, on the unfused path (K1, the contact and
+    equality rows as one CUDA graph a substep, K2 with its ne equality
+    rows; the fused gate refuses tendons as the JAX gate does): the world,
+    the gate, the carves, then what TENDON_WORLDS gives it. -> {path:
+    launch counts}."""
+    import torch
+
+    import robosuite_tpu_torch as R
+    from robosuite_tpu_torch import ab_kernels
+    from robosuite_tpu_torch.ops import forward
+    from robosuite_tpu_torch.physics import contact as C
+    from robosuite_tpu_torch.physics.equality import equality_row_count
+
+    robot, sizes, state_fn, state_check, ph, depth, whole = TENDON_WORLDS[name]
+    env = R.make("Lift", robots=robot, reward_shaping=True, seed=SEED)
+    model = env.model
+    nrows = sum(len(r) for r in C.contact_row_layout(model).values())
+    compacts = C.uses_row_compaction(model)
+    K, ne = (min(C.ROW_CAP, nrows) if compacts else nrows), equality_row_count(model)
+    got = (model.nq, model.nv, model.nbody, model.nsite, model.nu, model.ntendon, model.neq)
+    print(f"{name} world: nq={got[0]} nv={got[1]} nbody={got[2]} nsite={got[3]} nu={got[4]} ntendon={got[5]} "
+          f"neq={got[6]} ({', '.join(model.eq_kind) or 'none'}: {ne} rows); actuators {sorted(set(model.actuator_kind))}; "
+          f"{nrows} candidate rows, {f'compacted into {K} slots' if compacts else 'static'}; action_dim "
+          f"{env.action_dim}")
+    if got != sizes or env.action_dim != 7:
+        fail(f"the {name} world is {got}, not {sizes} (nq, nv, nbody, nsite, nu, ntendon, neq), or its action is "
+             f"not 7 wide")
+    refused_by_gate(name, env, model, "tendons")
+    unfused_smem(name, model, K, ne, results)
+    world_k = results.setdefault("unfused_kernels", {}).setdefault(name, {})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + ph)
+    states = valid_resets(env, B, gen)[0]
+    if depth in ("full", "step"):
+        unfused_k1(tag, name, model, states, (B, H64_B) if depth == "full" else (B,), world_k, results)
+    phase_done(f"{name} world, gate" + (", K1" if depth in ("full", "step") else ""))
+    if state_fn is not None:
+        s = (ab_kernels._settle(env, states, ab_kernels.LIFT_SETTLE_STEPS) if state_fn == "settled"
+             else getattr(ab_kernels, state_fn)(env, states))
+        q, qd = s.physics.qpos, s.physics.qvel
+        if not (torch.isfinite(q).all() and torch.isfinite(qd).all()):
+            fail(f"the {name} contact state is not finite")
+        kin, M, bias = forward.forward_plain(model, q, qd, *forward.runtime_leaves(model, B))
+        con = C.narrowphase(model, kin)
+        n_act = (con["dist"] < con["margin"]).sum(1)
+        report, rich = state_check(env, kin, n_act)
+        print(f"{name} contact state ({state_fn}): active rows per scenario min {int(n_act.min())} median "
+              f"{int(n_act.median())} max {int(n_act.max())}; {report}")
+        if not rich:
+            fail(f"the {name} contact state is too poor: {report}")
+        unfused_k2(name, env, states, s, kin, M, bias, con, K, world_k)
+    out = {}
+    key = name.lower().replace("-", "_")
+    steps = EARLIER_HELD if depth in ("k2", "held") else STEPS
+    out[f"{name} step"], last, _ = unfused_step_slice(tag, name, env, gen, results, key, None, depth == "full", steps,
+                                                      held=EARLIER_HELD, whole=whole)
+    if depth in ("full", "step"):
+        out[f"{name} MPC"] = unfused_mpc(tag, name, env, H64_MPC, H64_B, 1,
+                                         torch.Generator(device="cuda").manual_seed(SEED + ph + 1),
+                                         torch.Generator(device="cuda").manual_seed(SEED + ph + 2), results, key,
+                                         (states, last), world_k, depth == "full")
+    if depth == "full":
+        out[f"{name} iLQR"] = fd_ilqr_tick(tag, name, env, results, key, SEED + ph + 3)
+        phase_done(f"{name} MPC ticks (MPPI, FD iLQR)")
+    for k, r in world_k.items():
+        print(f"{tag} {name} {k}: {r['ms']:.4f} ms/launch at B={B} ({r['dev_ms']:.4f} ms device), plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    return out
+
+
+def wide_world(tag, results, name):
+    """One world the raised maxima take (nq 48, nv 44, 32 sites), on the
+    unfused path (its rows compact into 96 slots): the world and the gate,
+    the carves, K1 at B against its plain version and timed, reset +
+    EARLIER_HELD step_batch steps with every K1 and K2 launch held, and
+    one MPPI tick where WIDE_WORLDS asks. -> {path: launch counts}."""
+    import torch
+
+    import robosuite_tpu_torch as R
+    from robosuite_tpu_torch.physics import contact as C
+
+    env_name, robot, sizes, refusal, mppi = WIDE_WORLDS[name]
+    env = R.make(env_name, robots=robot, reward_shaping=True)
+    model = env.model
+    got = (model.nq, model.nv, model.nsite)
+    print(f"{name} world: nq={got[0]} nv={got[1]} nbody={model.nbody} ngeom={model.ngeom} nsite={got[2]} "
+          f"nu={model.nu} npair={model.npair}; action_dim {env.action_dim}")
+    if got != sizes or not C.uses_row_compaction(model):
+        fail(f"the {name} world is {got}, not {sizes} (nq, nv, nsite), or does not compact its rows")
+    refused_by_gate(name, env, model, refusal)
+    unfused_smem(name, model, C.ROW_CAP, 0, results)
+    world_k = results.setdefault("unfused_kernels", {}).setdefault(name, {})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 101)
+    states = valid_resets(env, B, gen)[0]
+    unfused_k1(tag, name, model, states, (B,), world_k, results)
+    key = name.lower().replace("-", "_")
+    out = {f"{name} step": unfused_step_slice(tag, name, env, gen, results, key, None, False, EARLIER_HELD)[0]}
+    if mppi:
+        out[f"{name} MPC"] = unfused_mpc(tag, name, env, H64_MPC, H64_B, 1,
+                                         torch.Generator(device="cuda").manual_seed(SEED + 102),
+                                         torch.Generator(device="cuda").manual_seed(SEED + 103), results, key,
+                                         (states,), world_k, False)
+    return out
+
+
+def tendons_slice(tag, results):
+    """Phases 93-105: the tendon and equality worlds (tendon_world) and the
+    worlds the raised maxima take (wide_world). -> {path: launch counts}."""
+    out = {}
+    for name in TENDON_WORLDS:
+        out.update(tendon_world(tag, results, name))
+        phase_done(name)
+    for name in WIDE_WORLDS:
+        out.update(wide_world(tag, results, name))
+        phase_done(name)
     return out
 
 
@@ -3991,6 +4200,7 @@ def main():
     variable_gains_check(results)
     ctrl = controllers_slice(tag, results)
     robots = robots_slice(tag, results)
+    tendons = tendons_slice(tag, results)
 
     # ---- report ------------------------------------------------------------------
     # launches on each path, counted from zero just before it: Lift's env step
@@ -4000,7 +4210,8 @@ def main():
         c for k, c in robots.items() if "Baxter" not in k)  # K3 / K3-aux with the OSC law
     every = osc + (counts_u, door_counts_u, stack_counts, stack_counts_u, stack_mpc_counts, pick_counts,
                    pick_mpc_counts) + sum(unfused.values(), ()) + tuple(
-        c for k, c in ctrl.items() if "OSC" not in k) + tuple(c for k, c in robots.items() if "Baxter" in k)
+        c for k, c in ctrl.items() if "OSC" not in k) + tuple(c for k, c in robots.items() if "Baxter" in k) + tuple(
+        tendons.values())
     paths = {"K1": every, "K2": every, "K3": osc, "K3-aux": osc, "K4": every}
     launches = {k: sum(c.get(k, 0) for c in cs) for k, cs in paths.items()}
     launches["K3-JP"] = stack_counts["K3"] + stack_mpc_counts["K3"]
@@ -4026,7 +4237,8 @@ def main():
               f"over {n} reset + {STEPS} step_batch steps {c}, MPC ticks 1-{UNFUSED_WORLDS[n][-2]} {m}"
               + (f", AD-linearized MPC ticks 1-2 {ad[0]}" if ad else "") for n, (c, m, *ad) in unfused.items())
           + f"; Lift AD-linearized MPC ticks 1-2 {lift_ad_counts}, make_solve {unbatched_counts}; "
-          + "; ".join(f"{k} {c}" for k, c in ctrl.items()) + "; " + "; ".join(f"{k} {c}" for k, c in robots.items()))
+          + "; ".join(f"{k} {c}" for k, c in ctrl.items()) + "; " + "; ".join(f"{k} {c}" for k, c in robots.items())
+          + "; " + "; ".join(f"{k} {c}" for k, c in tendons.items()))
     by_label = {}
     for a in ASIDE:
         by_label[a.split()[0]] = by_label.get(a.split()[0], 0) + 1

@@ -119,21 +119,22 @@ static __device__ long long rs_stage_clock[RS_NSTAGES];
 // before it packs the table (ops/tables.py mirrors these numbers).
 #define RS_MAXB 56     // bodies
 #define RS_MAXJ 24     // joints
-#define RS_MAXQ 40     // qpos
-#define RS_MAXV 36     // dofs
+#define RS_MAXQ 48     // qpos
+#define RS_MAXV 44     // dofs
 #define RS_MAXG 176    // geoms
-#define RS_MAXS 24     // sites
+#define RS_MAXS 32     // sites
 #define RS_MAXU 24     // actuators
 #define RS_MAXP 64     // candidate pairs
 #define RS_MAXK 192    // contact rows (points)
+#define RS_MAXE 8      // equality rows of K2 (XArm7's 7)
 #define RS_MAXP1 65    // RS_MAXP + 1: a prefix table over the pairs
 #define RS_MAXCT 1600  // RS_MAXP * 25: narrowphase candidates, all pairs
 #define RS_MAXA 8      // arm dofs
 #define RS_MAXGR 12    // gripper actuators (an Inspire hand's 12)
 #define RS_MAXPR 384   // (body, dof) pairs with anc != 0
-#define RS_MAXV1 37    // RS_MAXV + 1 and RS_MAXB + 1: prefix tables over the dofs and the bodies
+#define RS_MAXV1 45    // RS_MAXV + 1 and RS_MAXB + 1: prefix tables over the dofs and the bodies
 #define RS_MAXB1 57
-#define RS_MAXV2 1296  // RS_MAXV * RS_MAXV: the mass matrix's entries
+#define RS_MAXV2 1936  // RS_MAXV * RS_MAXV: the mass matrix's entries
 
 // Scenarios a block of K1, K2 and K3 (one warp each) and K4 (one thread
 // each), fixed at compile time; `python -m robosuite_tpu_torch.ab_kernels

@@ -48,11 +48,11 @@ RS_HD int carve_substep(const RsTables& T, float* base, Sub& s) {
   s.nw.pf = take3<RS_PF>(c, T.npair);
   s.nw.row_cand = reinterpret_cast<int*>(c.take(K));
   s.nw.row_dist = c.take(K);
-  carve_solve(nv, K, c, s.sv);
+  carve_solve(nv, K, 0, c, s.sv);
   const int u0 = (c.w + 1) / 2 * 2;
   Carver cr{base, u0}, cy{base, u0}, cc{base, u0}, co{base, u0};
   carve_rnea(T, cr, s.fw);
-  s.sv.Y = cy.take(y_words(nv, K));
+  s.sv.Y = cy.take(y_words(nv, K, 0));
   s.nw.cd = cc.take(T.ncand);
   s.osc = reinterpret_cast<OscScratch*>(co.take(T.ctrl_type == RS_CTRL_OSC ? RS_OSC_WORDS : 0));
   int w = cr.w > cy.w ? cr.w : cy.w;

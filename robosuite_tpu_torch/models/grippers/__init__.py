@@ -1,6 +1,9 @@
-"""Gripper models (robosuite models/grippers/*.py + gripper_factory.py),
-trimmed to the Panda, Rethink and Boston Dynamics grippers, the Inspire
-hands, the null gripper and the wiping gripper.
+"""Gripper models (robosuite models/grippers/*.py + gripper_factory.py):
+the Panda, Rethink, Boston Dynamics, Robotiq (85, 140, three-finger),
+Jaco three-finger, XArm7 and suction grippers, the Inspire hands, the null
+gripper and the wiping gripper. The Robotiq, Jaco and XArm7 grippers couple
+their fingers through fixed tendons and equality constraints, which the
+robot model merges into the world with the gripper's actuators.
 
 Each gripper wraps its model card with robosuite's metadata: dof, speed,
 init_qpos, important sites (grip_site for the OSC reference frame) and
@@ -12,6 +15,8 @@ gripper state, not here.
 from __future__ import annotations
 
 from typing import Dict, List
+
+import dataclasses
 
 import numpy as np
 
@@ -46,13 +51,22 @@ class GripperModel:
         self._root = ms.worldbody.children[0]
         self._root.apply_prefix(self.naming_prefix)
         p = self.naming_prefix
+        pre = lambda name: p + name if name else None  # noqa: E731
         self._actuators = [
             S.ActuatorSpec(
-                name=p + a.name, joint=p + a.joint, kind=a.kind,
-                gear=a.gear, ctrlrange=a.ctrlrange, forcerange=a.forcerange, kp=a.kp, kv=a.kv,
+                name=p + a.name, joint=pre(a.joint), kind=a.kind, gear=a.gear, ctrlrange=a.ctrlrange,
+                forcerange=a.forcerange, kp=a.kp, kv=a.kv, tendon=pre(a.tendon), gainprm=a.gainprm,
+                biasprm=a.biasprm,
             )
             for a in ms.actuators
         ]
+        self._equalities = [
+            dataclasses.replace(e, body1=pre(e.body1), body2=pre(e.body2), joint1=pre(e.joint1),
+                                joint2=pre(e.joint2), tendon1=pre(e.tendon1), tendon2=pre(e.tendon2))
+            for e in ms.equalities
+        ]
+        self._tendons = [dataclasses.replace(t, name=p + t.name, joints=[p + j for j in t.joints])
+                         for t in ms.tendons]
 
     @property
     def naming_prefix(self):
@@ -93,6 +107,12 @@ class GripperModel:
     def actuators(self):
         return list(self._actuators)
 
+    def equalities(self):
+        return list(self._equalities)
+
+    def tendons(self):
+        return list(self._tendons)
+
     def format_action_direction(self):
         """Per-actuator sign applied to the ramped open/close command."""
         return np.ones(len(self._actuators))
@@ -102,6 +122,17 @@ class GripperModel:
         action, which drives the actuators directly (robosuite
         inspire_hands.py:22-28 `action[indices]`); None for a binary gripper,
         whose one action ramps every actuator."""
+        return None
+
+    # A dexterous ramped gripper (robosuite jaco_three_finger_gripper.py:82-108,
+    # robotiq_three_finger_gripper.py:88-114) ramps each actuator from its
+    # own action element, not all of them from the first.
+    ramp_elementwise = False
+
+    def format_action_fixed(self):
+        """Each actuator's pinned command, NaN where free (the one-dof
+        Robotiq three-finger gripper pins its scissor to -1,
+        robotiq_three_finger_gripper.py:78); None: nothing pinned."""
         return None
 
 
@@ -254,3 +285,153 @@ class InspireRightHand(InspireLeftHand):
     @property
     def _important_geoms(self):
         return _hand_geoms("r")
+
+
+def _robotiq_geoms():
+    return {
+        "left_finger": ["left_outer_finger_collision", "left_inner_finger_collision", "left_fingertip_collision",
+                        "left_fingerpad_collision"],
+        "right_finger": ["right_outer_finger_collision", "right_inner_finger_collision", "right_fingertip_collision",
+                         "right_fingerpad_collision"],
+        "left_fingerpad": ["left_fingerpad_collision"],
+        "right_fingerpad": ["right_fingerpad_collision"],
+    }
+
+
+@register_gripper
+class Robotiq85Gripper(GripperModel):
+    """robosuite robotiq_85_gripper.py: two position servos, each finger's
+    three links coupled by a limited spring tendon (UR5e's, Kinova3's)."""
+
+    card_name = "robotiq_gripper_85"
+    dof = 1
+    speed = 0.01
+
+    @property
+    def init_qpos(self):
+        return np.array([-0.026, -0.267, -0.200, -0.026, -0.267, -0.200])
+
+    @property
+    def _important_geoms(self):
+        return _robotiq_geoms()
+
+
+@register_gripper
+class Robotiq140Gripper(GripperModel):
+    """robosuite robotiq_140_gripper.py: two position servos, the finger
+    links pinned together by four tendon equalities (IIWA's)."""
+
+    card_name = "robotiq_gripper_140"
+    dof = 1
+    speed = 0.2
+
+    @property
+    def init_qpos(self):
+        return np.array([0.012, 0.065, 0.065, -0.012, 0.065, 0.065])
+
+    @property
+    def _important_geoms(self):
+        return _robotiq_geoms()
+
+
+@register_gripper
+class JacoThreeFingerGripper(GripperModel):
+    """robosuite jaco_three_finger_gripper.py: three position servos, each
+    finger's distal joint pinned to its proximal one by a tendon equality
+    (Jaco's)."""
+
+    card_name = "jaco_three_finger_gripper"
+    dof = 1
+    speed = 0.01
+
+    @property
+    def init_qpos(self):
+        return np.array([0.5, 0, 0.5, 0, 0.5, 0])
+
+    @property
+    def _important_geoms(self):
+        return {
+            "left_finger": ["index_proximal_collision", "index_distal_collision", "index_tip_collision",
+                            "pinky_proximal_collision", "pinky_distal_collision", "pinky_tip_collision",
+                            "index_pad_collision", "pinky_pad_collision"],
+            "right_finger": ["thumb_proximal_collision", "thumb_distal_collision", "thumb_tip_collision",
+                             "thumb_pad_collision"],
+            "left_fingerpad": ["index_pad_collision", "pinky_pad_collision"],
+            "right_fingerpad": ["thumb_pad_collision"],
+        }
+
+
+@register_gripper
+class JacoThreeFingerDexterousGripper(JacoThreeFingerGripper):
+    """robosuite jaco_three_finger_gripper.py:82-108: each finger ramped
+    from its own action element (dof 3)."""
+
+    dof = 3
+    ramp_elementwise = True
+
+
+@register_gripper
+class XArm7Gripper(GripperModel):
+    """robosuite xarm7_gripper.py: ONE `general` servo (affine bias) on the
+    "split" fixed tendon (half each of the two finger-driving joints) moves
+    both fingers, connect equalities close the four-bar fingers and a
+    joint equality couples the two driving joints (xarm7_gripper.xml). +1 closes (ctrl
+    ramps over 0..255)."""
+
+    card_name = "xarm7_gripper"
+    dof = 1
+    speed = 0.2
+
+    @property
+    def init_qpos(self):
+        return np.array([0.02, 0.0, 0.0, -0.02, 0.0, 0.0])
+
+    @property
+    def _important_geoms(self):
+        return {
+            "left_finger": ["finger1_collision", "finger1_pad_collision"],
+            "right_finger": ["finger2_collision", "finger2_pad_collision"],
+            "left_fingerpad": ["finger1_pad_collision"],
+            "right_fingerpad": ["finger2_pad_collision"],
+        }
+
+
+@register_gripper
+class RobotiqThreeFingerGripper(GripperModel):
+    """robosuite robotiq_three_finger_gripper.py (S-model): one ramped
+    action over the three finger actuators, the scissor pinned closed
+    (robotiq_three_finger_gripper.py:64-84)."""
+
+    card_name = "robotiq_three_finger_gripper"
+    dof = 1
+    speed = 0.01
+
+    def format_action_fixed(self):
+        # actuators finger_1, finger_2, middle_finger, finger_scissor
+        return np.array([np.nan, np.nan, np.nan, -1.0])
+
+
+@register_gripper
+class RobotiqThreeFingerDexterousGripper(RobotiqThreeFingerGripper):
+    """robosuite robotiq_three_finger_gripper.py:88-114: the three fingers
+    and the scissor each ramped from its own action element (dof 4)."""
+
+    dof = 4
+    ramp_elementwise = True
+
+    def format_action_fixed(self):
+        return None
+
+
+@register_gripper
+class SuctionGripper(GripperModel):
+    """A suction cup: its geometry and mounting, no actuator (dof 0;
+    adhesion is not modelled, as in the JAX package)."""
+
+    card_name = "suction_gripper"
+    dof = 0
+    speed = 0.0
+
+    @property
+    def _important_sites(self):
+        return {"grip_site": "grip_site", "grip_cylinder": "grip_site_cylinder", "ee": "ft_frame"}

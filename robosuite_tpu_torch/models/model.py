@@ -2,8 +2,9 @@
 
 The counterpart of the JAX package's models/model.py compile_spec, trimmed
 to what a fixed-base manipulation world of primitive geoms and convex
-hulls needs (no tendons, equality constraints, cameras or lights). All name
-resolution happens here, once: the physics sees integer-indexed tensors.
+hulls needs, with its fixed tendons, tendon and `general` actuators and
+equality constraints (no cameras or lights). All name resolution happens
+here, once: the physics sees integer-indexed tensors.
 
 Array leaves are registered buffers, so `model.to(device)` moves them;
 static structure (tree topology, joint types, pair lists, names) are plain
@@ -36,6 +37,12 @@ LEAVES = (
     # outward face normals (nmesh, F, 3), plane offsets (nmesh, F), n.x <= d
     "mesh_verts", "mesh_fnorm", "mesh_fdist",
     "qpos0", "qpos_spring", "gravity", "ancestor_mask",
+    # fixed tendons: length = ten_Jq @ qpos, moment rows ten_J on the dofs
+    "ten_J", "ten_Jq", "ten_range", "ten_stiffness", "ten_springlength", "ten_frictionloss", "ten_damping",
+    "ten_length0",
+    # equality constraints: connect anchors (body1 frame, and body2 frame at
+    # qpos0), joint / tendon polynomials, solref
+    "eq_anchor", "eq_anchor2", "eq_polycoef", "eq_solref",
 )
 
 # Static (non-array) fields, in the JAX Model's field names.
@@ -45,6 +52,10 @@ STATIC = (
     "jnt_type", "jnt_bodyid", "jnt_qposadr", "jnt_dofadr", "dof_bodyid", "dof_jntid",
     "geom_bodyid", "geom_type", "site_bodyid",
     "actuator_kind", "actuator_jntid", "pair_geom1", "pair_geom2",
+    "actuator_tenid",  # -1: joint transmission (actuator_jntid -1: tendon)
+    "ntendon", "tendon_names", "tendon_limited",
+    # eq_obj1/2: bodies (connect, weld), joints (joint) or tendons (tendon); -1 none
+    "neq", "eq_kind", "eq_obj1", "eq_obj2",
     "nmesh", "mesh_names", "geom_meshid",  # geom_meshid -1: no hull
     "body_names", "jnt_names", "geom_names", "site_names", "actuator_names",
     "timestep", "impratio",
@@ -114,6 +125,9 @@ class Model(nn.Module):
 
     def actuator_name2id(self, name: str) -> int:
         return self.actuator_names.index(name)
+
+    def tendon_name2id(self, name: str) -> int:
+        return self.tendon_names.index(name)
 
     def jnt_qpos_slice(self, name: str):
         j = self.jnt_name2id(name)
@@ -344,9 +358,73 @@ def _mix_pair_params(g1: S.GeomSpec, g2: S.GeomSpec):
 # ---------------------------------------------------------------------------
 
 
+def _fixed_tendons(ms, joints, jnt_qposadr, jnt_dofadr, nq, nv, qpos0):
+    """The fixed tendons' constant rows and parameters (MJCF <tendon><fixed>):
+    -> (names, limited flags, leaves)."""
+    jnt_id = {j.name: i for i, j in enumerate(joints)}
+    nt = len(ms.tendons)
+    out = dict(ten_J=np.zeros((nt, nv)), ten_Jq=np.zeros((nt, nq)), ten_range=np.zeros((nt, 2)),
+               ten_stiffness=np.zeros(nt), ten_springlength=np.zeros(nt), ten_frictionloss=np.zeros(nt),
+               ten_damping=np.zeros(nt), ten_length0=np.zeros(nt))
+    for t_i, t in enumerate(ms.tendons):
+        for jname, coef in zip(t.joints, t.coefs):
+            if jname not in jnt_id:
+                raise ValueError(f"tendon {t.name}: unknown joint {jname}")
+            j = jnt_id[jname]
+            if joints[j].type not in ("hinge", "slide"):
+                raise ValueError(f"tendon {t.name}: fixed tendons couple scalar joints only")
+            out["ten_J"][t_i, jnt_dofadr[j]] += coef
+            out["ten_Jq"][t_i, jnt_qposadr[j]] += coef
+        if t.range is not None:
+            out["ten_range"][t_i] = t.range
+        out["ten_stiffness"][t_i] = t.stiffness
+        out["ten_frictionloss"][t_i] = t.frictionloss
+        out["ten_damping"][t_i] = t.damping
+        out["ten_length0"][t_i] = float(out["ten_Jq"][t_i] @ qpos0) if nq else 0.0
+        # MJCF springlength -1 (None here): the spring rests at the qpos0 length
+        out["ten_springlength"][t_i] = t.springlength if t.springlength is not None else out["ten_length0"][t_i]
+    names = tuple(t.name for t in ms.tendons)
+    if len(set(names)) != nt:
+        raise ValueError("duplicate tendon names")
+    return names, tuple(1 if t.limited else 0 for t in ms.tendons), out
+
+
+def _equalities(ms, bodies, body_id, body_parentid, jnt_id, ten_id):
+    """The equality constraints, names resolved; a connect's body2-frame
+    anchor compiled from the qpos0 pose (MuJoCo's compiler): -> (kinds,
+    obj1, obj2, leaves)."""
+    neq = len(ms.equalities)
+    kinds, obj1, obj2 = [], [], []
+    out = dict(eq_anchor=np.zeros((neq, 3)), eq_anchor2=np.zeros((neq, 3)), eq_polycoef=np.zeros((neq, 5)),
+               eq_solref=np.tile(np.array([0.02, 1.0]), (neq, 1)))
+    nbody = len(bodies)
+    xpos0, xquat0 = np.zeros((nbody, 3)), np.tile(np.array([1.0, 0, 0, 0]), (nbody, 1))
+    for b in range(1, nbody):
+        p = body_parentid[b]
+        xpos0[b] = xpos0[p] + _quat2mat_np(xquat0[p]) @ bodies[b].pos
+        xquat0[b] = _quat_mul_np(xquat0[p], bodies[b].quat)
+    for i, eq in enumerate(ms.equalities):
+        kinds.append(eq.kind)
+        out["eq_solref"][i] = eq.solref
+        if eq.kind in ("connect", "weld"):
+            b1, b2 = body_id[eq.body1], (body_id[eq.body2] if eq.body2 else 0)
+            obj1.append(b1)
+            obj2.append(b2)
+            out["eq_anchor"][i] = eq.anchor
+            wa = xpos0[b1] + _quat2mat_np(xquat0[b1]) @ eq.anchor
+            out["eq_anchor2"][i] = _quat2mat_np(xquat0[b2]).T @ (wa - xpos0[b2])
+        elif eq.kind == "tendon":
+            obj1.append(ten_id[eq.tendon1])
+            obj2.append(ten_id[eq.tendon2] if eq.tendon2 else -1)
+            out["eq_polycoef"][i] = eq.polycoef
+        else:  # joint
+            obj1.append(jnt_id[eq.joint1])
+            obj2.append(jnt_id[eq.joint2] if eq.joint2 else -1)
+            out["eq_polycoef"][i] = eq.polycoef
+    return kinds, obj1, obj2, out
+
+
 def compile_spec(ms: S.ModelSpec, dtype=np.float32) -> Model:
-    if ms.tendons or ms.equalities:
-        raise NotImplementedError("tendons and equality constraints are not ported")
     bodies = ms.bodies()  # DFS order, world first — MuJoCo body ordering
     nbody = len(bodies)
     body_id = {b.name: i for i, b in enumerate(bodies)}
@@ -436,8 +514,10 @@ def compile_spec(ms: S.ModelSpec, dtype=np.float32) -> Model:
             dof_frictionloss[adr + k] = j.frictionloss
 
     jnt_id = {j.name: i for i, j in enumerate(joints)}
+    tendon_names, tendon_limited, tendon_leaves = _fixed_tendons(ms, joints, jnt_qposadr, jnt_dofadr, nq, nv, qpos0)
+    ten_id = {n: i for i, n in enumerate(tendon_names)}
     nu = len(ms.actuators)
-    actuator_jntid = []
+    actuator_jntid, actuator_tenid = [], []
     actuator_gear = np.ones(nu)
     actuator_ctrlrange = np.zeros((nu, 2))
     actuator_forcerange = np.zeros((nu, 2))
@@ -446,9 +526,14 @@ def compile_spec(ms: S.ModelSpec, dtype=np.float32) -> Model:
     actuator_ctrllimited = np.zeros(nu)
     actuator_forcelimited = np.zeros(nu)
     for a_i, a in enumerate(ms.actuators):
-        if a.tendon is not None or a.kind == "general":
-            raise NotImplementedError(f"actuator {a.name}: tendon / general actuators are not ported")
-        actuator_jntid.append(jnt_id[a.joint])
+        if a.tendon is not None:
+            if a.tendon not in ten_id:
+                raise ValueError(f"actuator {a.name}: unknown tendon {a.tendon}")
+            actuator_jntid.append(-1)
+            actuator_tenid.append(ten_id[a.tendon])
+        else:
+            actuator_jntid.append(jnt_id[a.joint])
+            actuator_tenid.append(-1)
         actuator_gear[a_i] = a.gear
         if a.ctrlrange is not None:
             actuator_ctrlrange[a_i] = a.ctrlrange
@@ -456,7 +541,11 @@ def compile_spec(ms: S.ModelSpec, dtype=np.float32) -> Model:
         if a.forcerange is not None:
             actuator_forcerange[a_i] = a.forcerange
             actuator_forcelimited[a_i] = 1.0
-        actuator_gainprm[a_i] = a.kp if a.kind == "position" else (a.kv if a.kind == "velocity" else 0.0)
+        if a.kind == "general":  # fixed gain, affine bias
+            actuator_gainprm[a_i] = a.gainprm
+            actuator_biasprm[a_i] = a.biasprm
+        else:
+            actuator_gainprm[a_i] = a.kp if a.kind == "position" else (a.kv if a.kind == "velocity" else 0.0)
 
     # convex hulls (the meshes with hull data)
     hull_names = sorted(ms.meshes)
@@ -487,6 +576,8 @@ def compile_spec(ms: S.ModelSpec, dtype=np.float32) -> Model:
     for p, (i, j) in enumerate(pairs):
         pair_friction[p], pair_solref[p], pair_solimp[p], pair_margin[p] = _mix_pair_params(geoms[i], geoms[j])
 
+    eq_kind, eq_obj1, eq_obj2, eq_leaves = _equalities(ms, bodies, body_id, body_parentid, jnt_id, ten_id)
+
     # ancestor mask: dof d moves body b iff d's joint body is an ancestor of b
     ancestor_mask = np.zeros((nbody, nv))
     for b in range(1, nbody):
@@ -514,7 +605,9 @@ def compile_spec(ms: S.ModelSpec, dtype=np.float32) -> Model:
         jnt_bodyid=jnt_bodyid, jnt_qposadr=jnt_qposadr, jnt_dofadr=jnt_dofadr,
         dof_bodyid=dof_bodyid, dof_jntid=dof_jntid, geom_bodyid=geom_bodyid,
         geom_type=[S.GEOM_TYPES[g.type] for g in geoms], site_bodyid=site_bodyid,
-        actuator_kind=[a.kind for a in ms.actuators], actuator_jntid=actuator_jntid,
+        actuator_kind=[a.kind for a in ms.actuators], actuator_jntid=actuator_jntid, actuator_tenid=actuator_tenid,
+        ntendon=len(tendon_names), tendon_names=tendon_names, tendon_limited=tendon_limited,
+        neq=len(eq_kind), eq_kind=eq_kind, eq_obj1=eq_obj1, eq_obj2=eq_obj2,
         pair_geom1=[p[0] for p in pairs], pair_geom2=[p[1] for p in pairs],
         nmesh=nmesh, mesh_names=tuple(hull_names), geom_meshid=geom_meshid,
         body_names=names_of(bodies), jnt_names=names_of(joints), geom_names=names_of(geoms),
@@ -540,7 +633,7 @@ def compile_spec(ms: S.ModelSpec, dtype=np.float32) -> Model:
         actuator_forcelimited=actuator_forcelimited,
         pair_friction=pair_friction, pair_solref=pair_solref, pair_solimp=pair_solimp,
         pair_margin=pair_margin, mesh_verts=mesh_verts, mesh_fnorm=mesh_fnorm, mesh_fdist=mesh_fdist, qpos0=qpos0, qpos_spring=qpos_spring,
-        gravity=np.asarray(ms.option.gravity), ancestor_mask=ancestor_mask,
+        gravity=np.asarray(ms.option.gravity), ancestor_mask=ancestor_mask, **tendon_leaves, **eq_leaves,
     )
     leaves = {k: np.asarray(v, dtype=dtype) for k, v in leaves.items()}
     return Model(leaves, meta)

@@ -1,9 +1,10 @@
 """Robot models: spec factories + metadata for the built-in manipulators.
 
 Copy of the JAX package's robot model layer, trimmed to the fixed-mount
-robots that need no tendon or equality: the Panda, the Sawyer, the
-SpotArm, the PandaDexRH / PandaDexLH (a Panda with an Inspire hand) and
-the bimanual Baxter (robosuite models/robots/robot_model.py,
+robots: the Panda, the Sawyer, the SpotArm, the PandaDexRH / PandaDexLH (a
+Panda with an Inspire hand), the bimanual Baxter, and the UR5e, Kinova3,
+IIWA, Jaco and XArm7, whose grippers couple their fingers with tendons and
+equality constraints (robosuite models/robots/robot_model.py,
 manipulators/*.py, compositional.py). Each robot is a thin class over its
 committed model card plus robosuite's published metadata (init_qpos,
 default gripper/base, placement offsets).
@@ -48,6 +49,8 @@ class ManipulatorModel:
         self.base = None
         self._root: Optional[S.BodySpec] = None
         self._actuators: List[S.ActuatorSpec] = []
+        self._equalities: List[S.EqualitySpec] = []
+        self._tendons: List[S.TendonSpec] = []
         self._build()
 
     # -- metadata (overridden per robot) -------------------------------------
@@ -176,6 +179,8 @@ class ManipulatorModel:
             sub.quat = np.asarray(self.gripper_mount_quat_offset[arm], dtype=float)
         eef_body.children.append(sub)
         self._actuators.extend(gripper.actuators())
+        self._equalities.extend(gripper.equalities())
+        self._tendons.extend(gripper.tendons())
         self.grippers[arm] = gripper
 
     def set_base_xpos(self, xpos):
@@ -206,6 +211,12 @@ class ManipulatorModel:
 
     def actuators(self) -> List[S.ActuatorSpec]:
         return list(self._actuators)
+
+    def equalities(self) -> List[S.EqualitySpec]:
+        return list(self._equalities)
+
+    def tendons(self) -> List[S.TendonSpec]:
+        return list(self._tendons)
 
     @property
     def arm_joint_names(self) -> Dict[str, List[str]]:
@@ -378,3 +389,79 @@ class Baxter(ManipulatorModel):
             "empty": (-0.29, 0, 0),
             "table": lambda table_length: (-0.26 - table_length / 2, 0, 0),
         }
+
+
+@register_robot
+class UR5e(ManipulatorModel):
+    """robosuite manipulators/ur5e_robot.py: 6 joints, a Robotiq 85."""
+
+    card_name = "ur5e"
+
+    @property
+    def default_gripper(self):
+        return {"right": "Robotiq85Gripper"}
+
+    @property
+    def init_qpos(self):
+        return np.array([-0.470, -1.735, 2.480, -2.275, -1.590, -1.991])
+
+
+@register_robot
+class Kinova3(ManipulatorModel):
+    """robosuite manipulators/kinova3_robot.py: 7 joints, a Robotiq 85."""
+
+    card_name = "kinova3"
+
+    @property
+    def default_gripper(self):
+        return {"right": "Robotiq85Gripper"}
+
+    @property
+    def init_qpos(self):
+        return np.array([0.000, 0.650, 0.000, 1.890, 0.000, 0.600, -np.pi / 2])
+
+
+@register_robot
+class IIWA(ManipulatorModel):
+    """robosuite manipulators/iiwa_robot.py: 7 joints, a Robotiq 140."""
+
+    card_name = "iiwa"
+
+    @property
+    def default_gripper(self):
+        return {"right": "Robotiq140Gripper"}
+
+    @property
+    def init_qpos(self):
+        return np.array([0.000, 0.650, 0.000, -1.890, 0.000, 0.600, 0.000])
+
+
+@register_robot
+class Jaco(ManipulatorModel):
+    """robosuite manipulators/jaco_robot.py: 7 joints, the Jaco
+    three-finger gripper."""
+
+    card_name = "jaco"
+
+    @property
+    def default_gripper(self):
+        return {"right": "JacoThreeFingerGripper"}
+
+    @property
+    def init_qpos(self):
+        return np.array([3.192, 3.680, -0.000, 1.170, 0.050, 3.760, 3.142])
+
+
+@register_robot
+class XArm7(ManipulatorModel):
+    """robosuite manipulators/xarm7_robot.py: 7 joints, the XArm7 gripper."""
+
+    card_name = "xarm7"
+
+    @property
+    def default_gripper(self):
+        return {"right": "XArm7Gripper"}
+
+    @property
+    def init_qpos(self):
+        return np.array([0.0, 0.0, 0.0, 0.39 * np.pi, 0.0, 0.39 * np.pi, 0.0])

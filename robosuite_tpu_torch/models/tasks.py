@@ -68,6 +68,8 @@ class ManipulationTask:
         for robot in robots:
             ms.worldbody.children.append(robot.root_subtree())
             ms.actuators.extend(robot.actuators())
+            ms.equalities.extend(robot.equalities())
+            ms.tendons.extend(robot.tendons())
 
         for obj in objects:
             ms.worldbody.children.append(obj.get_obj())

@@ -33,8 +33,8 @@ _SIGNATURES = {
     "rs_forward": [P] * 6 + [I, P] * 3 + [I, P, I, P],
     "rs_forward_smem_bytes": [P],
     "rs_forward_tab": [P, P],
-    "rs_contact_solve": [P] * 11 + [I] * 5 + [ctypes.c_float, P],
-    "rs_contact_solve_smem_bytes": [I, I],
+    "rs_contact_solve": [P] * 11 + [I] * 6 + [ctypes.c_float, P],
+    "rs_contact_solve_smem_bytes": [I, I, I],
     "rs_substep": [P] * 14 + [I, P],
     "rs_substep_aux": [P] * 18 + [I, P],
     "rs_substep_smem_bytes": [P],

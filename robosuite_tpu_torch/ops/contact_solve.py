@@ -8,10 +8,12 @@ _apgd_xla on batched tensors; `vel_update` is the wrapper: plain for CPU
 tensors, csrc/contact_solve.cu for CUDA tensors (counted), through
 `K2Function` (ops/tangent.py) where an operand carries a derivative.
 
-Operands, rows grouped [normals (K) | t1 (K) | t2 (K)]:
-M (B, nv, nv), JfT (B, nv, 3K), aref (B, 3K), qfrc_smooth, qvel,
-damping (B, nv), reg3 (B, 3K), mu, active (B, K). Returns
-(qvel' (B, nv), f (B, 3K)).
+Operands, rows grouped [normals (K) | t1 (K) | t2 (K) | equality (ne)]:
+M (B, nv, nv), JfT (B, nv, ntot), aref (B, ntot), qfrc_smooth, qvel,
+damping (B, nv), reg3 (B, ntot), mu, active (B, K), ntot = 3K + ne.
+Returns (qvel' (B, nv), f (B, ntot)). K is active's width; the ne rows
+past the cone groups are bilateral equality rows (physics/equality.py):
+never projected, always active.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from robosuite_tpu_torch.ops import tangent
 
 def _apgd_plain(JfT, Lm, aref, qacc_smooth, reg3, mu, active, iters, power_iters):
     K = active.shape[-1]
+    ones = torch.ones_like(aref[:, 3 * K:])  # the equality rows: active, not projected
     Y = torch.linalg.solve_triangular(Lm, JfT, upper=False)               # (B, nv, 3K)
     diagA = torch.clamp_min(torch.sum(Y * Y, dim=1), 1e-8)
     R = reg3 * diagA
@@ -42,11 +45,11 @@ def _apgd_plain(JfT, Lm, aref, qacc_smooth, reg3, mu, active, iters, power_iters
         t1, t2 = x[:, K:2 * K], x[:, 2 * K:3 * K]
         tn = torch.sqrt(torch.clamp_min(t1 * t1 + t2 * t2, 1e-18))
         scale = torch.clamp_max(mu * fn / torch.clamp_min(tn, 1e-9), 1.0) * active
-        return torch.cat([fn, t1 * scale, t2 * scale], dim=1)
+        return torch.cat([fn, t1 * scale, t2 * scale, x[:, 3 * K:]], dim=1)
 
     # power-iterate the ACTIVE rows only: inactive light-link rows would
     # inflate the Lipschitz estimate and collapse the step
-    rowmask = torch.cat([active, active, active], dim=1)
+    rowmask = torch.cat([active, active, active, ones], dim=1)
     v = rowmask + 1e-6
     v = v / torch.clamp_min(torch.linalg.vector_norm(v, dim=1, keepdim=True), 1e-9)
     for _ in range(power_iters):
@@ -76,13 +79,16 @@ def vel_update_plain(M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active,
     return qvel_new, f
 
 
-def check_sizes(nv, K):
-    """Raise ValueError where nv dofs or K contact slots exceed the kernel's
-    compile-time maxima (csrc/common.cuh RS_MAXV, RS_MAXK)."""
+def check_sizes(nv, K, ne=0):
+    """Raise ValueError where nv dofs, K contact slots or ne equality rows
+    exceed the kernel's compile-time maxima (csrc/common.cuh RS_MAXV,
+    RS_MAXK, RS_MAXE)."""
     if nv > _tables.MAXV:
         raise ValueError(f"nv={nv} exceeds the kernel's maximum {_tables.MAXV}")
     if K > _tables.MAXK:
         raise ValueError(f"K={K} contact slots exceed the kernel's maximum {_tables.MAXK}")
+    if not 0 <= ne <= _tables.MAXE:
+        raise ValueError(f"ne={ne} equality rows: the kernel takes 0 to {_tables.MAXE}")
 
 
 def vel_update(M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active, iters, power_iters, dt):
@@ -109,8 +115,9 @@ def _launch(M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active, iters, p
     """One K2 launch (counted) -> (qvel', f)."""
     lib = _b.library()
     B, nv, ntot = JfT.shape
-    K = ntot // 3
-    check_sizes(nv, K)
+    K = active.shape[-1]
+    ne = ntot - 3 * K
+    check_sizes(nv, K, ne)
     for t, shape, name in ((M, (B, nv, nv), "M"), (JfT, (B, nv, ntot), "JfT"), (aref, (B, ntot), "aref"),
                            (qfrc_smooth, (B, nv), "qfrc_smooth"), (qvel, (B, nv), "qvel"),
                            (damping, (B, nv), "damping"), (reg3, (B, ntot), "reg3"), (mu, (B, K), "mu"),
@@ -120,7 +127,7 @@ def _launch(M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active, iters, p
     f = torch.empty_like(aref)
     err = lib.rs_contact_solve(
         *(_b.ptr(t) for t in (M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active, qvel_out, f)),
-        B, nv, K, iters, power_iters, float(dt), _b.stream(),
+        B, nv, K, ne, iters, power_iters, float(dt), _b.stream(),
     )
     _b.check(err, "rs_contact_solve")
     vel_update.launches += 1

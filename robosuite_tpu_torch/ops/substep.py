@@ -67,7 +67,13 @@ def extract_spec(env, model) -> dict:
     fails loudly and never steps the plain path on the card. As the
     reference's, it takes OSC (any setting) and JOINT_POSITION arms and
     refuses JOINT_VELOCITY, JOINT_TORQUE and IK_POSE; the OSC law's
-    uncouple_pos_ori and the torque compensation come from the config."""
+    uncouple_pos_ori and the torque compensation come from the config.
+    Tendons and equality constraints are refused first, with the
+    reference's reasons (pallas_substep.py:117-120)."""
+    if model.ntendon:
+        raise UnsupportedFused("tendons")
+    if model.neq:
+        raise UnsupportedFused("equality constraints")
     if len(env.robots) != 1 or not isinstance(env.robots[0], FixedBaseRobot):
         raise UnsupportedFused("one fixed-base robot only")
     robot = env.robots[0]

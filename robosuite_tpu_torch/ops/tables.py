@@ -26,7 +26,8 @@ import torch
 
 from robosuite_tpu_torch.models import spec as S
 
-MAXB, MAXJ, MAXQ, MAXV, MAXG, MAXS, MAXU, MAXP, MAXK, MAXA, MAXGR = 56, 24, 40, 36, 176, 24, 24, 64, 192, 8, 12
+MAXB, MAXJ, MAXQ, MAXV, MAXG, MAXS, MAXU, MAXP, MAXK, MAXA, MAXGR = 56, 24, 48, 44, 176, 32, 24, 64, 192, 8, 12
+MAXE = 8  # equality rows of K2
 MAXPR = 384  # (body, dof) pairs with anc != 0
 MAXCT = 25 * MAXP  # narrowphase candidates, all pairs
 
@@ -98,9 +99,13 @@ def _set(field, values):
 
 
 def check_model(model, contacts=True):
-    """Raise when the model exceeds the kernels' compile-time maxima or has
-    an actuator kind they do not take, its contacts (pairs, rows, pair
-    kinds) included where `contacts`; -> its contact rows (0 without)."""
+    """Raise when the model exceeds the kernels' compile-time maxima; where
+    `contacts` (the fused substep, K3), also when its contacts (pairs,
+    rows, pair kinds) do or it has an actuator kind or a tendon
+    transmission K3 does not take (its gate, ops/substep.extract_spec,
+    refuses tendons and equalities first); -> its contact rows (0
+    without). K1 and K4 read no actuator, so without `contacts` any kind
+    passes."""
     from robosuite_tpu_torch.physics import contact as C
 
     limits = dict(nbody=MAXB, njnt=MAXJ, nq=MAXQ, nv=MAXV, ngeom=MAXG, nsite=MAXS, nu=MAXU)
@@ -112,11 +117,12 @@ def check_model(model, contacts=True):
     npr = int(model.ancestor_mask.count_nonzero())
     if npr > MAXPR:
         raise ValueError(f"{npr} (body, dof) pairs exceed the kernels' maximum {MAXPR}")
-    for a, kind in enumerate(model.actuator_kind):
-        if kind not in _ACT_KIND:
-            raise NotImplementedError(f"actuator kind {kind!r} is not ported")
     if not contacts:
         return 0
+    for a, kind in enumerate(model.actuator_kind):
+        if kind not in _ACT_KIND or model.actuator_jntid[a] < 0:
+            raise NotImplementedError(f"actuator {model.actuator_names[a]} ({kind!r}"
+                                      f"{', on a tendon' if model.actuator_jntid[a] < 0 else ''}) has no fused law")
     nrows = sum(len(r) for r in C.contact_row_layout(model).values())
     if nrows > MAXK:
         raise ValueError(f"{nrows} contact rows exceed the kernels' maximum {MAXK}")
@@ -209,17 +215,16 @@ def fill(model, arm=None) -> RsTables:
     _set(t.geom_bodyid, model.geom_bodyid)
     _set(t.site_bodyid, model.site_bodyid)
 
-    _set(t.act_kind, [_ACT_KIND[k] for k in model.actuator_kind])
-    _set(t.act_dofadr, [model.jnt_dofadr[j] for j in model.actuator_jntid])
-    _set(t.act_qposadr, [model.jnt_qposadr[j] for j in model.actuator_jntid])
-    _set(t.act_gear, cpu["actuator_gear"])
-    _set(t.act_gain, cpu["actuator_gainprm"])
-    _set(t.act_ctrllimited, cpu["actuator_ctrllimited"])
-    _set(t.act_ctrlrange, cpu["actuator_ctrlrange"])
-    _set(t.act_forcelimited, cpu["actuator_forcelimited"])
-    _set(t.act_forcerange, cpu["actuator_forcerange"])
-
-    if contacts:
+    if contacts:  # the actuators (read by K3 only) and the contact part
+        _set(t.act_kind, [_ACT_KIND[k] for k in model.actuator_kind])
+        _set(t.act_dofadr, [model.jnt_dofadr[j] for j in model.actuator_jntid])
+        _set(t.act_qposadr, [model.jnt_qposadr[j] for j in model.actuator_jntid])
+        _set(t.act_gear, cpu["actuator_gear"])
+        _set(t.act_gain, cpu["actuator_gainprm"])
+        _set(t.act_ctrllimited, cpu["actuator_ctrllimited"])
+        _set(t.act_ctrlrange, cpu["actuator_ctrlrange"])
+        _set(t.act_forcelimited, cpu["actuator_forcelimited"])
+        _set(t.act_forcerange, cpu["actuator_forcerange"])
         _fill_contacts(t, model, cpu)
 
     if arm is not None:

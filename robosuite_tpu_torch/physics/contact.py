@@ -664,10 +664,13 @@ def uses_row_compaction(model) -> bool:
 
 
 def contact_warmstart_dim(model):
-    """Length of the solver's flat force vector f for this model: 3 K, K
-    the static rows or, on a compacting world, min(ROW_CAP, rows)."""
+    """Length of the solver's flat force vector f for this model: 3 K + ne,
+    K the static rows or, on a compacting world, min(ROW_CAP, rows), and ne
+    the equality rows."""
+    from robosuite_tpu_torch.physics.equality import equality_row_count
+
     rows = sum(len(r) for r in contact_row_layout(model).values())
-    return 3 * (min(ROW_CAP, rows) if uses_row_compaction(model) else rows)
+    return 3 * (min(ROW_CAP, rows) if uses_row_compaction(model) else rows) + equality_row_count(model)
 
 
 # the row fields of the solve: per scenario (B, R, ...), then per row (R, ...)
@@ -694,11 +697,14 @@ def compact_rows(rows, K):
     return out
 
 
-def solver_inputs(model, kin, con, qvel, dt):
-    """Grouped-row cone-QP operands from the contact buffer: returns
-    (JfT (B, nv, 3K), aref (B, 3K), reg3 (B, 3K), mu (B, K), active
-    (B, K)), rows ordered [normals | t1 | t2]; K the buffer's rows (the
-    static layout) or, on a compacting world, min(ROW_CAP, rows)."""
+def solver_inputs(model, kin, con, qvel, dt, eq=None):
+    """Grouped-row cone-QP operands from the contact buffer and the
+    equality rows eq (equality.equality_rows, or None): returns (JfT (B,
+    nv, 3K + ne), aref (B, 3K + ne), reg3 (B, 3K + ne), mu (B, K), active
+    (B, K)), rows ordered [normals | t1 | t2 | equality]; K the buffer's
+    rows (the static layout) or, on a compacting world, min(ROW_CAP, rows).
+    The ne equality rows are bilateral and always active, regularised by
+    0.05 (the JAX package's contact.py)."""
     B = qvel.shape[0]
     rows = {name: con[name] for name in _ROW_FIELDS}
     if uses_row_compaction(model):
@@ -724,47 +730,70 @@ def solver_inputs(model, kin, con, qvel, dt):
 
     vel = (J @ qvel[:, None, :, None])[..., 0]                                   # (B, K, 3)
     reg_base = (1.0 - d) / d
-    JfT = torch.cat([J[:, :, 0], J[:, :, 1], J[:, :, 2]], dim=1).transpose(1, 2)
-    aref = torch.cat([-b * vel[..., 0] + k * pen, -b * vel[..., 1], -b * vel[..., 2]], dim=1)
-    reg3 = torch.cat([reg_base, reg_base / model.impratio, reg_base / model.impratio], dim=1)
+    Jf = [J[:, :, 0], J[:, :, 1], J[:, :, 2]]
+    aref = [-b * vel[..., 0] + k * pen, -b * vel[..., 1], -b * vel[..., 2]]
+    reg3 = [reg_base, reg_base / model.impratio, reg_base / model.impratio]
+    if eq is not None:
+        J_eq, aref_eq = eq
+        Jf.append(J_eq)
+        aref.append(aref_eq)
+        reg3.append(torch.full_like(aref_eq, 0.05))
+    JfT = torch.cat(Jf, dim=1).transpose(1, 2)
     mu = rows["friction"][..., 0].expand(B, -1)
-    return JfT.contiguous(), aref, reg3, mu.contiguous(), active
+    return JfT.contiguous(), torch.cat(aref, dim=1), torch.cat(reg3, dim=1), mu.contiguous(), active
 
 
-def contact_rows(model, kin, qvel, dt):
-    """solver_inputs of the model's full narrowphase at kin: on CPU tensors
-    eagerly; on CUDA tensors by replaying a CUDA graph of the same plain
-    code, captured once per model and batch size (_RowsGraph), since the
+def contact_rows(model, kin, qvel, dt, qpos=None):
+    """solver_inputs of the model's full narrowphase at kin, with its
+    equality rows at (qpos, qvel) where it has any: on CPU tensors eagerly;
+    on CUDA tensors by replaying a CUDA graph of the same plain code,
+    captured once per model and batch size (_RowsGraph), since the
     narrowphase of a large world issues thousands of small kernels whose
     launches, not their work, take its time. Operands that carry a
     derivative run eagerly on the card too: a replay copies values only,
     so it would drop their tangents."""
-    if qvel.device.type != "cuda" or tangent.carries_derivative(qvel, *(getattr(kin, f) for f in _RowsGraph.FIELDS)):
-        return solver_inputs(model, kin, narrowphase(model, kin), qvel, dt)
-    graph = model.derived(("rows_graph", qvel.shape[0], float(dt)), lambda: _RowsGraph(model, kin, qvel, dt))
-    return graph(kin, qvel)
+    from robosuite_tpu_torch.physics.equality import equality_rows
+
+    if model.neq and qpos is None:
+        raise ValueError("a world with equality constraints needs qpos for its rows")
+    fields = _RowsGraph.fields(model)
+    if qvel.device.type != "cuda" or tangent.carries_derivative(qvel, qpos, *(getattr(kin, f) for f in fields)):
+        eq = equality_rows(model, kin, qpos, qvel) if model.neq else None
+        return solver_inputs(model, kin, narrowphase(model, kin), qvel, dt, eq)
+    graph = model.derived(("rows_graph", qvel.shape[0], float(dt)), lambda: _RowsGraph(model, kin, qvel, dt, qpos))
+    return graph(kin, qvel, qpos)
 
 
 class _RowsGraph:
     """narrowphase + solver_inputs captured in a CUDA graph for one model,
-    batch size and dt: the inputs (the geom poses, the motion subspace,
-    qvel) are copied into static tensors, the graph replays, and the
-    outputs are returned as copies (the next replay overwrites the static
-    ones). Two eager runs on a side stream before the capture build the
-    model's cached index tensors (_plan) and warm the allocator."""
+    batch size and dt, the equality rows (equality.equality_rows) too where
+    the world has any: the inputs (the geom poses, the motion subspace,
+    qvel; and the body poses and qpos for the equality rows) are copied
+    into static tensors, the graph replays, and the outputs are returned as
+    copies (the next replay overwrites the static ones). Two eager runs on
+    a side stream before the capture build the model's cached index
+    tensors (_plan) and warm the allocator."""
 
     FIELDS = ("geom_xpos", "geom_xmat", "sdof_ang", "sdof_lin")
 
-    def __init__(self, model, kin, qvel, dt):
+    @classmethod
+    def fields(cls, model):
+        """The KinData fields the rows read."""
+        return cls.FIELDS + (("xpos", "xmat") if model.neq else ())
+
+    def __init__(self, model, kin, qvel, dt, qpos=None):
+        from robosuite_tpu_torch.physics.equality import equality_rows
         from robosuite_tpu_torch.physics.state import KinData
 
-        self.inputs = {f: getattr(kin, f).clone() for f in self.FIELDS}
+        self.inputs = {f: getattr(kin, f).clone() for f in self.fields(model)}
         self.qvel = qvel.clone()
+        self.qpos = qpos.clone() if model.neq else None
         lite = KinData(**self.inputs, **{f: None for f in ("xpos", "xquat", "xmat", "xipos", "ximat", "site_xpos",
-                                                            "site_xmat")})
+                                                            "site_xmat") if f not in self.inputs})
 
         def run():
-            return solver_inputs(model, lite, narrowphase(model, lite), self.qvel, dt)
+            eq = equality_rows(model, lite, self.qpos, self.qvel) if model.neq else None
+            return solver_inputs(model, lite, narrowphase(model, lite), self.qvel, dt, eq)
 
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -776,9 +805,11 @@ class _RowsGraph:
         with torch.cuda.graph(self.graph):
             self.outputs = run()
 
-    def __call__(self, kin, qvel):
+    def __call__(self, kin, qvel, qpos=None):
         for f, t in self.inputs.items():
             t.copy_(getattr(kin, f))
         self.qvel.copy_(qvel)
+        if self.qpos is not None:
+            self.qpos.copy_(qpos)
         self.graph.replay()
         return tuple(t.clone() for t in self.outputs)

@@ -185,3 +185,29 @@ def joint_limit_forces(model, qpos, Mdiag, solref=(0.02, 1.0)):
     qfrc[:, dadr] = limited * f
     damp[:, dadr] = limited * active * b
     return qfrc, damp
+
+
+def tendon_forces(model, qpos, qvel, Mdiag, solref=(0.02, 1.0)):
+    """Fixed-tendon passive forces (MuJoCo tendon stiffness, frictionloss
+    and range limits): a spring, smooth dry friction and the limits as the
+    mass-scaled spring-damper of joint_limit_forces, the tendon's inertia
+    taken as (ten_J^2) @ diag(M). Returns (qfrc, extra damping): the limit
+    damping and the tendon damping, diagonalised onto the dofs
+    (J^T b J ~ diag(b J_i^2)), are integrated implicitly by the engine."""
+    L = qpos @ model.ten_Jq.T                                         # (B, ntendon)
+    V = qvel @ model.ten_J.T
+    f = -model.ten_stiffness * (L - model.ten_springlength)
+    f = f - model.ten_frictionloss * torch.tanh(V / 0.005)
+    timeconst, dampratio = solref
+    J2 = model.ten_J ** 2
+    m_eff = Mdiag @ J2.T
+    d_imp, dmax = 0.9, 0.95
+    k_lim = d_imp / (dmax * dmax * timeconst * timeconst * dampratio * dampratio) * m_eff
+    b_lim = 2.0 / (dmax * timeconst) * m_eff
+    d_lo = model.ten_range[:, 0] - L
+    d_hi = L - model.ten_range[:, 1]
+    limited = model.derived("tendon_limited", lambda: torch.tensor(
+        model.tendon_limited, dtype=model.qpos0.dtype, device=model.device))
+    active = ((d_lo > 0) | (d_hi > 0)).to(L.dtype) * limited
+    f = f + limited * k_lim * (torch.clamp_min(d_lo, 0.0) - torch.clamp_min(d_hi, 0.0))
+    return f @ model.ten_J, (active * b_lim + model.ten_damping) @ J2

@@ -98,7 +98,8 @@ class FixedBaseRobot:
             grip_range=model.actuator_ctrlrange[idx(self.gripper_actuator_ids[arm])],
             grip_dir=torch.as_tensor(robot_model.grippers[arm].format_action_direction(), dtype=torch.float32,
                                      device=dev),
-            grip_idx=idx(robot_model.grippers[arm].format_action_indices())) for arm in self.arms}
+            grip_idx=idx(robot_model.grippers[arm].format_action_indices()),
+            grip_fixed=self._pinned(robot_model.grippers[arm].format_action_fixed(), dev)) for arm in self.arms}
         # check_q_limits: every arm's joint positions and ranges, the limited ones
         jr = model.jnt_range.cpu().numpy()
         jids = np.concatenate([[int(model.dof_jntid[d]) for d in self.arm_qvel_idx[arm]] for arm in self.arms])
@@ -106,6 +107,16 @@ class FixedBaseRobot:
         self._q_limits = dict(qp=idx(np.concatenate([self.arm_qpos_idx[arm] for arm in self.arms])),
                               lo=torch.as_tensor(lim[:, 0], device=dev), hi=torch.as_tensor(lim[:, 1], device=dev),
                               limited=torch.as_tensor(lim[:, 0] != lim[:, 1], device=dev))
+
+    @staticmethod
+    def _pinned(fixed, dev):
+        """(mask, values) of a gripper's pinned actuator commands
+        (format_action_fixed), or None."""
+        if fixed is None:
+            return None
+        fixed = np.asarray(fixed, dtype=np.float32)
+        return (torch.as_tensor(~np.isnan(fixed), device=dev),
+                torch.as_tensor(np.nan_to_num(fixed), dtype=torch.float32, device=dev))
 
     # -- action vector layout (robosuite composite_controller.py:86-95) ------
     @property
@@ -205,12 +216,20 @@ class FixedBaseRobot:
         _gripper_goal). A binary gripper ramps (robosuite
         panda_gripper.py:42-55): each policy step moves the per-actuator
         command by speed * sign(action). A dexterous hand maps its dof-wide
-        action straight onto its actuators (inspire_hands.py:22-28)."""
-        idx = self._dev[arm]["grip_idx"]
-        if idx is not None:
-            return torch.clamp(grip_a[:, idx].to(cur.dtype), -1.0, 1.0)
-        direction = self._dev[arm]["grip_dir"].to(cur.dtype)
-        return torch.clamp(cur + direction * self.rm.grippers[arm].speed * torch.sign(grip_a[:, 0:1]), -1.0, 1.0)
+        action straight onto its actuators (inspire_hands.py:22-28); a
+        dexterous ramped gripper ramps each actuator from its own action
+        element (jaco_three_finger_gripper.py:82-108); pinned actuators
+        keep their command (robotiq_three_finger_gripper.py:78)."""
+        d = self._dev[arm]
+        if d["grip_idx"] is not None:
+            return torch.clamp(grip_a[:, d["grip_idx"]].to(cur.dtype), -1.0, 1.0)
+        grip = self.rm.grippers[arm]
+        sign = torch.sign(grip_a if grip.ramp_elementwise else grip_a[:, 0:1])
+        new = torch.clamp(cur + d["grip_dir"].to(cur.dtype) * grip.speed * sign, -1.0, 1.0)
+        if d["grip_fixed"] is not None:
+            mask, value = d["grip_fixed"]
+            new = torch.where(mask, value.to(new.dtype), new)
+        return new
 
     def gripper_ctrl(self, arm, ctrl_state: RobotCtrlState):
         """Actuator-space gripper ctrl (B, n) for the tick's gripper state

@@ -45,7 +45,8 @@ def _host_k2(lib, iters, power_iters, dt):
     def primal(M, JfT, aref, qfrc, qvel, damping, reg3, mu, active):
         qv, f = torch.empty_like(qvel), torch.empty_like(aref)
         lib.rs_contact_solve(*(_p(t) for t in (M, JfT, aref, qfrc, qvel, damping, reg3, mu, active, qv, f)),
-                             qvel.shape[0], M.shape[1], active.shape[1], iters, power_iters, dt, None)
+                             qvel.shape[0], M.shape[1], active.shape[1], aref.shape[1] - 3 * active.shape[1], iters,
+                             power_iters, dt, None)
         return qv, f
 
     return primal

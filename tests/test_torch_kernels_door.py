@@ -176,7 +176,7 @@ def test_door_contact_solve_kernel_matches_plain(lib, door):
     args = [t.contiguous() for t in (M, JfT, aref, qfrc, qd, m.dof_damping + extra, reg3, mu, act)]
     qv_p, f_p = contact_solve.vel_update_plain(*args, C.APGD_ITERS, C.POWER_ITERS, m.timestep)
     qv_k, f_k = torch.empty_like(qv_p), torch.empty_like(f_p)
-    lib.rs_contact_solve(*(_p(t) for t in args), _p(qv_k), _p(f_k), B, m.nv, 170, C.APGD_ITERS, C.POWER_ITERS,
+    lib.rs_contact_solve(*(_p(t) for t in args), _p(qv_k), _p(f_k), B, m.nv, 170, 0, C.APGD_ITERS, C.POWER_ITERS,
                          m.timestep, None)
     assert float((qv_k - qv_p).abs().max()) <= 1e-4
     assert float((f_k - f_p).abs().max()) <= 1e-4 * max(1.0, float(f_p.abs().max()))

@@ -164,14 +164,14 @@ extern "C" int rs_forward_threads(int nt, int S, const void* T, const float* tab
 }
 extern "C" int rs_contact_solve(const float* M, const float* JfT, const float* aref, const float* qfrc,
     const float* qvel, const float* damping, const float* reg3, const float* mu, const float* active,
-    float* qvel_out, float* f_out, int B, int nv, int K, int iters, int power_iters, float dt, void*) {
+    float* qvel_out, float* f_out, int B, int nv, int K, int ne, int iters, int power_iters, float dt, void*) {
   Solve s;
   float* Msh;
   Carver n{nullptr, 0};
-  carve_k2(nv, K, n, Msh, s);
+  carve_k2(nv, K, ne, n, Msh, s);
   std::vector<double> buf;
   Carver c{scratch(buf, n.w), 0};
-  carve_k2(nv, K, c, Msh, s);
+  carve_k2(nv, K, ne, c, Msh, s);
   for (int b = 0; b < B; ++b)
     contact_solve_body(HostTeam(), s, Msh, b, nv, K, iters, power_iters, dt, M, JfT, aref, qfrc, qvel, damping,
                        reg3, mu, active, qvel_out, f_out);
@@ -583,7 +583,7 @@ def test_contact_solve_kernel_matches_plain(lib, contact_state):
     args = [t.contiguous() for t in (M, JfT, aref, qfrc, qd, m.dof_damping + extra, reg3, mu, act)]
     qv_p, f_p = contact_solve.vel_update_plain(*args, C.APGD_ITERS, C.POWER_ITERS, m.timestep)
     qv_k, f_k = torch.empty_like(qv_p), torch.empty_like(f_p)
-    lib.rs_contact_solve(*(_p(t) for t in args), _p(qv_k), _p(f_k), B, m.nv, act.shape[1], C.APGD_ITERS,
+    lib.rs_contact_solve(*(_p(t) for t in args), _p(qv_k), _p(f_k), B, m.nv, act.shape[1], 0, C.APGD_ITERS,
                          C.POWER_ITERS, m.timestep, None)
     assert float((qv_k - qv_p).abs().max()) <= 1e-4
     assert float((f_k - f_p).abs().max()) <= 1e-4 * max(1.0, float(f_p.abs().max()))
@@ -747,7 +747,7 @@ def test_contact_solve_kernel_matches_plain_on_stack(lib, stack_state):
     args = [t.contiguous() for t in (M, JfT, aref, qfrc, qd, m.dof_damping + extra, reg3, mu, act)]
     qv_p, f_p = contact_solve.vel_update_plain(*args, C.APGD_ITERS, C.POWER_ITERS, m.timestep)
     qv_k, f_k = torch.empty_like(qv_p), torch.empty_like(f_p)
-    lib.rs_contact_solve(*(_p(t) for t in args), _p(qv_k), _p(f_k), B, m.nv, 96, C.APGD_ITERS, C.POWER_ITERS,
+    lib.rs_contact_solve(*(_p(t) for t in args), _p(qv_k), _p(f_k), B, m.nv, 96, 0, C.APGD_ITERS, C.POWER_ITERS,
                          m.timestep, None)
     assert float((qv_k - qv_p).abs().max()) <= 1e-4
     assert float((f_k - f_p).abs().max()) <= 1e-4 * max(1.0, float(f_p.abs().max()))

@@ -44,11 +44,11 @@ extern "C" int rs_contact_solve_threads(int nt, const float* M, const float* JfT
   Solve s;
   float* Msh;
   Carver n{nullptr, 0};
-  carve_k2(nv, K, n, Msh, s);
+  carve_k2(nv, K, 0, n, Msh, s);
   for (int b = 0; b < B; ++b) {
     std::vector<double> buf;
     Carver c{scratch(buf, n.w), 0};
-    carve_k2(nv, K, c, Msh, s);
+    carve_k2(nv, K, 0, c, Msh, s);
     auto body = [&](const auto& tm) {
       contact_solve_body(tm, s, Msh, b, nv, K, iters, power_iters, dt, M, JfT, aref, qfrc, qvel, damping, reg3,
                          mu, active, qvel_out, f_out);
@@ -68,7 +68,7 @@ extern "C" int rs_k2_words(int nv, int K) {
   Solve s;
   float* Msh;
   Carver n{nullptr, 0};
-  carve_k2(nv, K, n, Msh, s);
+  carve_k2(nv, K, 0, n, Msh, s);
   return n.w;
 }
 """
@@ -186,7 +186,9 @@ def test_carves_fit_the_card(lib, pick):
 
 def test_maxima_take_pickplace_and_refuse_more(pick):
     """PickPlaceCan fits K1's and K2's maxima (raised since for the
-    two-arm worlds: tests/test_torch_kernels_twoarm.py), and so does
+    two-arm worlds, tests/test_torch_kernels_twoarm.py, and for PickPlace
+    and NutAssembly with Baxter and PandaDexRH: nq 48, nv 44, 32 sites,
+    tests/test_torch_tendon_robots.py), and so does
     TwoArmTransport, the largest world (53 bodies, nq 39, nv 36, 23 sites:
     the body maximum raised to 56 for it); a model one past any of the
     maxima is refused by K1's table and K2's sizes; the fused substep's
@@ -196,7 +198,7 @@ def test_maxima_take_pickplace_and_refuse_more(pick):
     env, _ = pick
     m = env.model
     assert (tables.MAXB, tables.MAXJ, tables.MAXQ, tables.MAXV, tables.MAXG, tables.MAXS, tables.MAXU) == (
-        56, 24, 40, 36, 176, 24, 24)
+        56, 24, 48, 44, 176, 32, 24)
     assert tables.check_model(m, contacts=False) == 0
     contact_solve.check_sizes(m.nv, C.ROW_CAP)
     big_world = robosuite_tpu_torch.make("TwoArmTransport", robots=("Panda", "Panda"), device="cpu").model
@@ -209,7 +211,7 @@ def test_maxima_take_pickplace_and_refuse_more(pick):
         setattr(big, name, cap + 1)
         with pytest.raises(ValueError, match=f"{name}={cap + 1}"):
             tables.check_model(big, contacts=False)
-    with pytest.raises(ValueError, match="nv=37"):
+    with pytest.raises(ValueError, match="nv=45"):
         contact_solve.check_sizes(tables.MAXV + 1, C.ROW_CAP)
     with pytest.raises(ValueError, match="K=193"):
         contact_solve.check_sizes(m.nv, tables.MAXK + 1)

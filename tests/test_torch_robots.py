@@ -19,14 +19,17 @@ metadata against the JAX package's, on the CPU.
   * the fused gate (ops/substep.extract_spec) decides each world as the
     JAX gate does, refusing Baxter as multi-arm; K3's table takes the 12
     gripper actuators of an Inspire hand and SpotArm's 6 arm dofs;
-    tables.check_model refuses PickPlaceCan with Baxter or PandaDexRH
-    (nq 46-47, nv 42-43) with a ValueError naming the maximum;
+    tables.check_model takes PickPlaceCan with Baxter or PandaDexRH (nq
+    46-47, nv 42-43: the maxima raised to nq 48, nv 44) and refuses one
+    past them with a ValueError naming the maximum;
   * a one-arm robot in a two-arm env's "single-robot" configuration
     raises ValueError (robosuite's configuration check).
 
 One policy step of four of these worlds is held in
 tests/test_torch_robots_step.py.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -273,10 +276,11 @@ def test_fused_gate_follows_jax(name, robot):
 
 def test_kernel_maxima_take_twelve_gripper_actuators_and_refuse_pickplace():
     """MAXGR is 12 (csrc/common.cuh RS_MAXGR): a 13th gripper actuator is
-    refused; K1's table (no contact part) takes every Baxter world below
-    PickPlaceCan; check_model refuses PickPlaceCan with Baxter (nq 46, nv
-    42) and with PandaDexRH (nq 47, nv 43) with a ValueError naming the
-    maximum, so neither reaches a kernel on the card."""
+    refused; K1's table (no contact part) takes every Baxter world, and
+    PickPlaceCan with Baxter (nq 46, nv 42) and with PandaDexRH (nq 47, nv
+    43) since the maxima were raised (nq 48, nv 44); PickPlaceCan with one
+    qpos or dof past them is refused with a ValueError naming the maximum,
+    so it never reaches a kernel on the card."""
     import os
 
     src = open(os.path.join(os.path.dirname(tables.__file__), "..", "csrc", "common.cuh")).read()
@@ -288,9 +292,14 @@ def test_kernel_maxima_take_twelve_gripper_actuators_and_refuse_pickplace():
         tables.fill(penv.model, arm=spec)
     for name in ("Lift", "TwoArmLift", "TwoArmTransport"):
         assert tables.check_model(envs(name, "Baxter")[1].model, contacts=False) == 0
-    for robot, field, cap in (("Baxter", "nq=46", 40), ("PandaDexRH", "nq=47", 40)):
-        with pytest.raises(ValueError, match=f"{field} exceeds the kernels' maximum {cap}"):
-            tables.check_model(envs("PickPlaceCan", robot)[1].model, contacts=False)
+    for robot in ("Baxter", "PandaDexRH"):
+        m = envs("PickPlaceCan", robot)[1].model
+        assert tables.check_model(m, contacts=False) == 0
+        for field, cap in (("nq", tables.MAXQ), ("nv", tables.MAXV)):
+            big = copy.copy(m)
+            setattr(big, field, cap + 1)
+            with pytest.raises(ValueError, match=f"{field}={cap + 1} exceeds the kernels' maximum {cap}"):
+                tables.check_model(big, contacts=False)
 
 
 def test_single_robot_configuration_takes_a_bimanual_robot_only():
