@@ -42,8 +42,8 @@ Phases (any failure exits non-zero):
  11. the MPC slice at bench.py's width (B=128, H=64, K=32, MPPI + 1 iLQR
      iteration, relinearized every 4th tick): a warm-up tick, then ticks
      1-4 timed on the host clock, with the launches per tick the config
-     implies, finite actions in [-1, 1], the peak device memory and a
-     profiler pass over one more tick;
+     implies, finite actions in [-1, 1] and the peak device memory (the
+     profiler pass over one more tick cut for the run's time in PR 15);
  12. make("Stack", robots="Panda", controller_configs="JOINT_POSITION") on
      CUDA, reset_batch(512): K1 against its plain version at B=512 and 32,
      and timed at both;
@@ -63,8 +63,8 @@ Phases (any failure exits non-zero):
      (K1 + K2), substep by substep against the fused one;
  16. the Stack MPC at tools/bench_configs.py's width (B=32, H=128, K=16,
      MPPI only, 2 substeps per planned step): a warm-up tick, ticks 1-3
-     timed with their launch counts, finite actions in [-1, 1], peak
-     memory and a profiled tick;
+     timed with their launch counts, finite actions in [-1, 1] and peak
+     memory (the profiled tick cut in PR 15);
  17. (after phase 7) Lift's step_batch, the RL entry point, at B=512: counts
      zeroed, reset + 3 policy steps (K1 = 7, K3 = 75); then each step
      against rollout_batch from the same input: the same states and
@@ -92,7 +92,8 @@ Phases (any failure exits non-zero):
      plain path from the same input; one unfused step (K1 + K2);
  22. the Door MPC at tools/bench_configs.py's width (B=32, H=64, K=16,
      MPPI only): a warm-up tick, ticks 1-3 timed with their launch counts,
-     finite actions in [-1, 1], peak memory and a profiled tick;
+     finite actions in [-1, 1] and peak memory (the profiled tick cut in
+     PR 15);
  23. make("PickPlaceCan", robots="Sawyer", controller_configs=
      "JOINT_POSITION", reward_shaping=True) on CUDA (nq 37, nv 33, 40
      bodies, 105 geoms, 606 pairs, 1326 candidate points), reset_batch(512):
@@ -212,7 +213,8 @@ Phases (any failure exits non-zero):
      after phase 11 (Lift, B=32, H=64, K=32) and phase 37
      (TwoArmPegInHole, B=32, H=64, K=16, nx 30) the MPC with one iLQR
      iteration relinearized every tick by forward differences and by
-     forward-mode AD (ad_mpc: the associative Riccati pass, launches,
+     forward-mode AD (ad_mpc, AD_TICKS timed ticks each, 2 until PR 15:
+     the associative Riccati pass, launches,
      solves/s, peak memory, the tangent pass's share and passes, the AD
      fx/fu against forward differences, the associative gains against
      the sequential pass); and the one-scenario make_solve on Lift against
@@ -221,12 +223,13 @@ Phases (any failure exits non-zero):
      Lift-Panda with IK_POSE, unfused as the JAX gate decides (K1, the 66
      static rows' CUDA graph, K2): the gate, K1 at B=512 and 32, counts
      zeroed, reset + 10 step_batch steps with the first EARLIER_HELD held
-     substep by substep (cut from all 10 for the run's time), 10 steady
-     steps and a profiled step, K2 at nv 15 and 66 static rows at
-     the last step's state (the cube resting: 4 active rows), one MPPI tick
-     (B=32, H=64, K=16) and one tick with an iLQR iteration linearized by
-     forward differences (83,968 scenarios in the sweep), each with the
-     launches its config implies and profiled; 75, Lift-Panda OSC_POSITION,
+     substep by substep (cut from all 10 for the run's time; no steady
+     rate or profiled step since the wheeled and legged worlds), K2 at nv
+     15 and 66 static rows at the last step's state (the cube resting: 4
+     active rows), one MPPI tick (B=32, H=64, K=16; not profiled) and one
+     tick with an iLQR iteration linearized by forward differences (83,968
+     scenarios in the sweep; its profile cut in PR 15), each with the launches its config
+     implies; 75, Lift-Panda OSC_POSITION,
      fused (K3): reset + 10 step_batch steps, each held substep by substep
      against the plain path (hold_all's rule: a free cube's row decision
      that float32 rounding takes either way diverges over a whole step),
@@ -269,21 +272,40 @@ Phases (any failure exits non-zero):
      held; TwoArmTransport-Baxter one K1 and one K2 launch at its contact
      state.
  93-105. the tendon and equality worlds and the wide ones (tendons_slice),
-     last, all unfused: Lift with UR5e (Robotiq 85: spring tendons; K1 at
-     512 and 32, K2 at the settled state, reset + 10 step_batch steps with
-     the first EARLIER_HELD held, 10 steady steps, a profiled step, one
-     MPPI and one FD-iLQR tick at B=32, H=64, K=16), XArm7 (a `general`
-     servo on a tendon, 7 connect and joint rows; K1 at 512, K2 with its
-     rows at the grasp state, reset + 10 steps with EARLIER_HELD held, one
-     MPPI tick), IIWA (4 tendon rows) and Jaco (3 tendon rows, 96 slots;
-     K2 with its rows at the grasp state, reset + EARLIER_HELD steps held),
-     Kinova3 (reset + EARLIER_HELD steps held), each refused by the fused
-     gate for its tendons and with its carves printed; the UR5e, Kinova3,
-     IIWA and XArm7 substeps held launch by launch (TENDON_WORLDS), Jaco's
-     whole; then PickPlaceCan and NutAssemblySingle with Baxter and with
-     PandaDexRH (nq up to 47, nv up to 43, up to 31 sites: the raised
-     maxima): K1 at 512, reset + EARLIER_HELD step_batch steps held, and
-     one MPPI tick on PickPlaceCan-Baxter.
+     all unfused: Lift with UR5e (Robotiq 85: spring tendons; K1 at 512
+     and 32, K2 at the settled state, reset + 10 step_batch steps with the first
+     EARLIER_HELD held, one MPPI tick at B=32, H=64, K=16, one tick with
+     an FD-linearized iLQR iteration; its steady rate, profiled step and
+     profiled ticks cut since the wheeled and legged worlds), XArm7 (a `general` servo on a tendon, 7
+     connect and joint rows; K1 at 512, K2 with its rows at the grasp
+     state, reset + 10 steps with EARLIER_HELD held, one MPPI tick), IIWA
+     (4 tendon rows) and Jaco (3 tendon rows, 96 slots; K2 with its rows at
+     the grasp state, reset + EARLIER_HELD steps held), Kinova3 (K2 at the
+     settled state, reset + EARLIER_HELD steps held), each refused by the
+     fused gate for its tendons and with its carves printed; the UR5e,
+     Kinova3, IIWA and XArm7 substeps held launch by launch
+     (TENDON_WORLDS), Jaco's whole; then PickPlaceCan and
+     NutAssemblySingle with Baxter and with PandaDexRH (nq up to 47, nv up
+     to 43, up to 31 sites: the raised maxima): K1 at 512, reset +
+     EARLIER_HELD step_batch steps held, K2 at their last state, and one
+     MPPI tick on PickPlaceCan-Baxter.
+ 106-115. the wheeled and legged robots (mobile_slice), last, unfused (the
+     fused gate refuses a mobile robot, and Tiago's tendons first, as the
+     JAX gate does): each world's runtime (MobileRobot, LeggedRobot), its
+     action layout and the gate, K1's and K2's carves, K1 at 512 against
+     its plain version and timed, K2 at the settled state (the cube at
+     rest, Spot on its feet) against its plain version and timed; then
+     Lift-PandaOmron (HYBRID_MOBILE_BASE: the base's joint velocities, the
+     torso lift, the base-mode flag; reset + 10 step_batch steps with the
+     first EARLIER_HELD held substep by substep, 10 steady steps, a
+     profiled step, one MPPI tick at B=32, H=64, K=16), Lift-SpotWithArm
+     (a free root beside the cube's, 12 legs on Spot's raw servo; 10
+     steps with EARLIER_HELD held, one MPPI tick), Lift-SpotWithArmFloating
+     (reset + EARLIER_HELD steps held), Lift-Tiago (60 bodies, 31 joints:
+     K1's raised maxima; K1 also at 32; reset + EARLIER_HELD steps held
+     launch by launch, its Robotiq 85s as the UR5e's) and Lift-PandaOmron
+     under WHOLE_BODY_IK (default_pandaomron_whole_body_ik.json: absolute
+     targets about the reset's eef pose; reset + EARLIER_HELD steps held).
 The count of (substep, scenario) cases that the holds set aside on a
 float64 near-tie witness is printed at the end.
 Timings use CUDA events (profiler passes show one policy step's and one
@@ -718,6 +740,21 @@ def phase_done(name):
     now = time.perf_counter()
     print(f"phase {name}: {now - PHASE_T[0]:.1f} s", flush=True)
     PHASE_T[0] = now
+
+
+def release_memory(before):
+    """Return to the card what the earlier phases' objects held: their
+    reference cycles collected (an env, its robots and its model's cached
+    contact-rows graphs, each graph with a private memory pool), then the
+    allocator's cached blocks freed; the memory left is printed."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory before {before}: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved", flush=True)
 
 
 @contextlib.contextmanager
@@ -1245,10 +1282,7 @@ def stack_slice(tag, results):
     print(f"{tag} Stack MPC solves/s (B={STACK_B}, H={cfg.horizon}, K={cfg.n_samples}, MPPI only; ticks "
           f"1-{STACK_TICKS}, host clock): {solves:.1f}; mean executed reward {float(rew.mean()):.4f}; "
           f"masked rollouts {int(met['n_masked'].sum())}; peak device memory {peak_gb:.2f} GB")
-    _, wall_ms, dev_ms, top, port = profile_once(tag, "one Stack MPC tick", lambda: tick(mstates, ms), 8)
-    results.update(stack_mpc_solves_per_s=solves, stack_mpc_launches=mpc_counts, stack_mpc_peak_gb=peak_gb,
-                   stack_mpc_profile_wall_ms=wall_ms, stack_mpc_profile_device_ms=dev_ms,
-                   stack_mpc_profile_top=top, stack_mpc_profile_port=port)
+    results.update(stack_mpc_solves_per_s=solves, stack_mpc_launches=mpc_counts, stack_mpc_peak_gb=peak_gb)
     for k, r in stack_k.items():
         print(f"{tag} Stack {k}: {r['ms']:.4f} ms/launch at B={B}, plain {r['plain_ms']:.3f} ms, "
               f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
@@ -1617,10 +1651,7 @@ def door_slice(tag, results):
     print(f"{tag} Door MPC solves/s (B={DOOR_B}, H={cfg.horizon}, K={cfg.n_samples}, MPPI only; ticks "
           f"1-{DOOR_TICKS}, host clock): {solves:.1f}; mean executed reward {float(rew.mean()):.4f}; "
           f"peak device memory {peak_gb:.2f} GB")
-    _, wall_ms, dev_ms, top, port = profile_once(tag, "one Door MPC tick", lambda: tick(mstates, ms), 8)
-    results.update(door_mpc_solves_per_s=solves, door_mpc_launches=mpc_counts, door_mpc_peak_gb=peak_gb,
-                   door_mpc_profile_wall_ms=wall_ms, door_mpc_profile_device_ms=dev_ms,
-                   door_mpc_profile_top=top, door_mpc_profile_port=port)
+    results.update(door_mpc_solves_per_s=solves, door_mpc_launches=mpc_counts, door_mpc_peak_gb=peak_gb)
     for k, r in door_k.items():
         print(f"{tag} Door {k}: {r['ms']:.4f} ms/launch at B={B}, plain {r['plain_ms']:.3f} ms, "
               f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
@@ -2441,6 +2472,7 @@ FD_TOL = 2.5e-2     # the AD linearization against forward differences (eps 1e-3
 # largest entry: the ~1e-2 that the forward differences of the contact dynamics move by in float32
 # (tests/test_torch_mpc.py: 0.085 of |fx| up to ~300)
 AD_B = 32           # the AD MPC ticks' solves (lowered only if the peak memory forced it)
+AD_TICKS = 1        # timed ticks of each linearization (2 until the wheeled and legged worlds took their time)
 
 
 def hold_tangent(label, Fn, launch, plain, counter, args, wrt, gen):
@@ -2568,7 +2600,7 @@ def ad_mpc(tag, name, env, mpc_cfg, batch, results, key, gm, gs):
     (ilqr_fd=False, forward mode through the kernels' tangent rules),
     beside the forward-difference one at the same width, both with the
     associative Riccati pass (parallel_backward): a warm-up tick
-    and two timed ticks each (solves/s, the launches the config implies,
+    and AD_TICKS timed ticks each (solves/s, the launches the config implies,
     the peak device memory, the share of the AD tick in the tangent pass,
     the tangent passes of K1, K2, K3); the AD tick's fx/fu against forward
     differences (eps 1e-3) about the same points on a strided subset:
@@ -2633,7 +2665,7 @@ def ad_mpc(tag, name, env, mpc_cfg, batch, results, key, gm, gs):
                        substep.make_fused_substep.tangent_passes)
             rec["s"], rec["calls"] = 0.0, 0
             t0 = time.perf_counter()
-            for i in range(2):
+            for i in range(AD_TICKS):
                 states, ms, met, acts, rew = tick(states, ms)
                 if not (torch.isfinite(acts).all() and acts.abs().max() <= 1.0 and torch.isfinite(rew).all()):
                     fail(f"{name} MPC ({mode}) tick {i + 1}: non-finite or out-of-range actions or rewards")
@@ -2648,19 +2680,19 @@ def ad_mpc(tag, name, env, mpc_cfg, batch, results, key, gm, gs):
         take_widths(f"{name} ({mode} MPC)")
         N, P = batch * cfg.horizon, mpc.nx + env.action_dim
         chunks = 1 if mode == "fd" else math.ceil(N / max(1, ilqr_mod.TANGENT_CHUNK // P))
-        want = {k: 2 * v for k, v in ad_tick_launches(cfg, mpc, env, fused, chunks).items()}
-        print(f"{name} MPC ({mode}) ticks 1-2 launches: {counts}; tangent passes (K1, K2, K3) {passes}")
+        want = {k: AD_TICKS * v for k, v in ad_tick_launches(cfg, mpc, env, fused, chunks).items()}
+        print(f"{name} MPC ({mode}) ticks 1-{AD_TICKS} launches: {counts}; tangent passes (K1, K2, K3) {passes}")
         if counts != want:
-            fail(f"{name} MPC ({mode}) ticks 1-2: launches {counts}, the config implies {want}")
-        if mode == "ad" and (rec["calls"] != 2 or passes[0] == 0 or passes[1 if not fused else 2] == 0):
+            fail(f"{name} MPC ({mode}) ticks 1-{AD_TICKS}: launches {counts}, the config implies {want}")
+        if mode == "ad" and (rec["calls"] != AD_TICKS or passes[0] == 0 or passes[1 if not fused else 2] == 0):
             fail(f"{name} AD ticks: {rec['calls']} linearizations, tangent passes {passes}")
-        solves, peak = batch * 2 / dt, torch.cuda.max_memory_allocated() / 1e9
+        solves, peak = batch * AD_TICKS / dt, torch.cuda.max_memory_allocated() / 1e9
         fin = int(met["ilqr_accepted"].sum())
         share = rec["s"] / dt if mode == "ad" else float("nan")
         print(f"{tag} {name} MPC solves/s ({mode} linearization, B={batch}, H={cfg.horizon}, K={cfg.n_samples}, "
-              f"MPPI + 1 iLQR iteration relinearized every tick; ticks 1-2, host clock): {solves:.2f}; peak device "
-              f"memory {peak:.2f} GB; finite iLQR plans {fin}/{batch}"
-              + (f"; the tangent pass {100 * share:.1f}% of the ticks ({rec['s'] / 2:.3f} s a tick, {chunks} "
+              f"MPPI + 1 iLQR iteration relinearized every tick; ticks 1-{AD_TICKS}, host clock): {solves:.2f}; "
+              f"peak device memory {peak:.2f} GB; finite iLQR plans {fin}/{batch}"
+              + (f"; the tangent pass {100 * share:.1f}% of the ticks ({rec['s'] / AD_TICKS:.3f} s a tick, {chunks} "
                  f"chunks of at most {ilqr_mod.TANGENT_CHUNK} scenarios)" if mode == "ad" else ""))
         out[mode] = dict(solves_per_s=solves, peak_gb=peak, launches=counts, finite=fin, B=batch)
         if mode == "ad":
@@ -2835,7 +2867,10 @@ def fused_step_slice(tag, name, env, gen, results, key, actions, steps, held=Non
     at the horizon, the rate with the reset; then each policy step (the
     first `held`, all by default) from the same input against the plain
     path, substep by substep (the goal rows of each substep, the kernel
-    and the plain substep) under hold_all's rule, the kernel's last
+    and the plain substep) under hold_all's rule, with
+    pose_rounding_witness's float64 witness where the goal row does not
+    move within the step (a box face resting flat on the table: the
+    float32 solve's forces part ways while the velocities agree), the kernel's last
     substep being the step's next state bit for bit; the reward on the
     plain poses; how far the goal row moves within a step (goal
     interpolation). -> (the launch counts, the trail of states)."""
@@ -2877,6 +2912,9 @@ def fused_step_slice(tag, name, env, gen, results, key, actions, steps, held=Non
     fused, leaves = env._fused_for(model), forward.runtime_leaves(model, B)
     worst, worst_r, moved, before = 0.0, 0.0, 0.0, len(ASIDE)
     held = steps if held is None else held
+    # the float64 witness redoes the controllers at the policy step's goal,
+    # which an interpolated goal row leaves within the step
+    interpolated = getattr(robot.arm_cfg["right"], "interpolation", None) == "linear"
     for i in range(held):
         st, nxt = trail[i], trail[i + 1]
         kin, M, bias = engine.forward_products(model, st.physics.qpos, st.physics.qvel)
@@ -2888,7 +2926,11 @@ def fused_step_slice(tag, name, env, gen, results, key, actions, steps, held=Non
         for j in range(env.n_substeps):
             sub = (qp, qv, *leaves, *goal_at(j), grip)
             out_k, out_p = fused(*sub), substep.substep_plain(env, model, *sub)
-            worst = max(worst, hold_all(f"{name} step {i + 1} substep {j + 1}", model, qp, out_k, out_p, quiet=True))
+            ph = engine.State(qpos=qp, qvel=qv, time=st.physics.time + j * model.timestep)
+            worst = max(worst, hold_all(
+                f"{name} step {i + 1} substep {j + 1}", model, qp, out_k, out_p, quiet=True,
+                extra=None if interpolated else lambda bad, p=ph, k=out_k, q=out_p: pose_rounding_witness(
+                    env, model, ctrl_i, p, bad, k, q)))
             qp, qv = out_k[0], out_k[1]
         if not (torch.equal(qp, nxt.physics.qpos) and torch.equal(qv, nxt.physics.qvel)):
             fail(f"{name} policy step {i + 1}: step_batch differs from its substep-by-substep kernel run")
@@ -2950,9 +2992,9 @@ def fd_ilqr_tick(tag, name, env, results, key, seed):
     """One MPC tick with MPPI and one iLQR iteration linearized by forward
     differences (relinearized every tick, linearization dt 50 ms) at
     B=32, H=64, K=16: a warm-up tick, one timed tick with the launches the
-    config implies, finite actions in [-1, 1], the finite iLQR plans, the
-    peak memory and a profiled tick (the device alone). -> the launch
-    counts of the timed tick."""
+    config implies, finite actions in [-1, 1], the finite iLQR plans and
+    the peak memory (the profiled tick cut for the run's time in PR 15).
+    -> the launch counts of the timed tick."""
     import torch
 
     from robosuite_tpu_torch.mpc import receding
@@ -2991,11 +3033,8 @@ def fd_ilqr_tick(tag, name, env, results, key, seed):
           f"linearized by forward differences, {H64_B * cfg.horizon * (1 + mpc.nx + env.action_dim)} scenarios "
           f"in the sweep; one tick, host clock): {H64_B / dt:.2f}; finite iLQR plans {fin}/{H64_B}; iLQR improved "
           f"on MPPI {int(met['ilqr_improved'].sum())}; peak device memory {peak:.2f} GB")
-    _, wall_ms, dev_ms, top, port = profile_once(tag, f"one {name} MPC tick (FD iLQR)", lambda: tick(states, ms), 8,
-                                                 kernels_only=True)
     results.update({f"{key}_ilqr_solves_per_s": H64_B / dt, f"{key}_ilqr_launches": counts,
-                    f"{key}_ilqr_peak_gb": peak, f"{key}_ilqr_finite": fin, f"{key}_ilqr_profile_wall_ms": wall_ms,
-                    f"{key}_ilqr_profile_device_ms": dev_ms, f"{key}_ilqr_profile_port": port})
+                    f"{key}_ilqr_peak_gb": peak, f"{key}_ilqr_finite": fin})
     return counts
 
 
@@ -3005,12 +3044,12 @@ def controllers_slice(tag, results):
     one CUDA graph, K2; the gate refuses the IK arm as the JAX gate does):
     71, the world, K1 at B=512 and 32 against its plain version and timed;
     72, counts zeroed, reset + 10 step_batch policy steps, the first
-    EARLIER_HELD held substep by substep (cut from all 10 for the run's
-    time), 10 steady steps and a profiled step; 73, K2 at nv
+    EARLIER_HELD held substep by substep (cut from all 10, and the steady
+    rate and the profiled step cut, for the run's time); 73, K2 at nv
     15 and 66 static rows on the plain path's operands at the step's last
     state (the cube resting on the table), against its plain version,
-    timed; 74, one MPPI tick (B=32, H=64, K=16; profiled) and one tick
-    with an iLQR iteration linearized by forward differences (profiled).
+    timed; 74, one MPPI tick (B=32, H=64, K=16) and one tick with an iLQR
+    iteration linearized by forward differences.
     75: Lift-Panda OSC_POSITION, fused (K3; the orientation goal frozen at
     the eef's): reset + 10 step_batch steps, each held substep by substep
     against the plain path under hold_all's rule, 10 steady steps, one
@@ -3040,7 +3079,7 @@ def controllers_slice(tag, results):
     phase_done(f"{name} world, gate, K1")
     # ---- 72. the step slice, every substep held
     actions = ctrl_actions(env, states, gen)
-    out[f"{name} step"], last, _ = unfused_step_slice(tag, name, env, gen, results, "lift_ik", actions, True,
+    out[f"{name} step"], last, _ = unfused_step_slice(tag, name, env, gen, results, "lift_ik", actions, False,
                                                       held=EARLIER_HELD)
     # ---- 73. K2 at the 66 static rows, at the step's last state
     from robosuite_tpu_torch.ops import forward
@@ -3058,7 +3097,7 @@ def controllers_slice(tag, results):
     out[f"{name} MPC"] = unfused_mpc(tag, name, env, H64_MPC, H64_B, 1,
                                      torch.Generator(device="cuda").manual_seed(SEED + 72),
                                      torch.Generator(device="cuda").manual_seed(SEED + 73), results, "lift_ik",
-                                     (states, last), world_k, True)
+                                     (states, last), world_k, False)
     out[f"{name} iLQR"] = fd_ilqr_tick(tag, name, env, results, "lift_ik", SEED + 74)
     phase_done(f"{name} MPC ticks (MPPI, FD iLQR)")
     del env
@@ -3287,6 +3326,7 @@ def dex_mpc_tick(tag, name, env, results, key, seed):
         check(f"{name} K4 xpos (B={n})", max_err(xp_k, xp_p), 2e-5)
         check(f"{name} K4 xquat (B={n})", max_err(xq_k, xq_p), 2e-5)
     # K1 at the sweep's width on states like the sweep's (the tick's, each with its own arm pose and velocity)
+    release_memory(f"{name} K1 at B={N}")
     reps = N // DEX_MB
     qx = q.repeat(reps, 1)
     qx[:, :7] += 0.3 * torch.randn(N, 7, generator=g, device="cuda")
@@ -3549,10 +3589,12 @@ def _lift_resting(env, kin, n_act):
 # the tendon and equality worlds (phases 93-100): the robot, (nq, nv, nbody,
 # nsite, nu, ntendon, neq), the contact state of ab_kernels and its check,
 # the first phase, what runs: "full" (K1 at B and 32, K2, reset + STEPS
-# steps with EARLIER_HELD held, the steady rate, a profiled step, one MPPI
-# and one FD-iLQR tick), "step" (K1 at B, K2, reset + STEPS steps with
-# EARLIER_HELD held, one MPPI tick), "k2" (K2, reset + EARLIER_HELD steps,
-# all held) or "held" (reset + EARLIER_HELD steps, all held), and how a
+# steps with EARLIER_HELD held, one MPPI tick, one FD-iLQR tick: the
+# FD-iLQR sweep over a world that carries tendons and compacts its rows
+# into 96 slots; the steady rate, the profiled step and the profiled
+# ticks cut since the wheeled and legged worlds), "step" (the same with K1 at B
+# alone and no FD-iLQR tick) or "k2" (K2, reset + EARLIER_HELD steps, all
+# held), and how a
 # held substep is held: whole (kernel substep against plain substep from
 # the same input, hold_all) or launch by launch (every K1 and K2 launch
 # against its plain version on its own operands, the kernel chain equal to
@@ -3574,7 +3616,7 @@ TENDON_WORLDS = {
     "Lift-XArm7": ("XArm7", (20, 19, 27, 13, 8, 1, 3), "lift_grasp_state", _lift_grasped, 96, "step", False),
     "Lift-IIWA": ("IIWA", (20, 19, 28, 9, 9, 4, 4), "lift_grasp_state", _lift_grasped, 98, "k2", False),
     "Lift-Jaco": ("Jaco", (20, 19, 29, 9, 10, 3, 3), "lift_grasp_state", _lift_grasped, 99, "k2", True),
-    "Lift-Kinova3": ("Kinova3", (20, 19, 28, 9, 9, 2, 0), None, None, 100, "held", False),
+    "Lift-Kinova3": ("Kinova3", (20, 19, 28, 9, 9, 2, 0), "settled", _lift_resting, 100, "k2", False),
 }
 # the worlds the raised maxima take (phases 101-105): the env, the robot,
 # (nq, nv, nsite), the fused gate's refusal, and one MPPI tick or not
@@ -3619,6 +3661,40 @@ def refused_by_gate(name, env, model, refusal):
         fail(f"the {name} env has a fused substep")
 
 
+def contact_state(name, env, states, state_fn, state_check):
+    """The contact state an unfused world's K2 is held and timed at:
+    LIFT_SETTLE_STEPS zero-action steps from `states` ("settled") or an
+    ab_kernels state; finite, and rich enough by state_check."""
+    import torch
+
+    from robosuite_tpu_torch import ab_kernels
+    from robosuite_tpu_torch.physics import contact as C
+
+    s = (ab_kernels._settle(env, states, ab_kernels.LIFT_SETTLE_STEPS) if state_fn == "settled"
+         else getattr(ab_kernels, state_fn)(env, states))
+    if not (torch.isfinite(s.physics.qpos).all() and torch.isfinite(s.physics.qvel).all()):
+        fail(f"the {name} contact state is not finite")
+    kin = plain_products(env, s)[0]
+    con = C.narrowphase(env.model, kin)
+    n_act = (con["dist"] < con["margin"]).sum(1)
+    report, rich = state_check(env, kin, n_act)
+    print(f"{name} contact state ({state_fn}): active rows per scenario min {int(n_act.min())} median "
+          f"{int(n_act.median())} max {int(n_act.max())}; {report}")
+    if not rich:
+        fail(f"the {name} contact state is too poor: {report}")
+    return s
+
+
+def plain_products(env, s):
+    """(kin, M, bias, narrowphase) of the plain path at the state s."""
+    from robosuite_tpu_torch.ops import forward
+    from robosuite_tpu_torch.physics import contact as C
+
+    q, qd = s.physics.qpos, s.physics.qvel
+    kin, M, bias = forward.forward_plain(env.model, q, qd, *forward.runtime_leaves(env.model, q.shape[0]))
+    return kin, M, bias, C.narrowphase(env.model, kin)
+
+
 def tendon_world(tag, results, name):
     """One Lift world whose gripper couples its fingers with fixed tendons
     and equality constraints, on the unfused path (K1, the contact and
@@ -3629,8 +3705,6 @@ def tendon_world(tag, results, name):
     import torch
 
     import robosuite_tpu_torch as R
-    from robosuite_tpu_torch import ab_kernels
-    from robosuite_tpu_torch.ops import forward
     from robosuite_tpu_torch.physics import contact as C
     from robosuite_tpu_torch.physics.equality import equality_row_count
 
@@ -3653,34 +3727,21 @@ def tendon_world(tag, results, name):
     world_k = results.setdefault("unfused_kernels", {}).setdefault(name, {})
     gen = torch.Generator(device="cuda").manual_seed(SEED + ph)
     states = valid_resets(env, B, gen)[0]
-    if depth in ("full", "step"):
+    if depth != "k2":
         unfused_k1(tag, name, model, states, (B, H64_B) if depth == "full" else (B,), world_k, results)
-    phase_done(f"{name} world, gate" + (", K1" if depth in ("full", "step") else ""))
-    if state_fn is not None:
-        s = (ab_kernels._settle(env, states, ab_kernels.LIFT_SETTLE_STEPS) if state_fn == "settled"
-             else getattr(ab_kernels, state_fn)(env, states))
-        q, qd = s.physics.qpos, s.physics.qvel
-        if not (torch.isfinite(q).all() and torch.isfinite(qd).all()):
-            fail(f"the {name} contact state is not finite")
-        kin, M, bias = forward.forward_plain(model, q, qd, *forward.runtime_leaves(model, B))
-        con = C.narrowphase(model, kin)
-        n_act = (con["dist"] < con["margin"]).sum(1)
-        report, rich = state_check(env, kin, n_act)
-        print(f"{name} contact state ({state_fn}): active rows per scenario min {int(n_act.min())} median "
-              f"{int(n_act.median())} max {int(n_act.max())}; {report}")
-        if not rich:
-            fail(f"the {name} contact state is too poor: {report}")
-        unfused_k2(name, env, states, s, kin, M, bias, con, K, world_k)
+    phase_done(f"{name} world, gate" + (", K1" if depth != "k2" else ""))
+    s = contact_state(name, env, states, state_fn, state_check)
+    unfused_k2(name, env, states, s, *plain_products(env, s), K, world_k)
     out = {}
     key = name.lower().replace("-", "_")
-    steps = EARLIER_HELD if depth in ("k2", "held") else STEPS
-    out[f"{name} step"], last, _ = unfused_step_slice(tag, name, env, gen, results, key, None, depth == "full", steps,
+    steps = EARLIER_HELD if depth == "k2" else STEPS
+    out[f"{name} step"], last, _ = unfused_step_slice(tag, name, env, gen, results, key, None, False, steps,
                                                       held=EARLIER_HELD, whole=whole)
-    if depth in ("full", "step"):
+    if depth != "k2":
         out[f"{name} MPC"] = unfused_mpc(tag, name, env, H64_MPC, H64_B, 1,
                                          torch.Generator(device="cuda").manual_seed(SEED + ph + 1),
                                          torch.Generator(device="cuda").manual_seed(SEED + ph + 2), results, key,
-                                         (states, last), world_k, depth == "full")
+                                         (states, last), world_k, False)
     if depth == "full":
         out[f"{name} iLQR"] = fd_ilqr_tick(tag, name, env, results, key, SEED + ph + 3)
         phase_done(f"{name} MPC ticks (MPPI, FD iLQR)")
@@ -3694,8 +3755,9 @@ def wide_world(tag, results, name):
     """One world the raised maxima take (nq 48, nv 44, 32 sites), on the
     unfused path (its rows compact into 96 slots): the world and the gate,
     the carves, K1 at B against its plain version and timed, reset +
-    EARLIER_HELD step_batch steps with every K1 and K2 launch held, and
-    one MPPI tick where WIDE_WORLDS asks. -> {path: launch counts}."""
+    EARLIER_HELD step_batch steps with every K1 and K2 launch held, K2 at
+    their last state against its plain version and timed, and one MPPI
+    tick where WIDE_WORLDS asks. -> {path: launch counts}."""
     import torch
 
     import robosuite_tpu_torch as R
@@ -3716,7 +3778,10 @@ def wide_world(tag, results, name):
     states = valid_resets(env, B, gen)[0]
     unfused_k1(tag, name, model, states, (B,), world_k, results)
     key = name.lower().replace("-", "_")
-    out = {f"{name} step": unfused_step_slice(tag, name, env, gen, results, key, None, False, EARLIER_HELD)[0]}
+    counts, last, _ = unfused_step_slice(tag, name, env, gen, results, key, None, False, EARLIER_HELD)
+    out = {f"{name} step": counts}
+    # K2 at the held steps' last state (the objects dropped onto the bins or the table)
+    unfused_k2(name, env, states, last, *plain_products(env, last), C.ROW_CAP, world_k)
     if mppi:
         out[f"{name} MPC"] = unfused_mpc(tag, name, env, H64_MPC, H64_B, 1,
                                          torch.Generator(device="cuda").manual_seed(SEED + 102),
@@ -3734,6 +3799,127 @@ def tendons_slice(tag, results):
         phase_done(name)
     for name in WIDE_WORLDS:
         out.update(wide_world(tag, results, name))
+        phase_done(name)
+    return out
+
+
+# the wheeled and legged worlds (phases 106-115): the robot, its controller
+# config (None: the robot's default composite), (nq, nv, nbody, njnt, nsite,
+# nu, action_dim), the fused gate's refusal, the first phase, what runs:
+# "full" (K1 at B, K2, reset + STEPS steps with EARLIER_HELD held, the
+# steady rate, a profiled step, one MPPI tick), "step" (the same without
+# the steady rate and the profiled step), "held" (K1 at B, K2, reset +
+# EARLIER_HELD steps, all held), and how a held substep is held (whole,
+# or launch by launch: Tiago's Robotiq 85s swing their fingers at 100-200
+# rad/s from the reset, as the UR5e's do); the widths K1 is held and
+# timed at. Each world's K2 is held and timed at its settled state (the
+# cube at rest on the table, Spot on its feet).
+WBIK_OMRON = "robosuite_tpu_torch/controllers/config/robots/default_pandaomron_whole_body_ik.json"
+MOBILE_WORLDS = {
+    "Lift-PandaOmron": ("PandaOmron", None, (20, 19, 26, 14, 10, 13, 12), "non-fixed-base robot", 106, "full",
+                        True, (B,)),
+    "Lift-SpotWithArm": ("SpotWithArm", None, (33, 31, 38, 21, 14, 19, 19), "non-fixed-base robot", 108, "step",
+                         True, (B,)),
+    "Lift-SpotWithArmFloating": ("SpotWithArmFloating", None, (17, 16, 38, 11, 14, 10, 10), "non-fixed-base robot",
+                                 110, "held", True, (B,)),
+    "Lift-Tiago": ("Tiago", None, (37, 36, 60, 31, 18, 22, 20), "tendons", 112, "held", False, (B, H64_B)),
+    "Lift-PandaOmron-WBIK": ("PandaOmron", WBIK_OMRON, (20, 19, 26, 14, 10, 13, 7), "non-fixed-base robot", 114,
+                             "held", True, (B,)),
+}
+
+
+def _lift_resting_any(env, kin, n_act):
+    rich = int((n_act >= 4).sum())
+    return f">= 4 active rows (the cube on the table, feet on the floor) in {rich}/{B}", 2 * rich >= B
+
+
+def wbik_targets(env, states):
+    """(B, action_dim) WHOLE_BODY_IK actions at `states`: each arm's target
+    its eef's pose in the arm's base frame (absolute input) moved by up to
+    3 cm and 0.05 rad, the grippers open."""
+    import torch
+
+    from robosuite_tpu_torch.physics import engine
+    from robosuite_tpu_torch.utils import transforms as T
+
+    r, q, qd = env.robots[0], states.physics.qpos, states.physics.qvel
+    kin, M, bias = engine.forward_products(env.model, q, qd)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 115)
+    a = torch.zeros(q.shape[0], env.action_dim, device="cuda")
+    idx = r.action_split_indexes()
+    for arm in r.arms:
+        v = r.arm_view(kin, M, bias, q, qd, arm)
+        Rt = v.origin_ori.transpose(1, 2)
+        st = idx[arm][0]
+        a[:, st:st + 3] = (Rt @ (v.ref_pos - v.origin_pos)[..., None])[..., 0] + 0.03 * torch.rand(
+            q.shape[0], 3, generator=g, device="cuda").mul(2).sub(1)
+        a[:, st + 3:st + 6] = T.quat2axisangle(T.mat2quat(Rt @ v.ref_ori_mat)) + 0.05 * torch.rand(
+            q.shape[0], 3, generator=g, device="cuda").mul(2).sub(1)
+        a[:, idx[f"{arm}_gripper"][0]] = -1.0
+    return a
+
+
+def mobile_world(tag, results, name):
+    """One wheeled or legged Lift world on the unfused path (the fused gate
+    refuses a mobile robot, and Tiago's tendons first, as the JAX gate
+    does): the world, its runtime and the gate, K1's and K2's carves, K1
+    at its widths against its plain version and timed, K2 at the settled
+    state, then what MOBILE_WORLDS gives it. -> {path: launch counts}."""
+    import torch
+
+    import robosuite_tpu_torch as R
+    from robosuite_tpu_torch.physics import contact as C
+
+    robot, cfg, sizes, refusal, ph, depth, whole, widths = MOBILE_WORLDS[name]
+    env = R.make("Lift", robots=robot, controller_configs=cfg, reward_shaping=True, seed=SEED)
+    model = env.model
+    r = env.robots[0]
+    nrows = sum(len(x) for x in C.contact_row_layout(model).values())
+    compacts = C.uses_row_compaction(model)
+    K = C.ROW_CAP if compacts else nrows
+    got = (model.nq, model.nv, model.nbody, model.njnt, model.nsite, model.nu, env.action_dim)
+    print(f"{name} world: nq={got[0]} nv={got[1]} nbody={got[2]} njnt={got[3]} nsite={got[4]} nu={got[5]}, "
+          f"action_dim {got[6]} {r.action_split_indexes()}; runtime {type(r).__name__}, composite "
+          f"{r.composite_type or getattr(r.rm, 'composite_type', 'BASIC')}; {model.npair} pairs, {nrows} candidate "
+          f"rows, {f'compacted into {K} slots' if compacts else 'static'}; free joints {model.jnt_type.count(0)}")
+    if got != sizes:
+        fail(f"the {name} world is {got}, not {sizes} (nq, nv, nbody, njnt, nsite, nu, action_dim)")
+    refused_by_gate(name, env, model, refusal)
+    unfused_smem(name, model, K, 0, results)
+    world_k = results.setdefault("unfused_kernels", {}).setdefault(name, {})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + ph)
+    states = valid_resets(env, B, gen)[0]
+    unfused_k1(tag, name, model, states, widths, world_k, results)
+    phase_done(f"{name} world, gate, K1")
+    s = contact_state(name, env, states, "settled", _lift_resting_any)
+    unfused_k2(name, env, states, s, *plain_products(env, s), K, world_k)
+    actions = None
+    if r.wbik_spec is not None:  # targets about the step slice's reset, drawn from a copy of its generator
+        g2 = torch.Generator(device="cuda")
+        g2.set_state(gen.get_state())
+        actions = wbik_targets(env, valid_resets(env, B, g2)[0])
+    key = name.lower().replace("-", "_")
+    out = {}
+    out[f"{name} step"], last, _ = unfused_step_slice(tag, name, env, gen, results, key, actions, depth == "full",
+                                                      EARLIER_HELD if depth == "held" else STEPS,
+                                                      held=EARLIER_HELD, whole=whole)
+    if depth != "held":
+        out[f"{name} MPC"] = unfused_mpc(tag, name, env, H64_MPC, H64_B, 1,
+                                         torch.Generator(device="cuda").manual_seed(SEED + ph + 1),
+                                         torch.Generator(device="cuda").manual_seed(SEED + ph + 2), results, key,
+                                         (states, last), world_k, False)
+    for k, v in world_k.items():
+        print(f"{tag} {name} {k}: {v['ms']:.4f} ms/launch at B={B} ({v['dev_ms']:.4f} ms device), plain "
+              f"{v['plain_ms']:.3f} ms, bound {v['bound'][0]:.5f} ms ({v['bound'][1]})")
+    return out
+
+
+def mobile_slice(tag, results):
+    """Phases 106-115: the wheeled and legged robots (mobile_world). ->
+    {path: launch counts}."""
+    out = {}
+    for name in MOBILE_WORLDS:
+        out.update(mobile_world(tag, results, name))
         phase_done(name)
     return out
 
@@ -4180,12 +4366,6 @@ def main():
           f"plan {imp}; mean executed reward {float(rewards.mean()):.4f}; peak device memory {peak_gb:.2f} GB")
     results.update(mpc_solves_per_s=solves, mpc_launches=mpc_counts, mpc_per_tick=per_tick, mpc_finite=fin,
                    mpc_improved=imp, mpc_peak_gb=peak_gb)
-
-    # tick 5, a frozen-linearization tick
-    (mstates, ms, met, actions, rewards), wall_ms, dev_ms, top, port = profile_once(
-        tag, "one MPC tick", lambda: tick(mstates, ms), 8)
-    results.update(mpc_profile_wall_ms=wall_ms, mpc_profile_device_ms=dev_ms, mpc_profile_top=top,
-                   mpc_profile_port=port)
     phase_done("MPC slice at full width")
 
     # ---- 66-68. the iLQR's AD linearization on Lift: FD and AD ticks at B=AD_B, the associative pass, make_solve
@@ -4196,11 +4376,17 @@ def main():
     stack_counts, stack_mpc_counts, stack_counts_u = stack_slice(tag, results)
     door_counts, door_counts_u, door_mpc_counts = door_slice(tag, results)
     pick_counts, pick_mpc_counts = pickplace_slice(tag, results)
+    release_memory("the unfused worlds")
     unfused = {name: unfused_world_slice(tag, results, name) for name in UNFUSED_WORLDS}
     variable_gains_check(results)
+    release_memory("the arm controllers")
     ctrl = controllers_slice(tag, results)
+    release_memory("the robots")
     robots = robots_slice(tag, results)
+    release_memory("the tendon and wide worlds")
     tendons = tendons_slice(tag, results)
+    release_memory("the wheeled and legged worlds")
+    mobile = mobile_slice(tag, results)
 
     # ---- report ------------------------------------------------------------------
     # launches on each path, counted from zero just before it: Lift's env step
@@ -4211,7 +4397,7 @@ def main():
     every = osc + (counts_u, door_counts_u, stack_counts, stack_counts_u, stack_mpc_counts, pick_counts,
                    pick_mpc_counts) + sum(unfused.values(), ()) + tuple(
         c for k, c in ctrl.items() if "OSC" not in k) + tuple(c for k, c in robots.items() if "Baxter" in k) + tuple(
-        tendons.values())
+        tendons.values()) + tuple(mobile.values())
     paths = {"K1": every, "K2": every, "K3": osc, "K3-aux": osc, "K4": every}
     launches = {k: sum(c.get(k, 0) for c in cs) for k, cs in paths.items()}
     launches["K3-JP"] = stack_counts["K3"] + stack_mpc_counts["K3"]
@@ -4235,10 +4421,11 @@ def main():
           f"{door_mpc_counts}; over PickPlaceCan reset + {STEPS} step_batch steps {pick_counts}, MPC ticks "
           f"1-{PICK_TICKS} {pick_mpc_counts}; " + "; ".join(
               f"over {n} reset + {STEPS} step_batch steps {c}, MPC ticks 1-{UNFUSED_WORLDS[n][-2]} {m}"
-              + (f", AD-linearized MPC ticks 1-2 {ad[0]}" if ad else "") for n, (c, m, *ad) in unfused.items())
-          + f"; Lift AD-linearized MPC ticks 1-2 {lift_ad_counts}, make_solve {unbatched_counts}; "
+              + (f", AD-linearized MPC ticks 1-{AD_TICKS} {ad[0]}" if ad else "") for n, (c, m, *ad) in unfused.items())
+          + f"; Lift AD-linearized MPC ticks 1-{AD_TICKS} {lift_ad_counts}, make_solve {unbatched_counts}; "
           + "; ".join(f"{k} {c}" for k, c in ctrl.items()) + "; " + "; ".join(f"{k} {c}" for k, c in robots.items())
-          + "; " + "; ".join(f"{k} {c}" for k, c in tendons.items()))
+          + "; " + "; ".join(f"{k} {c}" for k, c in tendons.items())
+          + "; " + "; ".join(f"{k} {c}" for k, c in mobile.items()))
     by_label = {}
     for a in ASIDE:
         by_label[a.split()[0]] = by_label.get(a.split()[0], 0) + 1

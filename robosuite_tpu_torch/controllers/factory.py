@@ -1,6 +1,9 @@
 """Controller config resolution (the JAX package's controllers/factory.py;
-robosuite controller_factory.py and composite_controller_factory.py),
-for the BASIC composite with any of the six part controllers.
+robosuite controller_factory.py and composite_controller_factory.py):
+the BASIC, HYBRID_MOBILE_BASE and WHOLE_BODY_IK composites (and
+WHOLE_BODY_MINK_IK, which maps onto WHOLE_BODY_IK) and registered
+third-party ones, with any of the six part controllers on the arms and
+the torso / head / base / legs parts of a mobile or legged robot.
 
 Search order as in robosuite: an explicit dict, a composite name
 (config/default/composite/<name>.json), the per-robot default
@@ -93,10 +96,12 @@ def resolve_controller_json(controller: Union[None, str, dict], robot: Optional[
         return json.load(f)
 
 
-def _body_part_config(cfg: dict):
+def _body_part_config(cfg: dict, dim: int = 7):
     """One arm's entry of a composite JSON's body_parts as the JAX factory
     flattens it: goal interpolation is kept for the OSC types only, and
-    only where it is set; the limits and the gripper are dropped."""
+    only where it is set; the limits and the gripper are dropped. A joint
+    type's width is the arm's joint count `dim` (the JAX factory leaves it
+    at 7, which a 6-joint arm cannot run)."""
     cfg = dict(cfg)
     t = cfg.pop("type")
     cfg.pop("gripper", None)
@@ -105,25 +110,92 @@ def _body_part_config(cfg: dict):
         cfg.pop("ramp_ratio", None)
     cfg.pop("position_limits", None)
     cfg.pop("orientation_limits", None)
-    return arm_controller_config(t, **cfg)
+    return arm_controller_config(t, dim=dim, **cfg)
 
 
-def load_composite_controller_config(controller=None, robot: Optional[str] = None, arms=("right",)):
-    """Resolve to {arm: a part-controller config}. `controller` may also be
-    a dict of part configs by arm, {"right": {"type": "OSC_POSE",
+def load_composite_controller_config(controller=None, robot: Optional[str] = None, arms=("right",), dims=None):
+    """Resolve to {arm: a part-controller config}; dims {arm: joint count}
+    sizes the joint-space types (default 7). `controller` may also be a
+    dict of part configs by arm, {"right": {"type": "OSC_POSE",
     "impedance_mode": "variable_kp"}} (the JAX factory's form), which is
     not modified."""
+    dims = dims or {}
     if isinstance(controller, dict) and "body_parts" not in controller and "type" not in controller:
         out = {}
         for arm, cfg in controller.items():
             cfg = dict(cfg)
-            out[arm] = arm_controller_config(cfg.pop("type"), **cfg)
+            out[arm] = arm_controller_config(cfg.pop("type"), **{"dim": dims.get(arm, 7), **cfg})
         return out
     resolved = resolve_controller_json(controller, robot)
     if resolved is None:
-        if isinstance(controller, str):
-            return {arm: arm_controller_config(controller) for arm in arms}
-        return {arm: arm_controller_config("OSC_POSE") for arm in arms}
-    if resolved.get("type", "BASIC") != "BASIC":
-        raise NotImplementedError(f"composite controller {resolved.get('type')!r} is not ported")
-    return {arm: _body_part_config(resolved["body_parts"]["arms"][arm]) for arm in arms}
+        name = controller if isinstance(controller, str) else "OSC_POSE"
+        return {arm: arm_controller_config(name, dim=dims.get(arm, 7)) for arm in arms}
+    return {arm: _body_part_config(resolved["body_parts"]["arms"][arm], dims.get(arm, 7)) for arm in arms}
+
+
+@dataclasses.dataclass
+class CompositeResolution:
+    """What a robot's controller config resolves to (the JAX
+    robots/robot.py:123-205)."""
+
+    type: Optional[str]           # the composite type (None: none named; the robot's default then)
+    json: Optional[dict]          # the resolved JSON with body_parts, whose torso / head / legs entries the parts read
+    arm_cfg: dict                 # arm -> part-controller config
+    wbik: Optional[dict] = None   # WHOLE_BODY_IK's composite_controller_specific_configs
+    custom: Optional[tuple] = None  # (ThirdPartyComposite, its specific configs)
+
+
+def _tracking_arms(dims):
+    """Each arm's JOINT_POSITION tracker of a whole-body composite's
+    joint goals: kp 1000, absolute input."""
+    return {arm: arm_controller_config("JOINT_POSITION", dim=n, kp=1000.0, input_type="absolute")
+            for arm, n in dims.items()}
+
+
+def resolve_composite(controller, robot: str, dims) -> CompositeResolution:
+    """Resolve a robot's controller config: a name, a path or None (the
+    per-robot default JSON first, as robosuite searches), a composite dict,
+    or a dict of part configs by arm. dims {arm: joint count}, in arm
+    order. WHOLE_BODY_MINK_IK runs as WHOLE_BODY_IK with its posture
+    weights as the nullspace weights; a registered third-party type takes
+    JOINT_POSITION trackers on the arms, as does WHOLE_BODY_IK without
+    body_parts."""
+    from robosuite_tpu_torch.controllers.composite.composite_controller import (
+        REGISTERED_COMPOSITE_CONTROLLERS, THIRD_PARTY_COMPOSITE_CONTROLLERS)
+
+    arms = list(dims)
+    if controller is None or isinstance(controller, str):
+        controller = resolve_controller_json(controller, robot) or controller
+    ctype = controller.get("type") if isinstance(controller, dict) else None
+    body = controller if isinstance(controller, dict) and "body_parts" in controller else None
+    specific = dict(controller.get("composite_controller_specific_configs", {})) if ctype else {}
+    if ctype == "WHOLE_BODY_MINK_IK":
+        ctype = "WHOLE_BODY_IK"
+        if "ik_posture_weights" in specific:
+            specific.setdefault("nullspace_joint_weights", specific["ik_posture_weights"])
+    if ctype in THIRD_PARTY_COMPOSITE_CONTROLLERS:
+        return CompositeResolution(ctype, body, _tracking_arms(dims),
+                                   custom=(THIRD_PARTY_COMPOSITE_CONTROLLERS[ctype], specific))
+    if ctype is not None and ctype not in REGISTERED_COMPOSITE_CONTROLLERS:
+        raise ValueError(f"unknown composite controller {ctype!r}; known: {REGISTERED_COMPOSITE_CONTROLLERS} and "
+                         f"the registered {sorted(THIRD_PARTY_COMPOSITE_CONTROLLERS)}")
+    wbik = specific if ctype == "WHOLE_BODY_IK" else None
+    if wbik is not None and body is None:
+        return CompositeResolution(ctype, None, _tracking_arms(dims), wbik=wbik)
+    if ctype is not None and body is None:
+        raise ValueError(f"composite controller {ctype!r} needs body_parts")
+    arm_cfg = load_composite_controller_config(body if body is not None else controller, robot, arms, dims)
+    return CompositeResolution(ctype, body, arm_cfg, wbik=wbik)
+
+
+def body_part_config(resolved: Optional[dict], part: str, dim: int, kp: float):
+    """The torso / head / legs part's JOINT_POSITION config (the JAX
+    robots/robot.py:642-659): the body_parts entry's kp, input_type and
+    output range over the robot's kp, absolute input (legs: delta, so that
+    a zero action holds the stance) and +-0.5."""
+    entry = ((resolved or {}).get("body_parts") or {}).get(part)
+    entry = entry if isinstance(entry, dict) else {}
+    return jp_mod.JointPosConfig(dim=dim, kp=float(entry.get("kp", kp)),
+                                 input_type=entry.get("input_type", "delta" if part == "legs" else "absolute"),
+                                 output_max=float(entry.get("output_max", 0.5)),
+                                 output_min=float(entry.get("output_min", -0.5)))

@@ -22,6 +22,7 @@ from robosuite_tpu_torch.controllers.parts.ik import IKState
 from robosuite_tpu_torch.controllers.parts.joint_pos import JointPosState
 from robosuite_tpu_torch.controllers.parts.joint_tor import JointTorState
 from robosuite_tpu_torch.controllers.parts.joint_vel import JointVelState
+from robosuite_tpu_torch.controllers.parts.mobile_base import MobileBaseState
 from robosuite_tpu_torch.controllers.parts.osc import OSCState
 from robosuite_tpu_torch.envs.base import EnvState
 from robosuite_tpu_torch.models.model import Model
@@ -69,9 +70,10 @@ def state_from_numpy(qpos, qvel=None, ctrl_leaves: Dict[str, np.ndarray] = None,
       gripper_action (B, n).
 
     The controller state's class follows its leaves: goal_qpos
-    JOINT_POSITION, joint IK_POSE (a JOINT_POSITION state inside),
-    goal_vel JOINT_VELOCITY (saturated a bool), goal_torque JOINT_TORQUE,
-    else OSC."""
+    JOINT_POSITION (an arm's, or a mobile robot's torso, head or legs),
+    joint IK_POSE (a JOINT_POSITION state inside), goal_vel JOINT_VELOCITY
+    (saturated a bool), goal_torque JOINT_TORQUE, goal_qvel and init_yaw a
+    mobile base's MobileBaseState, else OSC."""
     def t(x, dtype=torch.float32):
         return torch.tensor(np.array(x), dtype=dtype, device=device)
 
@@ -79,7 +81,8 @@ def state_from_numpy(qpos, qvel=None, ctrl_leaves: Dict[str, np.ndarray] = None,
         if "joint" in leaves:
             return IKState(joint=arm_state(leaves["joint"]))
         cls = next((c for key, c in (("goal_qpos", JointPosState), ("goal_vel", JointVelState),
-                                     ("goal_torque", JointTorState)) if key in leaves), OSCState)
+                                     ("goal_torque", JointTorState), ("init_yaw", MobileBaseState))
+                    if key in leaves), OSCState)
         optional = {f.name for f in dataclasses.fields(cls) if f.default is None}  # OSC's start pose
         return cls(**{f.name: None if f.name in optional and leaves.get(f.name) is None else
                       t(leaves[f.name], torch.bool if f.name == "saturated" else torch.float32)

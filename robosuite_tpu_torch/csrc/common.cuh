@@ -117,8 +117,8 @@ static __device__ long long rs_stage_clock[RS_NSTAGES];
 
 // Compile-time maxima; the Python side checks a model against them
 // before it packs the table (ops/tables.py mirrors these numbers).
-#define RS_MAXB 56     // bodies
-#define RS_MAXJ 24     // joints
+#define RS_MAXB 64     // bodies (Tiago's 60)
+#define RS_MAXJ 32     // joints (Tiago's 31)
 #define RS_MAXQ 48     // qpos
 #define RS_MAXV 44     // dofs
 #define RS_MAXG 176    // geoms
@@ -133,7 +133,7 @@ static __device__ long long rs_stage_clock[RS_NSTAGES];
 #define RS_MAXGR 12    // gripper actuators (an Inspire hand's 12)
 #define RS_MAXPR 384   // (body, dof) pairs with anc != 0
 #define RS_MAXV1 45    // RS_MAXV + 1 and RS_MAXB + 1: prefix tables over the dofs and the bodies
-#define RS_MAXB1 57
+#define RS_MAXB1 65
 #define RS_MAXV2 1936  // RS_MAXV * RS_MAXV: the mass matrix's entries
 
 // Scenarios a block of K1, K2 and K3 (one warp each) and K4 (one thread

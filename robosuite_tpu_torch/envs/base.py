@@ -26,7 +26,9 @@ state carried unchanged). The MPC's planning hooks (`make_plan_return`,
 An env may hold several robots (the two-arm envs): each has its own
 controller config, its slice of the action (in robot order) and its
 controller state, and the controllers of all add into one ctrl vector per
-substep. The fused substep takes one single-arm robot; with more the
+substep. A robot's runtime follows its kind: FixedBaseRobot, or
+MobileRobot / LeggedRobot for a wheeled or legged one, whose torso, head,
+base and legs parts ride in the same controller state. The fused substep takes one single-arm robot; with more the
 substeps run unfused, as the JAX package's do.
 """
 
@@ -50,7 +52,10 @@ from robosuite_tpu_torch.ops.substep import UnsupportedFused, make_fused_substep
 from robosuite_tpu_torch.physics import contact as C
 from robosuite_tpu_torch.physics import engine
 from robosuite_tpu_torch.physics.state import KinData, State
-from robosuite_tpu_torch.robots.robot import FixedBaseRobot, RobotCtrlState
+from robosuite_tpu_torch.robots.robot import FixedBaseRobot, LeggedRobot, MobileRobot, RobotCtrlState
+
+# the runtime class of each robot_kind (robosuite robots/__init__.py:15-34)
+_RUNTIME = {"fixed": FixedBaseRobot, "wheeled": MobileRobot, "legged": LeggedRobot}
 
 REGISTERED_ENVS: Dict[str, type] = {}
 
@@ -169,7 +174,7 @@ class RobotEnv:
         # (the JAX envs/base.py:137-151)
         cfgs = controller_configs if isinstance(controller_configs, (list, tuple)) else \
             [controller_configs] * len(self.robot_models)
-        self.robots = [FixedBaseRobot(self.model, rm, cfg) for rm, cfg in zip(self.robot_models, cfgs)]
+        self.robots = [_RUNTIME[rm.robot_kind](self.model, rm, cfg) for rm, cfg in zip(self.robot_models, cfgs)]
         self._setup_references()
         lo, hi = self.action_spec
         self._action_lo = torch.as_tensor(lo, device=self.device)
@@ -417,13 +422,22 @@ class RobotEnv:
     # -- core API ----------------------------------------------------------------
     def _initial_qpos(self, n, generator):
         """qpos0 with each robot's init_qpos plus noise (drawn robot by
-        robot) and its grippers' init_qpos."""
+        robot), the torso's init posture (its last joints, no noise), a leg
+        base's standing posture (Spot's, robosuite spot_base.py:26-28) and
+        its grippers' init_qpos (the JAX envs/base.py:467-495)."""
         gdev = generator.device
         qpos = self.model.qpos0.expand(n, -1).clone()
         for robot, rm in zip(self.robots, self.robot_models):
             iq = torch.as_tensor(np.asarray(rm.init_qpos, dtype=np.float32), device=gdev)
             noise = self.init_noise_mag * torch.randn(n, iq.shape[0], generator=generator, device=gdev)
             qpos[:, robot.init_qpos_idx] = (iq + noise).to(self.device)
+            if rm.init_torso_qpos is not None:  # a mobile robot's
+                itq = np.asarray(rm.init_torso_qpos, dtype=np.float32)
+                qpos[:, robot.part_qpos_idx["torso"][-len(itq):]] = torch.as_tensor(itq, device=self.device)
+            if rm.base.leg_joints:
+                lidx = [self.model.jnt_qposadr[self.model.jnt_name2id(j)] for j in rm.base.leg_joints]
+                qpos[:, lidx] = torch.as_tensor(np.asarray(rm.base.init_qpos, dtype=np.float32)[:len(lidx)],
+                                                device=self.device)
             for arm in robot.arms:
                 gi = torch.as_tensor(np.asarray(rm.grippers[arm].init_qpos, dtype=np.float32), device=self.device)
                 qpos[:, robot.gripper_joint_qpos_idx[arm]] = gi

@@ -1,9 +1,10 @@
 """Model compiler: ModelSpec -> Model (an nn.Module of tensors).
 
 The counterpart of the JAX package's models/model.py compile_spec, trimmed
-to what a fixed-base manipulation world of primitive geoms and convex
-hulls needs, with its fixed tendons, tendon and `general` actuators and
-equality constraints (no cameras or lights). All name resolution happens
+to what a manipulation world of primitive geoms and convex hulls needs
+(a fixed, wheeled or legged robot: planar base joints with velocity
+actuators, a free root beside an object's), with its fixed tendons, tendon
+and `general` actuators and equality constraints (no cameras or lights). All name resolution happens
 here, once: the physics sees integer-indexed tensors.
 
 Array leaves are registered buffers, so `model.to(device)` moves them;

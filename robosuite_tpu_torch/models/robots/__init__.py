@@ -1,10 +1,11 @@
 """Robot models: spec factories + metadata for the built-in manipulators.
 
-Copy of the JAX package's robot model layer, trimmed to the fixed-mount
-robots: the Panda, the Sawyer, the SpotArm, the PandaDexRH / PandaDexLH (a
-Panda with an Inspire hand), the bimanual Baxter, and the UR5e, Kinova3,
-IIWA, Jaco and XArm7, whose grippers couple their fingers with tendons and
-equality constraints (robosuite models/robots/robot_model.py,
+Copy of the JAX package's robot model layer, but the GR1 humanoids: the
+fixed-mount Panda, Sawyer, SpotArm, PandaDexRH / PandaDexLH (a Panda with
+an Inspire hand), the bimanual Baxter, and the UR5e, Kinova3, IIWA, Jaco
+and XArm7, whose grippers couple their fingers with tendons and equality
+constraints; the wheeled PandaOmron and Tiago; and the legged SpotWithArm
+and SpotWithArmFloating (robosuite models/robots/robot_model.py,
 manipulators/*.py, compositional.py). Each robot is a thin class over its
 committed model card plus robosuite's published metadata (init_qpos,
 default gripper/base, placement offsets).
@@ -91,6 +92,10 @@ class ManipulatorModel:
         """"single", or "bimanual" (two arms, right and left, in one robot)."""
         return "single"
 
+    # the runtime class: "fixed" FixedBaseRobot, "wheeled" MobileRobot,
+    # "legged" LeggedRobot (robosuite robots/__init__.py:15-34)
+    robot_kind = "fixed"
+
     @property
     def card_joint_names(self) -> List[str]:
         """All prefixed robot-card joints in card order (robosuite
@@ -112,6 +117,32 @@ class ManipulatorModel:
     def eef_name(self) -> Dict[str, str]:
         """The eef body of each arm (robosuite manipulator_model.py:176)."""
         return {arm: f"{self.naming_prefix}{arm}_hand" for arm in self.arms}
+
+    # -- the non-arm parts (robosuite manipulator_model.py:97-114 classifies
+    # the card's joints by name; a mobile or legged base adds its own)
+    @property
+    def base_joints(self) -> List[str]:
+        """The base's planar joints."""
+        return self.base.base_joints if self.base is not None else []
+
+    @property
+    def torso_joints(self) -> List[str]:
+        return [j for j in self.card_joint_names if "torso" in j] + (
+            self.base.torso_joints if self.base is not None else [])
+
+    @property
+    def head_joints(self) -> List[str]:
+        return [j for j in self.card_joint_names if "head" in j]
+
+    @property
+    def legs_joints(self) -> List[str]:
+        return [j for j in self.card_joint_names if "leg" in j] + (
+            self.base.leg_joints if self.base is not None else [])
+
+    @property
+    def init_torso_qpos(self):
+        """The torso's reset posture (the last torso joints), or None."""
+        return None
 
     @property
     def base_offset(self):
@@ -150,12 +181,27 @@ class ManipulatorModel:
         ]
 
     def add_base(self, base):
-        """Mount under the robot root (robosuite robot_model.py:145-170);
-        the mount root's pos is overwritten."""
+        """A mount hangs under the robot root (robosuite robot_model.py:145-170;
+        its root's pos is overwritten). A mobile or legged base carries the
+        robot (robot_model.py:171-237): the robot root keeps its name and
+        holds the base's subtree, and the root's own content moves into a
+        '<prefix>manipulator_mount' body on the base's '<base prefix>support'
+        body."""
         assert self.base is None, "base already added"
         sub = base.root_subtree()
         sub.pos = self.base_offset - base.top_offset
-        self._root.children.append(sub)
+        root = self._root
+        if not base.mount:
+            mount = S.BodySpec(self.naming_prefix + "manipulator_mount")
+            mount.joints = [j for j in root.joints if j.type != "free"]
+            mount.geoms, mount.sites, mount.cameras, mount.children = root.geoms, root.sites, root.cameras, \
+                root.children
+            mount.inertial = None  # the base carries the inertia (robot_model.py:212-216)
+            root.joints, root.geoms, root.sites, root.cameras, root.children = [], [], [], [], []
+            support = sub.find_body(base.naming_prefix + "support")
+            assert support is not None, f"{base.naming_prefix}support body not in the base's card"
+            support.children.append(mount)
+        root.children.append(sub)
         self._actuators.extend(base.actuators())
         self.base = base
 
@@ -465,3 +511,117 @@ class XArm7(ManipulatorModel):
     @property
     def init_qpos(self):
         return np.array([0.0, 0.0, 0.0, 0.39 * np.pi, 0.0, 0.39 * np.pi, 0.0])
+
+
+@register_robot
+class PandaOmron(Panda):
+    """robosuite compositional.py:6-28: a Panda on an OmronMobileBase, under
+    the HYBRID_MOBILE_BASE composite (default_pandaomron.json)."""
+
+    robot_kind = "wheeled"
+    composite_type = "HYBRID_MOBILE_BASE"
+    part_controller_kp = {"torso": 2000.0, "head": 1000.0}
+
+    @property
+    def default_base(self):
+        return "OmronMobileBase"
+
+    @property
+    def init_qpos(self):
+        return np.array([0, np.pi / 16.0 - 0.2, 0.00, -np.pi / 2.0 - np.pi / 3.0, 0.00, np.pi - 0.4, np.pi / 4])
+
+    @property
+    def init_torso_qpos(self):
+        return np.array([0.2])
+
+    @property
+    def base_xpos_offset(self):
+        return {
+            "bins": (-0.6, -0.1, 0),
+            "empty": (-0.6, 0, 0),
+            "table": lambda table_length: (-0.16 - table_length / 2, 0, 0),
+        }
+
+
+@register_robot
+class SpotWithArm(SpotArm):
+    """robosuite compositional.py:31-52: the Spot arm on the legged Spot body
+    (a free root joint, 12 actuated legs)."""
+
+    robot_kind = "legged"
+
+    @property
+    def default_base(self):
+        return "Spot"
+
+    @property
+    def init_qpos(self):
+        return np.array([0.0, -2, 1.26, -0.335, 0.862, 0.0])
+
+    @property
+    def base_xpos_offset(self):
+        return {
+            "bins": (-1.05, -0.1, -0.22),
+            "empty": (-1.1, 0, -0.22),
+            "table": lambda table_length: (-0.5 - table_length / 2, 0.0, -0.22),
+        }
+
+
+@register_robot
+class SpotWithArmFloating(SpotArm):
+    """robosuite compositional.py:53-74: the Spot arm on the de-legged Spot
+    body with planar joints."""
+
+    robot_kind = "legged"
+
+    @property
+    def default_base(self):
+        return "SpotFloating"
+
+    @property
+    def init_qpos(self):
+        return np.array([0.0, -2, 1.26, -0.335, 0.862, 0.0])
+
+    @property
+    def base_xpos_offset(self):
+        return {
+            "bins": (-0.7, -0.1, 0.0),
+            "empty": (-0.6, 0, 0.0),
+            "table": lambda table_length: (-0.5 - table_length / 2, 0.0, 0.0),
+        }
+
+
+@register_robot
+class Tiago(ManipulatorModel):
+    """robosuite tiago_robot.py: a bimanual wheeled manipulator; its card has
+    the torso lift, 2 head joints and 2 x 6 arm joints, the planar joints
+    come from the NullMobileBase, a Robotiq 85 on each arm."""
+
+    card_name = "tiago"
+    arms = ["right", "left"]
+    robot_kind = "wheeled"
+
+    @property
+    def arm_type(self):
+        return "bimanual"
+
+    @property
+    def default_base(self):
+        return "NullMobileBase"
+
+    @property
+    def default_gripper(self):
+        return {"right": "Robotiq85Gripper", "left": "Robotiq85Gripper"}
+
+    @property
+    def init_qpos(self):
+        # card order: torso_lift, head_1, head_2, right arm x6, left arm x6
+        return np.array([0.1, 0, 0, 0, -0.9, 1.45, 1.7, -1.5, 0.5, 0, -0.9, 1.45, 1.7, -1.5, 0.5])
+
+    @property
+    def base_xpos_offset(self):
+        return {
+            "bins": (-0.5, -0.1, 0),
+            "empty": (-0.29, 0, 0),
+            "table": lambda table_length: (-0.20 - table_length / 2, 0, 0),
+        }

@@ -39,7 +39,7 @@ from robosuite_tpu_torch.ops.forward import forward_plain, model_tables
 from robosuite_tpu_torch.physics import contact as C
 from robosuite_tpu_torch.physics import engine, kinematics
 from robosuite_tpu_torch.physics.state import State
-from robosuite_tpu_torch.robots.robot import FixedBaseRobot
+from robosuite_tpu_torch.robots.robot import FixedBaseRobot, MobileRobot
 
 
 class UnsupportedFused(Exception):
@@ -68,8 +68,9 @@ def extract_spec(env, model) -> dict:
     reference's, it takes OSC (any setting) and JOINT_POSITION arms and
     refuses JOINT_VELOCITY, JOINT_TORQUE and IK_POSE; the OSC law's
     uncouple_pos_ori and the torque compensation come from the config.
-    Tendons and equality constraints are refused first, with the
-    reference's reasons (pallas_substep.py:117-120)."""
+    Tendons and equality constraints are refused first, then a mobile or
+    legged robot and a WHOLE_BODY_IK composite, with the reference's
+    reasons (pallas_substep.py:117-124)."""
     if model.ntendon:
         raise UnsupportedFused("tendons")
     if model.neq:
@@ -77,6 +78,10 @@ def extract_spec(env, model) -> dict:
     if len(env.robots) != 1 or not isinstance(env.robots[0], FixedBaseRobot):
         raise UnsupportedFused("one fixed-base robot only")
     robot = env.robots[0]
+    if isinstance(robot, MobileRobot):
+        raise UnsupportedFused("non-fixed-base robot")
+    if robot.wbik_spec is not None:
+        raise UnsupportedFused("WBIK composite")
     if len(robot.arms) != 1:
         raise UnsupportedFused("multi-arm")  # Baxter, as the reference's gate
     arm = robot.arms[0]

@@ -26,7 +26,7 @@ import torch
 
 from robosuite_tpu_torch.models import spec as S
 
-MAXB, MAXJ, MAXQ, MAXV, MAXG, MAXS, MAXU, MAXP, MAXK, MAXA, MAXGR = 56, 24, 48, 44, 176, 32, 24, 64, 192, 8, 12
+MAXB, MAXJ, MAXQ, MAXV, MAXG, MAXS, MAXU, MAXP, MAXK, MAXA, MAXGR = 64, 32, 48, 44, 176, 32, 24, 64, 192, 8, 12
 MAXE = 8  # equality rows of K2
 MAXPR = 384  # (body, dof) pairs with anc != 0
 MAXCT = 25 * MAXP  # narrowphase candidates, all pairs

@@ -123,6 +123,14 @@ def _tree(model, qpos, subspace):
             torch.stack(sdof_ang, dim=1), torch.stack(sdof_lin, dim=1))
 
 
+def body_velocities(model, kin: KinData, qvel):
+    """(angular, linear) spatial velocity of every body, world frame,
+    origin-referenced, each (B, nbody, 3): each body's sum over the dofs
+    that move it of S_d qvel_d."""
+    anc = model.ancestor_mask
+    return anc @ (kin.sdof_ang * qvel[..., None]), anc @ (kin.sdof_lin * qvel[..., None])
+
+
 def point_jacobian(model, kin: KinData, bodyid: int, point):
     """(jacp (B, 3, nv), jacr (B, 3, nv)) of a world point attached to
     body `bodyid` (MuJoCo mj_jac). point: (B, 3)."""

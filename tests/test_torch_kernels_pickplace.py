@@ -190,7 +190,8 @@ def test_maxima_take_pickplace_and_refuse_more(pick):
     and NutAssembly with Baxter and PandaDexRH: nq 48, nv 44, 32 sites,
     tests/test_torch_tendon_robots.py), and so does
     TwoArmTransport, the largest world (53 bodies, nq 39, nv 36, 23 sites:
-    the body maximum raised to 56 for it); a model one past any of the
+    the body maximum raised to 56 for it, and to 64 bodies and 32 joints
+    for Lift-Tiago, tests/test_torch_mobile_robots.py); a model one past any of the
     maxima is refused by K1's table and K2's sizes; the fused substep's
     gate refuses PickPlaceCan for its row compaction before any maximum."""
     import robosuite_tpu_torch
@@ -198,7 +199,7 @@ def test_maxima_take_pickplace_and_refuse_more(pick):
     env, _ = pick
     m = env.model
     assert (tables.MAXB, tables.MAXJ, tables.MAXQ, tables.MAXV, tables.MAXG, tables.MAXS, tables.MAXU) == (
-        56, 24, 48, 44, 176, 32, 24)
+        64, 32, 48, 44, 176, 32, 24)
     assert tables.check_model(m, contacts=False) == 0
     contact_solve.check_sizes(m.nv, C.ROW_CAP)
     big_world = robosuite_tpu_torch.make("TwoArmTransport", robots=("Panda", "Panda"), device="cpu").model
