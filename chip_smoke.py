@@ -57,8 +57,9 @@ Phases (any failure exits non-zero):
      (hold_cubes), the aux poses and pair distances at the kernel's own
      post-step qpos;
  15. the Stack env-step slice: counts zeroed, reset + 10 policy steps
-     (K1 = 21, K3-JP = 250 launches), host-clock rates with and without a
-     profiled step; every substep of the 10 steps against the plain
+     (K1 = 21, K3-JP = 250 launches), the host-clock rate with the reset
+     (the steady rate and the profiled step cut for the run's time);
+     every substep of the 10 steps against the plain
      substep from the same input; one step with the fused path disabled
      (K1 + K2), substep by substep against the fused one;
  16. the Stack MPC at tools/bench_configs.py's width (B=32, H=128, K=16,
@@ -88,8 +89,9 @@ Phases (any failure exits non-zero):
      (hold_pair_dist's witnesses);
  21. the Door step slice: counts zeroed, reset + 10 step_batch policy
      steps (K1 = 21, K3 = 250), finite observations, rewards and done,
-     host-clock rates and a profiled step; each policy step against the
-     plain path from the same input; one unfused step (K1 + K2);
+     the host-clock rate with the reset (the steady rate and the profiled
+     step cut for the run's time); each policy step against the plain
+     path from the same input; one unfused step (K1 + K2);
  22. the Door MPC at tools/bench_configs.py's width (B=32, H=64, K=16,
      MPPI only): a warm-up tick, ticks 1-3 timed with their launch counts,
      finite actions in [-1, 1] and peak memory (the profiled tick cut in
@@ -297,8 +299,10 @@ Phases (any failure exits non-zero):
      rest, Spot on its feet) against its plain version and timed; then
      Lift-PandaOmron (HYBRID_MOBILE_BASE: the base's joint velocities, the
      torso lift, the base-mode flag; reset + 10 step_batch steps with the
-     first EARLIER_HELD held substep by substep, 10 steady steps, a
-     profiled step, one MPPI tick at B=32, H=64, K=16), Lift-SpotWithArm
+     first EARLIER_HELD held substep by substep, one MPPI tick at B=32,
+     H=64, K=16; the steady rate and the profiled step cut for the run's
+     time),
+     Lift-SpotWithArm
      (a free root beside the cube's, 12 legs on Spot's raw servo; 10
      steps with EARLIER_HELD held, one MPPI tick), Lift-SpotWithArmFloating
      (reset + EARLIER_HELD steps held), Lift-Tiago (60 bodies, 31 joints:
@@ -306,6 +310,22 @@ Phases (any failure exits non-zero):
      launch by launch, its Robotiq 85s as the UR5e's) and Lift-PandaOmron
      under WHOLE_BODY_IK (default_pandaomron_whole_body_ik.json: absolute
      targets about the reset's eef pose; reset + EARLIER_HELD steps held).
+ 116-125. GR1 and its three variants (gr1_slice), last, unfused (the fused
+     gate refuses a non-fixed-base robot): Lift-GR1 (WHOLE_BODY_IK over the
+     torso and both arms, 12 actuated legs anchored to the card's stance,
+     the Fourier hands; 92 bodies, nv 60, 558 pairs compacted into 96
+     slots), Lift-GR1FixedLowerBody (WHOLE_BODY_MINK_IK run as
+     WHOLE_BODY_IK), Lift-GR1FloatingBody (HYBRID_MOBILE_BASE) and
+     Lift-GR1ArmsOnly: each world's runtime, action layout and gate, K1's
+     and K2's blocks (K1 2 scenarios a block where 4 do not fit the card,
+     K2 at nv 60 one), K1 at 512 against its plain version and timed, K2 at
+     the settled state (the arms held at their poses) against its plain
+     version and timed, reset + 10 step_batch steps (WHOLE_BODY_IK:
+     absolute targets about the reset's eef poses) with the first
+     EARLIER_HELD held substep by substep; on Lift-GR1 also K1 at 32, K4
+     once at 512 held against its plain version, the steady rate and a
+     profiled step, the stance (8 zero-action policy steps keep the torso
+     within 0.15 m of its height) and one MPPI tick at B=32, H=64, K=16.
 The count of (substep, scenario) cases that the holds set aside on a
 float64 near-tie witness is printed at the end.
 Timings use CUDA events (profiler passes show one policy step's and one
@@ -647,9 +667,12 @@ def bound(bytes_, flops, n):
 
 # The compiled kernel of each variant (K3 and K3-JP share one instantiation,
 # K3-aux and K3-aux-JP the other; the law is chosen by the table; K2 has
-# one without equality rows and one with them, K2-eq).
-VARIANT_KERNEL = {"K1": "rs_forward_kernel", "K2": "rs_contact_solve_kernelILb0", "K2-eq": "rs_contact_solve_kernelILb1",
-                  "K3": "rs_substep_kernelILb0",
+# one without equality rows and one with them, K2-eq, each at 2 scenarios
+# a block and at 1 (K2-wide, on a world too wide for 2: GR1's nv 60); K1
+# at 4 scenarios a block and at 2, K1-wide, on GR1's wide worlds).
+VARIANT_KERNEL = {"K1": "rs_forward_kernelILi4E", "K1-wide": "rs_forward_kernelILi2E",
+                  "K2": "rs_contact_solve_kernelILb0ELi2E", "K2-eq": "rs_contact_solve_kernelILb1ELi2E",
+                  "K2-wide": "rs_contact_solve_kernelILb0ELi1E", "K3": "rs_substep_kernelILb0",
                   "K3-JP": "rs_substep_kernelILb0", "K3-aux": "rs_substep_kernelILb1",
                   "K3-aux-JP": "rs_substep_kernelILb1", "K4": "rs_fk_kernel"}
 
@@ -1166,18 +1189,7 @@ def stack_slice(tag, results):
             and torch.isfinite(rew).all()):
         fail("non-finite states or rewards on the Stack path")
     print(f"{tag} Stack env policy-steps/s (B={B}, reset + {STEPS} steps, host clock): {B * STEPS / dt:.1f}")
-    t0 = time.perf_counter()
-    s_ss = states
-    for _ in range(STEPS):
-        s_ss, _ = env.rollout_batch(s_ss, actions)
-    torch.cuda.synchronize()
-    steady = B * STEPS / (time.perf_counter() - t0)
-    print(f"{tag} Stack env policy-steps/s (B={B}, {STEPS} steps after the above, host clock): {steady:.1f}")
-    _, wall_ms, dev_ms, top, port = profile_once(tag, "one Stack policy step",
-                                                 lambda: env.rollout_batch(states, actions), 6)
-    results.update(stack_policy_steps_per_s=B * STEPS / dt, stack_steady_policy_steps_per_s=steady,
-                   stack_launches=counts, stack_profile_wall_ms=wall_ms, stack_profile_device_ms=dev_ms,
-                   stack_profile_top=top, stack_profile_port=port)
+    results.update(stack_policy_steps_per_s=B * STEPS / dt, stack_launches=counts)
 
     # each policy step of that run, substep by substep: the kernel and the
     # plain substep from the same input, then on from the kernel's output;
@@ -1565,18 +1577,7 @@ def door_slice(tag, results):
     print(f"{tag} Door env policy-steps/s (B={B}, reset + {STEPS} step_batch steps, host clock): {B * STEPS / dt:.1f}; "
           f"rewards mean {float(rew.mean()):.4f} max {float(rew.max()):.4f}; |eef force| after the last step: "
           f"max {float(f_eef.max()):.3f} N, nonzero in {int((f_eef > 0).sum())}/{B}")
-    t0 = time.perf_counter()
-    s_ss = states
-    for _ in range(STEPS):
-        s_ss, _, _, _, _ = env.step_batch(s_ss, actions)
-    torch.cuda.synchronize()
-    steady = B * STEPS / (time.perf_counter() - t0)
-    print(f"{tag} Door env policy-steps/s (B={B}, {STEPS} step_batch steps after the above, host clock): {steady:.1f}")
-    _, wall_ms, dev_ms, top, port = profile_once(tag, "one Door step_batch policy step",
-                                                 lambda: env.step_batch(states, actions), 6)
-    results.update(door_policy_steps_per_s=B * STEPS / dt, door_steady_policy_steps_per_s=steady,
-                   door_launches=counts, door_profile_wall_ms=wall_ms, door_profile_device_ms=dev_ms,
-                   door_profile_top=top, door_profile_port=port)
+    results.update(door_policy_steps_per_s=B * STEPS / dt, door_launches=counts)
     # each policy step against the plain path from the same input: plain
     # forward products and 25 plain substeps; the reward on the plain poses
     worst_r = 0.0
@@ -3382,7 +3383,7 @@ def rows_graph_report(tag, name, model, kin, qvel, results):
     for this world at this batch: the capture's time (a fresh graph: two
     eager warm-up runs and the capture), its replay's time by events, and
     the device activities in one eager run of the captured code and in one
-    replay (the profiler)."""
+    replay (the profiler), and the device memory the capture reserved."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3390,10 +3391,12 @@ def rows_graph_report(tag, name, model, kin, qvel, results):
 
     dt = model.timestep
     torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
     graph = C._RowsGraph(model, kin, qvel, dt)
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
+    graph_gb = (torch.cuda.memory_reserved() - reserved) / 1e9
     replay_ms = cuda_ms(lambda: graph(kin, qvel), 5)
     counts = []
     for fn in (lambda: C.solver_inputs(model, kin, C.narrowphase(model, kin), qvel, dt), lambda: graph(kin, qvel)):
@@ -3403,9 +3406,9 @@ def rows_graph_report(tag, name, model, kin, qvel, results):
             torch.cuda.synchronize()
         counts.append(sum(r[2] for r in kernel_rows(prof)))
     print(f"{tag} {name} contact rows graph (B={qvel.shape[0]}, {model.npair} pairs): capture {capture_s:.2f} s, "
-          f"replay {replay_ms:.3f} ms by events; device activities {counts[0]} in one eager run, {counts[1]} "
-          f"recorded in one replay")
-    results.setdefault("rows_graphs", {})[name] = dict(capture_s=capture_s, replay_ms=replay_ms,
+          f"{graph_gb:.3f} GB reserved; replay {replay_ms:.3f} ms by events; device activities {counts[0]} in one "
+          f"eager run, {counts[1]} recorded in one replay")
+    results.setdefault("rows_graphs", {})[name] = dict(capture_s=capture_s, replay_ms=replay_ms, graph_gb=graph_gb,
                                                        eager_kernels=counts[0], replay_kernels=counts[1])
 
 
@@ -3630,20 +3633,23 @@ WIDE_WORLDS = {
 
 def unfused_smem(name, model, K, ne, results):
     """K1's and K2's shared memory a block at this world (K2 at nv, K
-    contact rows and ne equality rows) against the card's opt-in limit."""
-    import torch
-
+    contact rows and ne equality rows) against the card's opt-in limit,
+    with the scenarios a block each launch takes. -> those scenarios (K1,
+    K2)."""
     from robosuite_tpu_torch.ops import build, forward
 
     lib = build.library()
-    k1_smem = lib.rs_forward_smem_bytes(forward.model_tables(model)[1].data_ptr())
-    k2_smem = lib.rs_contact_solve_smem_bytes(model.nv, K, ne)
-    optin = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", 232448)
-    print(f"{name} shared memory a block: K1 {k1_smem} B (4 scenarios), K2 {k2_smem} B (2 scenarios at nv "
-          f"{model.nv}, {K} contact rows, {ne} equality rows); the card's opt-in limit {optin} B")
+    T_host = forward.model_tables(model)[1].data_ptr()
+    k1_smem, k1_s = lib.rs_forward_smem_bytes(T_host), lib.rs_forward_scenarios(T_host)
+    k2_smem, k2_s = lib.rs_contact_solve_smem_bytes(model.nv, K, ne), lib.rs_contact_solve_scenarios(model.nv, K, ne)
+    optin = lib.rs_smem_limit()
+    print(f"{name} shared memory a block: K1 {k1_smem} B ({k1_s} scenarios), K2 {k2_smem} B ({k2_s} scenarios at "
+          f"nv {model.nv}, {K} contact rows, {ne} equality rows); the card's opt-in limit {optin} B")
     if not 0 < max(k1_smem, k2_smem) <= optin:
         fail(f"{name}: a K1 or K2 block's shared memory is past the card's opt-in limit {optin} B")
     results["smem_bytes"].update({f"K1 {name} block": k1_smem, f"K2 {name} block": k2_smem})
+    results.setdefault("block_scenarios", {}).update({f"K1 {name}": k1_s, f"K2 {name}": k2_s})
+    return k1_s, k2_s
 
 
 def refused_by_gate(name, env, model, refusal):
@@ -3806,9 +3812,9 @@ def tendons_slice(tag, results):
 # the wheeled and legged worlds (phases 106-115): the robot, its controller
 # config (None: the robot's default composite), (nq, nv, nbody, njnt, nsite,
 # nu, action_dim), the fused gate's refusal, the first phase, what runs:
-# "full" (K1 at B, K2, reset + STEPS steps with EARLIER_HELD held, the
-# steady rate, a profiled step, one MPPI tick), "step" (the same without
-# the steady rate and the profiled step), "held" (K1 at B, K2, reset +
+# "step" (K1 at B, K2, reset + STEPS steps with EARLIER_HELD held, one
+# MPPI tick; PandaOmron's steady rate and profiled step cut for
+# the run's time), "held" (K1 at B, K2, reset +
 # EARLIER_HELD steps, all held), and how a held substep is held (whole,
 # or launch by launch: Tiago's Robotiq 85s swing their fingers at 100-200
 # rad/s from the reset, as the UR5e's do); the widths K1 is held and
@@ -3816,7 +3822,7 @@ def tendons_slice(tag, results):
 # cube at rest on the table, Spot on its feet).
 WBIK_OMRON = "robosuite_tpu_torch/controllers/config/robots/default_pandaomron_whole_body_ik.json"
 MOBILE_WORLDS = {
-    "Lift-PandaOmron": ("PandaOmron", None, (20, 19, 26, 14, 10, 13, 12), "non-fixed-base robot", 106, "full",
+    "Lift-PandaOmron": ("PandaOmron", None, (20, 19, 26, 14, 10, 13, 12), "non-fixed-base robot", 106, "step",
                         True, (B,)),
     "Lift-SpotWithArm": ("SpotWithArm", None, (33, 31, 38, 21, 14, 19, 19), "non-fixed-base robot", 108, "step",
                          True, (B,)),
@@ -3900,7 +3906,7 @@ def mobile_world(tag, results, name):
         actions = wbik_targets(env, valid_resets(env, B, g2)[0])
     key = name.lower().replace("-", "_")
     out = {}
-    out[f"{name} step"], last, _ = unfused_step_slice(tag, name, env, gen, results, key, actions, depth == "full",
+    out[f"{name} step"], last, _ = unfused_step_slice(tag, name, env, gen, results, key, actions, False,
                                                       EARLIER_HELD if depth == "held" else STEPS,
                                                       held=EARLIER_HELD, whole=whole)
     if depth != "held":
@@ -3920,6 +3926,180 @@ def mobile_slice(tag, results):
     out = {}
     for name in MOBILE_WORLDS:
         out.update(mobile_world(tag, results, name))
+        phase_done(name)
+    return out
+
+
+# GR1 and its three variants (phases 116-125), all LeggedRobots on the
+# unfused path (the fused gate refuses a non-fixed-base robot, as the JAX
+# gate does): the robot, (nq, nv, nbody, njnt, nsite, nu, action_dim), the
+# first phase, what runs beyond the common part (the world, its runtime
+# and the gate, K1's and K2's blocks, K1 at its widths against its plain
+# version and timed, K2 at the settled state, reset + STEPS step_batch
+# steps at B with the first EARLIER_HELD held substep by substep):
+# "full" (K1 also at 32, the steady rate and a profiled step, the stance,
+# one MPPI tick at B=32, H=64, K=16) or "steps", and how a held substep is
+# held: whole, or launch by launch where GR1's head and torso move. GR1's
+# head-roll box sits 6.5 cm deep in its chest box, and that pair's SAT axes tie
+# exactly (margin 0 in float64), so the kernel substep and the plain one
+# from the same input keep other contact points there in ~14% of the
+# (substep, scenario) cases (the first GR1 run: 3,542 of 25,600 on
+# Lift-GR1, each with that witness), and on GR1FixedLowerBody one case
+# parted on a choice the witness does not see; every launch agreed with
+# its plain version within the launch holds' tolerances. Every world runs
+# GR1's 92 bodies: K1 takes 2 scenarios a block where 4 do not fit, and
+# GR1's K2 at nv 60 one scenario a block.
+GR1_WORLDS = {
+    "Lift-GR1": ("GR1", (61, 60, 92, 55, 51, 54, 24), 116, "full", False),
+    "Lift-GR1FixedLowerBody": ("GR1FixedLowerBody", (49, 48, 92, 43, 51, 42, 24), 120, "steps", False),
+    "Lift-GR1FloatingBody": ("GR1FloatingBody", (52, 51, 92, 46, 51, 45, 34), 122, "steps", False),
+    "Lift-GR1ArmsOnly": ("GR1ArmsOnly", (43, 42, 92, 37, 51, 36, 24), 124, "steps", True),
+}
+STANCE_STEPS = 8  # GR1's zero-action policy steps for the stance (the JAX tests/test_legged_robot.py bound)
+STANCE_TOL = 0.15  # metres the torso's root body may move in height over them
+
+
+def hold_actions(env, states, gen):
+    """The actions a GR1 world is settled and driven with: WHOLE_BODY_IK's
+    absolute targets about the eefs' poses at `states` (wbik_targets), or
+    (GR1FloatingBody) small random deltas for the arms and the hands and
+    random base modes, the torso, head and base held (zero: the torso's
+    and head's absolute goals at their reset posture, the base at rest).
+    Moving GR1's torso and head drives its head-roll box, 6.5 cm deep in its
+    chest box, through that pair's exact SAT tie under stiff contact: in
+    the first GR1 runs on the card, under random deltas on every part, one
+    scenario of 512 reached 7e9 rad/s within a policy step on the kernel
+    path and not on the plain one, where the two had parted at a solve that
+    each float32 version missed by ~1% of its float64 twin (the kernel the
+    closer: solve_conditioning_witness)."""
+    import torch
+
+    r = env.robots[0]
+    if r.wbik_spec is not None:
+        return wbik_targets(env, states)
+    a = torch.clamp(0.3 * torch.randn(B, env.action_dim, generator=gen, device="cuda"), -1.0, 1.0)
+    idx = r.action_split_indexes()
+    for part in ("torso", "head", "base", "legs"):
+        if part in idx:
+            a[:, slice(*idx[part])] = 0.0
+    return a
+
+
+def gr1_stance(tag, env, gen, results):
+    """GR1's stance: STANCE_STEPS step_batch policy steps of zero action
+    from a reset at B keep the torso's root body within STANCE_TOL of its
+    start in height, every state finite."""
+    import torch
+
+    from robosuite_tpu_torch.physics import engine
+
+    model, r = env.model, env.robots[0]
+    tb = int(model.jnt_bodyid[model.jnt_name2id(r.rm.torso_joints[0])])
+    s = valid_resets(env, B, gen)[0]
+    z0 = engine.forward_products(model, s.physics.qpos, s.physics.qvel)[0].xpos[:, tb, 2]
+    a = torch.zeros(B, env.action_dim, device="cuda")
+    for _ in range(STANCE_STEPS):
+        s = env.step_batch(s, a)[0]
+    z1 = engine.forward_products(model, s.physics.qpos, s.physics.qvel)[0].xpos[:, tb, 2]
+    torch.cuda.synchronize()
+    drift = float((z1 - z0).abs().max())
+    print(f"{tag} Lift-GR1 stance: torso root body {model.body_names[tb]} at z {float(z0.mean()):.4f} m, after "
+          f"{STANCE_STEPS} zero-action policy steps {float(z1.mean()):.4f} m (largest change {drift:.3e} m over {B} "
+          f"scenarios; bound {STANCE_TOL} m)")
+    if not (torch.isfinite(s.physics.qpos).all() and torch.isfinite(s.physics.qvel).all()):
+        fail("Lift-GR1 stance: a state is not finite")
+    if not drift < STANCE_TOL:
+        fail(f"Lift-GR1 stance: the torso moved {drift:.3f} m in height, past {STANCE_TOL} m")
+    results["gr1_stance_drift_m"] = drift
+
+
+def gr1_k4(tag, model, states, results):
+    """K4 (pose-only FK) launched once at GR1's size (B scenarios, 92
+    bodies) and held against its plain version (2e-5), then timed; held
+    only, so none of its launches counts on a path."""
+    from robosuite_tpu_torch.ops import fk
+
+    q = states.physics.qpos.contiguous()
+    xp_k, xq_k = fk.fk_pose(model, q)
+    xp_p, xq_p = fk.fk_pose_plain(model, q)
+    err = max(max_err(xp_k, xp_p), max_err(xq_k, xq_p))
+    check(f"Lift-GR1 K4 poses (B={B})", err, 2e-5)
+    nb = model.nbody
+    row = time_width(tag, "K4 Lift-GR1", lambda: fk.fk_pose(model, q), lambda: fk.fk_pose_plain(model, q), 20,
+                     4 * (B * (model.nq + 7 * nb)), op_counts(model, 0)["K4"], B)
+    results["gr1_k4"] = dict(max_abs_err=err, **row)
+
+
+def gr1_world(tag, results, name):
+    """One GR1 world in Lift on the unfused path (GR1_WORLDS). -> {path:
+    launch counts}."""
+    import torch
+
+    import robosuite_tpu_torch as R
+    from robosuite_tpu_torch import ab_kernels
+    from robosuite_tpu_torch.physics import contact as C
+
+    robot, sizes, ph, depth, whole = GR1_WORLDS[name]
+    env = R.make("Lift", robots=robot, reward_shaping=True, seed=SEED)
+    model, r = env.model, env.robots[0]
+    K = C.ROW_CAP
+    got = (model.nq, model.nv, model.nbody, model.njnt, model.nsite, model.nu, env.action_dim)
+    print(f"{name} world: nq={got[0]} nv={got[1]} nbody={got[2]} njnt={got[3]} nsite={got[4]} nu={got[5]}, "
+          f"action_dim {got[6]} {r.action_split_indexes()}; runtime {type(r).__name__}, composite "
+          f"{r.composite_type or getattr(r.rm, 'composite_type', 'BASIC')}, legs actuated {r.is_legs_actuated} "
+          f"({r.num_leg_joints} joints); {model.npair} pairs, "
+          f"{sum(len(x) for x in C.contact_row_layout(model).values())} candidate rows compacted into {K} slots")
+    if got != sizes or not C.uses_row_compaction(model):
+        fail(f"the {name} world is {got}, not {sizes} (nq, nv, nbody, njnt, nsite, nu, action_dim), or does not "
+             f"compact its rows")
+    refused_by_gate(name, env, model, "non-fixed-base robot")
+    k1_s, k2_s = unfused_smem(name, model, K, 0, results)
+    world_k = results.setdefault("unfused_kernels", {}).setdefault(name, {})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + ph)
+    states = valid_resets(env, B, gen)[0]
+    unfused_k1(tag, name, model, states, (B, H64_B) if depth == "full" else (B,), world_k, results)
+    if depth == "full":
+        gr1_k4(tag, model, states, results)
+    phase_done(f"{name} world, gate, K1")
+    s = states  # settled: the cube at rest on the table, the arms held at their poses
+    for _ in range(ab_kernels.LIFT_SETTLE_STEPS):
+        s = env.rollout_batch(s, hold_actions(env, s, gen))[0]
+    kin, M, bias, con = plain_products(env, s)
+    n_act = (con["dist"] < con["margin"]).sum(1)
+    print(f"{name} settled state: active rows per scenario min {int(n_act.min())} median {int(n_act.median())} max "
+          f"{int(n_act.max())}")
+    if not (torch.isfinite(s.physics.qpos).all() and 2 * int((n_act >= 4).sum()) >= B):
+        fail(f"the {name} settled state is not finite, or has >= 4 active rows in under half the scenarios")
+    unfused_k2(name, env, states, s, kin, M, bias, con, K, world_k)
+    world_k["K1"]["scenarios_a_block"], world_k["K2"]["scenarios_a_block"] = k1_s, k2_s
+    if depth == "full":
+        rows_graph_report(tag, name, model, kin, s.physics.qvel, results)
+    g2 = torch.Generator(device="cuda")  # the step slice's reset, drawn from a copy of its generator
+    g2.set_state(gen.get_state())
+    actions = hold_actions(env, valid_resets(env, B, g2)[0], g2)
+    key = name.lower().replace("-", "_")
+    out = {}
+    out[f"{name} step"], last, _ = unfused_step_slice(tag, name, env, gen, results, key, actions, depth == "full",
+                                                      STEPS, held=EARLIER_HELD, whole=whole)
+    if depth == "full":
+        gr1_stance(tag, env, gen, results)
+        out[f"{name} MPC"] = unfused_mpc(tag, name, env, H64_MPC, H64_B, 1,
+                                         torch.Generator(device="cuda").manual_seed(SEED + ph + 1),
+                                         torch.Generator(device="cuda").manual_seed(SEED + ph + 2), results, key,
+                                         (states, last), world_k, False)
+    for k, v in world_k.items():
+        print(f"{tag} {name} {k}: {v['ms']:.4f} ms/launch at B={B} ({v['dev_ms']:.4f} ms device, "
+              f"{v['scenarios_a_block']} scenarios a block), plain {v['plain_ms']:.3f} ms, bound "
+              f"{v['bound'][0]:.5f} ms ({v['bound'][1]})")
+    return out
+
+
+def gr1_slice(tag, results):
+    """Phases 116-125: GR1 and its variants (gr1_world). -> {path: launch
+    counts}."""
+    out = {}
+    for name in GR1_WORLDS:
+        out.update(gr1_world(tag, results, name))
         phase_done(name)
     return out
 
@@ -4387,6 +4567,8 @@ def main():
     tendons = tendons_slice(tag, results)
     release_memory("the wheeled and legged worlds")
     mobile = mobile_slice(tag, results)
+    release_memory("GR1 and its variants")
+    gr1 = gr1_slice(tag, results)
 
     # ---- report ------------------------------------------------------------------
     # launches on each path, counted from zero just before it: Lift's env step
@@ -4397,7 +4579,7 @@ def main():
     every = osc + (counts_u, door_counts_u, stack_counts, stack_counts_u, stack_mpc_counts, pick_counts,
                    pick_mpc_counts) + sum(unfused.values(), ()) + tuple(
         c for k, c in ctrl.items() if "OSC" not in k) + tuple(c for k, c in robots.items() if "Baxter" in k) + tuple(
-        tendons.values()) + tuple(mobile.values())
+        tendons.values()) + tuple(mobile.values()) + tuple(gr1.values())
     paths = {"K1": every, "K2": every, "K3": osc, "K3-aux": osc, "K4": every}
     launches = {k: sum(c.get(k, 0) for c in cs) for k, cs in paths.items()}
     launches["K3-JP"] = stack_counts["K3"] + stack_mpc_counts["K3"]
@@ -4425,7 +4607,8 @@ def main():
           + f"; Lift AD-linearized MPC ticks 1-{AD_TICKS} {lift_ad_counts}, make_solve {unbatched_counts}; "
           + "; ".join(f"{k} {c}" for k, c in ctrl.items()) + "; " + "; ".join(f"{k} {c}" for k, c in robots.items())
           + "; " + "; ".join(f"{k} {c}" for k, c in tendons.items())
-          + "; " + "; ".join(f"{k} {c}" for k, c in mobile.items()))
+          + "; " + "; ".join(f"{k} {c}" for k, c in mobile.items())
+          + "; " + "; ".join(f"{k} {c}" for k, c in gr1.items()))
     by_label = {}
     for a in ASIDE:
         by_label[a.split()[0]] = by_label.get(a.split()[0], 0) + 1

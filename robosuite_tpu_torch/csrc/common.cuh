@@ -117,13 +117,13 @@ static __device__ long long rs_stage_clock[RS_NSTAGES];
 
 // Compile-time maxima; the Python side checks a model against them
 // before it packs the table (ops/tables.py mirrors these numbers).
-#define RS_MAXB 64     // bodies (Tiago's 60)
-#define RS_MAXJ 32     // joints (Tiago's 31)
-#define RS_MAXQ 48     // qpos
-#define RS_MAXV 44     // dofs
+#define RS_MAXB 96     // bodies (GR1's 92)
+#define RS_MAXJ 56     // joints (GR1's 55)
+#define RS_MAXQ 64     // qpos (GR1's 61)
+#define RS_MAXV 60     // dofs (GR1's 60)
 #define RS_MAXG 176    // geoms
-#define RS_MAXS 32     // sites
-#define RS_MAXU 24     // actuators
+#define RS_MAXS 52     // sites (GR1's 51)
+#define RS_MAXU 24     // actuators of the fused substep (K1 and K4 read none)
 #define RS_MAXP 64     // candidate pairs
 #define RS_MAXK 192    // contact rows (points)
 #define RS_MAXE 8      // equality rows of K2 (XArm7's 7)
@@ -131,10 +131,10 @@ static __device__ long long rs_stage_clock[RS_NSTAGES];
 #define RS_MAXCT 1600  // RS_MAXP * 25: narrowphase candidates, all pairs
 #define RS_MAXA 8      // arm dofs
 #define RS_MAXGR 12    // gripper actuators (an Inspire hand's 12)
-#define RS_MAXPR 384   // (body, dof) pairs with anc != 0
-#define RS_MAXV1 45    // RS_MAXV + 1 and RS_MAXB + 1: prefix tables over the dofs and the bodies
-#define RS_MAXB1 65
-#define RS_MAXV2 1936  // RS_MAXV * RS_MAXV: the mass matrix's entries
+#define RS_MAXPR 896   // (body, dof) pairs with anc != 0 (GR1FloatingBody's 885)
+#define RS_MAXV1 61    // RS_MAXV + 1 and RS_MAXB + 1: prefix tables over the dofs and the bodies
+#define RS_MAXB1 97
+#define RS_MAXV2 3600  // RS_MAXV * RS_MAXV: the mass matrix's entries
 
 // Scenarios a block of K1, K2 and K3 (one warp each) and K4 (one thread
 // each), fixed at compile time; `python -m robosuite_tpu_torch.ab_kernels
@@ -151,6 +151,29 @@ static __device__ long long rs_stage_clock[RS_NSTAGES];
 #endif
 #ifndef RS_S_SUBSTEP
 #define RS_S_SUBSTEP 1
+#endif
+// K1 and K2 take these fewer scenarios a block where the block above
+// would not fit the shared memory a block may opt in to (232,448 B on the
+// H100): K1 on GR1's 92 bodies at nv 48-60 (245-304 KB at 4), K2 at nv 60
+// with 96 slots (244 KB at 2). Narrower worlds keep the blocks above.
+#ifndef RS_S_FORWARD_WIDE
+#define RS_S_FORWARD_WIDE 2
+#endif
+#ifndef RS_S_SOLVE_WIDE
+#define RS_S_SOLVE_WIDE 1
+#endif
+
+#ifdef __CUDACC__
+// The shared memory a block may opt in to on the current device, read once.
+static inline int rs_smem_optin() {
+  static int bytes = 0;
+  if (bytes == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return bytes;
+}
 #endif
 
 // Joint types (MuJoCo enum order) and narrowphase pair kinds.

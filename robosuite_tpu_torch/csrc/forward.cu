@@ -1,5 +1,5 @@
-// K1: batched forward products, RS_S_FORWARD scenarios a block, one warp
-// each.
+// K1: batched forward products, RS_S_FORWARD scenarios a block (or
+// RS_S_FORWARD_WIDE on a world too wide for that block), one warp each.
 //
 // Replaces robosuite_tpu/ops/pallas_forward.py _pallas_forward (body
 // forward_lane_body). What bounds it on this card: latency. Its work is
@@ -28,10 +28,10 @@
 //     model's own leaves, expanded without a copy).
 #include "forward.cuh"
 
-__global__ void __launch_bounds__(RS_S_FORWARD * 32)
+template <int S>
+__global__ void __launch_bounds__(S * 32)
     rs_forward_kernel(const RsTables* __restrict__ T, const float* __restrict__ tab, int B, K1Io io) {
   extern __shared__ __align__(16) float rs_smem[];
-  constexpr int S = RS_S_FORWARD;
   const size_t b0 = (size_t)blockIdx.x * S;
   const int nS = min(S, B - (int)b0), team = threadIdx.x / 32;
   const BlockTeam bk{};
@@ -56,12 +56,32 @@ __global__ void __launch_bounds__(RS_S_FORWARD * 32)
   RS_STAMP(7);
 }
 
-// Bytes of shared memory a K1 block takes for the host copy of a table.
-extern "C" int rs_forward_smem_bytes(const void* T_host) {
+// The scenarios a K1 block of this table holds, and that block's bytes.
+static int k1_block(const RsTables& T, int* bytes) {
   FwdTab F;
   Fwd f;
   Frames fr;
-  return 4 * carve_k1(*(const RsTables*)T_host, nullptr, RS_S_FORWARD, 0, F, f, fr);
+  int S = RS_S_FORWARD;
+  *bytes = 4 * carve_k1(T, nullptr, S, 0, F, f, fr);
+  if (*bytes > rs_smem_optin()) {
+    S = RS_S_FORWARD_WIDE;
+    *bytes = 4 * carve_k1(T, nullptr, S, 0, F, f, fr);
+  }
+  return S;
+}
+
+// Bytes of shared memory a K1 block takes for the host copy of a table
+// (the block the launch picks).
+extern "C" int rs_forward_smem_bytes(const void* T_host) {
+  int bytes;
+  k1_block(*(const RsTables*)T_host, &bytes);
+  return bytes;
+}
+
+// The scenarios a K1 block holds for the host copy of a table.
+extern "C" int rs_forward_scenarios(const void* T_host) {
+  int bytes;
+  return k1_block(*(const RsTables*)T_host, &bytes);
 }
 
 // The model image K1 and K4 stage (forward.cuh carve_tab) of the host copy
@@ -70,28 +90,40 @@ extern "C" int rs_forward_tab(const void* T_host, float* out) {
   return forward_tab_image(*(const RsTables*)T_host, out);
 }
 
+template <int S>
+static int launch_k1(const RsTables* T, const float* tab, int B, const K1Io& io, int bytes, cudaStream_t stream) {
+  static int opted = 48 * 1024;
+  if (bytes > opted) {
+    cudaError_t err = cudaFuncSetAttribute(rs_forward_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    opted = bytes;
+  }
+  rs_forward_kernel<S><<<(B + S - 1) / S, 32 * S, bytes, stream>>>(T, tab, B, io);
+  return (int)cudaGetLastError();
+}
+
 // K1 on B scenarios: qpos (B, nq), qvel (B, nv), the leaves mass (., nb),
 // inertia (., nb, 3), gravity (., 3), armature (., nv) with batch strides
 // (in floats; 0: one row for all), into the one output allocation out
 // (k1_offset); tab is the model image (rs_forward_tab) on the device. ->
-// the CUDA error.
+// the CUDA error (cudaErrorInvalidValue where even the wide block's carve
+// exceeds the opt-in limit).
 extern "C" int rs_forward(const void* T, const void* T_host, const float* tab, const float* qpos, const float* qvel,
                           const float* mass, int mass_bs, const float* inertia, int inertia_bs, const float* gravity,
                           int gravity_bs, const float* armature, int armature_bs, float* out, int B, void* stream) {
-  constexpr int S = RS_S_FORWARD;
-  static int opted = 48 * 1024;
-  const int bytes = rs_forward_smem_bytes(T_host);
-  if (bytes > opted) {
-    cudaError_t err = cudaFuncSetAttribute(rs_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    opted = bytes;
-  }
+  int bytes;
+  const int S = k1_block(*(const RsTables*)T_host, &bytes);
+  if (bytes > rs_smem_optin()) return (int)cudaErrorInvalidValue;
   const K1Io io{qpos, qvel, mass, inertia, gravity, armature, mass_bs, inertia_bs, gravity_bs, armature_bs, out};
-  rs_forward_kernel<<<(B + S - 1) / S, 32 * S, bytes, (cudaStream_t)stream>>>((const RsTables*)T, tab, B, io);
-  return (int)cudaGetLastError();
+  const RsTables* Td = (const RsTables*)T;
+  if (S == RS_S_FORWARD) return launch_k1<RS_S_FORWARD>(Td, tab, B, io, bytes, (cudaStream_t)stream);
+  return launch_k1<RS_S_FORWARD_WIDE>(Td, tab, B, io, bytes, (cudaStream_t)stream);
 }
 
 extern "C" int rs_tables_size() { return (int)sizeof(RsTables); }
+
+// The shared memory a block may opt in to on the current device, in bytes.
+extern "C" int rs_smem_limit() { return rs_smem_optin(); }
 
 #ifdef RS_STAGE_CLOCKS
 // The diagnostic build's stage clocks (common.cuh RS_STAMP) of the last

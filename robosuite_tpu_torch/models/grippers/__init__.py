@@ -1,9 +1,10 @@
 """Gripper models (robosuite models/grippers/*.py + gripper_factory.py):
 the Panda, Rethink, Boston Dynamics, Robotiq (85, 140, three-finger),
-Jaco three-finger, XArm7 and suction grippers, the Inspire hands, the null
-gripper and the wiping gripper. The Robotiq, Jaco and XArm7 grippers couple
-their fingers through fixed tendons and equality constraints, which the
-robot model merges into the world with the gripper's actuators.
+Jaco three-finger, XArm7 and suction grippers, the Inspire and Fourier
+hands, the null gripper and the wiping gripper. The Robotiq, Jaco and
+XArm7 grippers couple their fingers through fixed tendons and equality
+constraints, which the robot model merges into the world with the
+gripper's actuators.
 
 Each gripper wraps its model card with robosuite's metadata: dof, speed,
 init_qpos, important sites (grip_site for the OSC reference frame) and
@@ -239,13 +240,20 @@ class BDGripper(GripperModel):
 
 
 def _hand_geoms(prefix):
-    """An Inspire hand's finger geoms (robosuite inspire_hands.py:127-160):
-    the thumb's stand for the left finger and pad, the four fingers' for
-    the right."""
-    thumb = [f"{prefix}_thumb_proximal_col", f"{prefix}_thumb_proximal_2_col",
-             f"{prefix}_thumb_middle_col", f"{prefix}_thumb_distal_col"]
-    fingers = [f"{prefix}_{f}_{seg}_col" for f in ("index", "middle", "ring", "pinky")
-               for seg in ("proximal", "distal")]
+    """A dexterous hand's finger geoms (robosuite inspire_hands.py:127-160,
+    fourier_hands.py:49-81): the thumb's stand for the left finger and pad,
+    the four fingers' for the right. An Inspire hand's prefix is "l" / "r",
+    a Fourier hand's "L" / "R"."""
+    if prefix in ("l", "r"):
+        thumb = [f"{prefix}_thumb_proximal_col", f"{prefix}_thumb_proximal_2_col",
+                 f"{prefix}_thumb_middle_col", f"{prefix}_thumb_distal_col"]
+        fingers = [f"{prefix}_{f}_{seg}_col" for f in ("index", "middle", "ring", "pinky")
+                   for seg in ("proximal", "distal")]
+    else:
+        thumb = [f"{prefix}_thumb_proximal_base_link_col", f"{prefix}_thumb_proximal_link_col",
+                 f"{prefix}_thumb_distal_link_col"]
+        fingers = [f"{prefix}_{f}_{seg}_link_col" for f in ("index", "middle", "ring", "pinky")
+                   for seg in ("proximal", "intermediate")]
     return {"left_finger": thumb, "right_finger": fingers, "left_fingerpad": thumb, "right_fingerpad": fingers}
 
 
@@ -285,6 +293,45 @@ class InspireRightHand(InspireLeftHand):
     @property
     def _important_geoms(self):
         return _hand_geoms("r")
+
+
+@register_gripper
+class FourierLeftHand(GripperModel):
+    """robosuite fourier_hands.py:10-82: a 6-dof dexterous hand whose 6-wide
+    action drives its 11 position actuators directly, with no ramp (the
+    thumb's two pitch joints share one action element)."""
+
+    card_name = "fourier_left_hand"
+    dof = 6
+    speed = 0.15
+
+    def __init__(self, idn=0, arm="left"):
+        super().__init__(idn=idn, arm=arm)
+
+    def format_action_indices(self):
+        # actuators: pinky, ring, middle, index (intermediate, proximal
+        # each), then the thumb's distal, proximal pitch, proximal yaw
+        return np.array([0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5])
+
+    @property
+    def init_qpos(self):
+        return np.zeros(11)
+
+    @property
+    def _important_geoms(self):
+        return _hand_geoms("L")
+
+
+@register_gripper
+class FourierRightHand(FourierLeftHand):
+    card_name = "fourier_right_hand"
+
+    def __init__(self, idn=0, arm="right"):
+        super().__init__(idn=idn, arm=arm)
+
+    @property
+    def _important_geoms(self):
+        return _hand_geoms("R")
 
 
 def _robotiq_geoms():

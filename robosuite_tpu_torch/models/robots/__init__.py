@@ -1,14 +1,16 @@
 """Robot models: spec factories + metadata for the built-in manipulators.
 
-Copy of the JAX package's robot model layer, but the GR1 humanoids: the
-fixed-mount Panda, Sawyer, SpotArm, PandaDexRH / PandaDexLH (a Panda with
-an Inspire hand), the bimanual Baxter, and the UR5e, Kinova3, IIWA, Jaco
-and XArm7, whose grippers couple their fingers with tendons and equality
-constraints; the wheeled PandaOmron and Tiago; and the legged SpotWithArm
-and SpotWithArmFloating (robosuite models/robots/robot_model.py,
-manipulators/*.py, compositional.py). Each robot is a thin class over its
-committed model card plus robosuite's published metadata (init_qpos,
-default gripper/base, placement offsets).
+Copy of the JAX package's robot model layer: the fixed-mount Panda,
+Sawyer, SpotArm, PandaDexRH / PandaDexLH (a Panda with an Inspire hand),
+the bimanual Baxter, and the UR5e, Kinova3, IIWA, Jaco and XArm7, whose
+grippers couple their fingers with tendons and equality constraints; the
+wheeled PandaOmron and Tiago; the legged SpotWithArm and
+SpotWithArmFloating; and the GR1 humanoid with its variants
+GR1FixedLowerBody, GR1FloatingBody and GR1ArmsOnly, cut out of its spec
+(robosuite models/robots/robot_model.py, manipulators/*.py,
+compositional.py, legged_manipulator_model.py). Each robot is a thin
+class over its committed model card plus robosuite's published metadata
+(init_qpos, default gripper/base, placement offsets).
 """
 
 from __future__ import annotations
@@ -98,13 +100,15 @@ class ManipulatorModel:
 
     @property
     def card_joint_names(self) -> List[str]:
-        """All prefixed robot-card joints in card order (robosuite
-        robot.py _ref_joint_indexes); init_qpos covers exactly these."""
+        """All prefixed robot-card joints in card order but those the spec
+        surgery removed (robosuite robot.py _ref_joint_indexes); init_qpos
+        covers exactly these."""
         out = []
+        removed = getattr(self, "_removed_joints", ())
 
         def walk(bd):
             for j in bd.get("joints", []):
-                if j.get("type") != "free":
+                if j.get("type") != "free" and j["name"] not in removed:
                     out.append(j["name"])
             for c in bd.get("children", []):
                 walk(c)
@@ -114,9 +118,14 @@ class ManipulatorModel:
         return [self.naming_prefix + j for j in out]
 
     @property
+    def _eef_name(self) -> Dict[str, str]:
+        """The unprefixed eef body of each arm (robosuite
+        manipulator_model.py:176)."""
+        return {arm: f"{arm}_hand" for arm in self.arms}
+
+    @property
     def eef_name(self) -> Dict[str, str]:
-        """The eef body of each arm (robosuite manipulator_model.py:176)."""
-        return {arm: f"{self.naming_prefix}{arm}_hand" for arm in self.arms}
+        return {arm: self.naming_prefix + n for arm, n in self._eef_name.items()}
 
     # -- the non-arm parts (robosuite manipulator_model.py:97-114 classifies
     # the card's joints by name; a mobile or legged base adds its own)
@@ -153,6 +162,24 @@ class ManipulatorModel:
         if self.base is not None:
             return (self.base.bottom_offset - self.base.top_offset) + self.base_offset
         return self.base_offset
+
+    # -- spec surgery (robosuite legged_manipulator_model.py:22-63) -----------
+    def _remove_joint_actuation(self, part_name: str):
+        """Remove the joints whose name holds `part_name`, and their
+        actuators: the links become rigid decorations. The removed joints
+        are kept unprefixed, as the card names them."""
+        removed = set()
+        for b in self._root.walk():
+            removed |= {j.name for j in b.joints if part_name in j.name}
+            b.joints = [j for j in b.joints if part_name not in j.name]
+        self._actuators = [a for a in self._actuators if part_name not in a.name and a.joint not in removed]
+        pre = self.naming_prefix
+        self._removed_joints = getattr(self, "_removed_joints", set()) | {
+            n[len(pre):] if n.startswith(pre) else n for n in removed}
+
+    def _remove_free_joint(self):
+        for b in self._root.walk():
+            b.joints = [j for j in b.joints if j.type != "free"]
 
     # -- construction ---------------------------------------------------------
     def _build(self):
@@ -589,6 +616,107 @@ class SpotWithArmFloating(SpotArm):
             "empty": (-0.6, 0, 0.0),
             "table": lambda table_length: (-0.5 - table_length / 2, 0.0, 0.0),
         }
+
+
+def _gr1_arms_qpos(n, start):
+    """A GR1 variant's init_qpos: n zeros with the arms' reset posture from
+    `start` (right arm 7, then left arm 7)."""
+    q = np.zeros(n)
+    q[start:start + 7] = [0.0, -0.1, 0.0, -1.57, 0.0, 0.0, 0.0]
+    q[start + 7:start + 14] = [0.0, 0.1, 0.0, -1.57, 0.0, 0.0, 0.0]
+    return q
+
+
+@register_robot
+class GR1(ManipulatorModel):
+    """robosuite gr1_robot.py:7-101: the Fourier GR1 humanoid, bimanual: a
+    3-joint torso, a 3-joint head, two 7-joint arms and 12 actuated leg
+    joints under the NoActuationBase (which takes the card's free root
+    joint away), a Fourier hand on each arm."""
+
+    card_name = "gr1"
+    arms = ["right", "left"]
+    robot_kind = "legged"
+
+    @property
+    def arm_type(self):
+        return "bimanual"
+
+    @property
+    def _eef_name(self):
+        return {"right": "right_eef", "left": "left_eef"}
+
+    @property
+    def default_base(self):
+        return "NoActuationBase"
+
+    @property
+    def default_gripper(self):
+        return {"right": "FourierRightHand", "left": "FourierLeftHand"}
+
+    @property
+    def init_qpos(self):
+        # card order: torso 3, head 3, right arm 7, left arm 7, legs 12
+        return _gr1_arms_qpos(32, 6)
+
+    @property
+    def base_xpos_offset(self):
+        return {
+            "bins": (-0.30, -0.1, 0.95),
+            "empty": (-0.29, 0, 0.95),
+            "table": lambda table_length: (-0.15 - table_length / 2, 0, 0.95),
+        }
+
+
+@register_robot
+class GR1FixedLowerBody(GR1):
+    """robosuite gr1_robot.py:104-130: the legs' joints removed, and the
+    free joint."""
+
+    def __init__(self, idn=0):
+        super().__init__(idn=idn)
+        self._remove_joint_actuation("leg")
+        self._remove_free_joint()
+
+    @property
+    def init_qpos(self):
+        return _gr1_arms_qpos(20, 6)
+
+
+@register_robot
+class GR1FloatingBody(GR1FixedLowerBody):
+    """robosuite gr1_robot.py:133-166: the legless GR1 on a
+    FloatingLeggedBase (planar joints), under HYBRID_MOBILE_BASE."""
+
+    composite_type = "HYBRID_MOBILE_BASE"
+
+    @property
+    def default_base(self):
+        return "FloatingLeggedBase"
+
+    @property
+    def base_xpos_offset(self):
+        return {
+            "bins": (-0.30, -0.1, 0.97),
+            "empty": (-0.29, 0, 0.97),
+            "table": lambda table_length: (-0.15 - table_length / 2, 0, 0.97),
+        }
+
+
+@register_robot
+class GR1ArmsOnly(GR1):
+    """robosuite gr1_robot.py:169-195: the arms alone; the legs', head's
+    and torso's joints removed, and the free joint."""
+
+    def __init__(self, idn=0):
+        super().__init__(idn=idn)
+        for part in ("leg", "head", "torso"):
+            self._remove_joint_actuation(part)
+        self._remove_free_joint()
+
+    @property
+    def init_qpos(self):
+        return _gr1_arms_qpos(14, 0)
 
 
 @register_robot

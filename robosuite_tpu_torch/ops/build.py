@@ -32,9 +32,12 @@ _SIGNATURES = {
     "rs_tables_size": [],
     "rs_forward": [P] * 6 + [I, P] * 3 + [I, P, I, P],
     "rs_forward_smem_bytes": [P],
+    "rs_forward_scenarios": [P],
+    "rs_smem_limit": [],
     "rs_forward_tab": [P, P],
     "rs_contact_solve": [P] * 11 + [I] * 6 + [ctypes.c_float, P],
     "rs_contact_solve_smem_bytes": [I, I, I],
+    "rs_contact_solve_scenarios": [I, I, I],
     "rs_substep": [P] * 14 + [I, P],
     "rs_substep_aux": [P] * 18 + [I, P],
     "rs_substep_smem_bytes": [P],
@@ -120,6 +123,14 @@ def load(path):
             f"RsTables layout mismatch: C {lib.rs_tables_size()} bytes, Python {ctypes.sizeof(RsTables)}"
         )
     return lib
+
+
+def check_block(bytes_: int, name: str, what: str):
+    """Raise ValueError where a kernel's block needs more shared memory
+    than a block may opt in to on this card."""
+    limit = library().rs_smem_limit()
+    if bytes_ > limit:
+        raise ValueError(f"{name}: {what} needs {bytes_} bytes of shared memory a block, over the card's {limit}")
 
 
 def check(err: int, name: str):

@@ -82,13 +82,23 @@ def vel_update_plain(M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active,
 def check_sizes(nv, K, ne=0):
     """Raise ValueError where nv dofs, K contact slots or ne equality rows
     exceed the kernel's compile-time maxima (csrc/common.cuh RS_MAXV,
-    RS_MAXK, RS_MAXE)."""
+    RS_MAXK, RS_MAXE). A launch also checks that its block (two scenarios,
+    or one where two do not fit: nv 60 at 96 slots) fits the card's shared
+    memory (`_check_block`)."""
     if nv > _tables.MAXV:
         raise ValueError(f"nv={nv} exceeds the kernel's maximum {_tables.MAXV}")
     if K > _tables.MAXK:
         raise ValueError(f"K={K} contact slots exceed the kernel's maximum {_tables.MAXK}")
     if not 0 <= ne <= _tables.MAXE:
         raise ValueError(f"ne={ne} equality rows: the kernel takes 0 to {_tables.MAXE}")
+
+
+@functools.cache
+def _check_block(nv, K, ne):
+    """K2's block at (nv, K, ne) within the card's shared memory, else
+    ValueError (checked once per size)."""
+    _b.check_block(_b.library().rs_contact_solve_smem_bytes(nv, K, ne), "rs_contact_solve",
+                   f"one scenario at nv={nv}, K={K}, ne={ne}")
 
 
 def vel_update(M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active, iters, power_iters, dt):
@@ -118,6 +128,7 @@ def _launch(M, JfT, aref, qfrc_smooth, qvel, damping, reg3, mu, active, iters, p
     K = active.shape[-1]
     ne = ntot - 3 * K
     check_sizes(nv, K, ne)
+    _check_block(nv, K, ne)
     for t, shape, name in ((M, (B, nv, nv), "M"), (JfT, (B, nv, ntot), "JfT"), (aref, (B, ntot), "aref"),
                            (qfrc_smooth, (B, nv), "qfrc_smooth"), (qvel, (B, nv), "qvel"),
                            (damping, (B, nv), "damping"), (reg3, (B, ntot), "reg3"), (mu, (B, K), "mu"),

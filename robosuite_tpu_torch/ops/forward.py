@@ -129,6 +129,8 @@ class _Launch:
 
     def __init__(self, model, device):
         T, T_host = model_tables(model)
+        _b.check_block(_b.library().rs_forward_smem_bytes(T_host.data_ptr()), "rs_forward",
+                       f"a world of {model.nbody} bodies at nv {model.nv}")
         img = model_image(model)
         self.device, self.T, self.T_host, self.img = device, T.data_ptr(), T_host.data_ptr(), img.data_ptr()
         self.tables = (T, T_host, img)  # kept alive with the pointers

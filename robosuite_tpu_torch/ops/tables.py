@@ -26,9 +26,9 @@ import torch
 
 from robosuite_tpu_torch.models import spec as S
 
-MAXB, MAXJ, MAXQ, MAXV, MAXG, MAXS, MAXU, MAXP, MAXK, MAXA, MAXGR = 64, 32, 48, 44, 176, 32, 24, 64, 192, 8, 12
+MAXB, MAXJ, MAXQ, MAXV, MAXG, MAXS, MAXU, MAXP, MAXK, MAXA, MAXGR = 96, 56, 64, 60, 176, 52, 24, 64, 192, 8, 12
 MAXE = 8  # equality rows of K2
-MAXPR = 384  # (body, dof) pairs with anc != 0
+MAXPR = 896  # (body, dof) pairs with anc != 0
 MAXCT = 25 * MAXP  # narrowphase candidates, all pairs
 
 _i, _f = ctypes.c_int32, ctypes.c_float
@@ -103,14 +103,14 @@ def check_model(model, contacts=True):
     `contacts` (the fused substep, K3), also when its contacts (pairs,
     rows, pair kinds) do or it has an actuator kind or a tendon
     transmission K3 does not take (its gate, ops/substep.extract_spec,
-    refuses tendons and equalities first); -> its contact rows (0
-    without). K1 and K4 read no actuator, so without `contacts` any kind
-    passes."""
+    refuses tendons and equalities first), or more actuators than it
+    packs; -> its contact rows (0 without). K1 and K4 read no actuator, so
+    without `contacts` any kind and any number passes."""
     from robosuite_tpu_torch.physics import contact as C
 
-    limits = dict(nbody=MAXB, njnt=MAXJ, nq=MAXQ, nv=MAXV, ngeom=MAXG, nsite=MAXS, nu=MAXU)
+    limits = dict(nbody=MAXB, njnt=MAXJ, nq=MAXQ, nv=MAXV, ngeom=MAXG, nsite=MAXS)
     if contacts:
-        limits["npair"] = MAXP
+        limits.update(nu=MAXU, npair=MAXP)
     for name, cap in limits.items():
         if getattr(model, name) > cap:
             raise ValueError(f"{name}={getattr(model, name)} exceeds the kernels' maximum {cap}")

@@ -573,10 +573,17 @@ class LeggedRobot(MobileRobot):
 
     @property
     def legs_init_qpos(self):
-        """The legs' standing posture, the leg base's init_qpos (Spot), or
-        None (no legs: the floating variant). A robot whose card carries
-        its legs (the JAX package's GR1) is not ported."""
+        """The legs' standing posture: the leg base's init_qpos (Spot), else
+        the reset posture of the card's legs (GR1: init_qpos where it
+        covers the card's joints, qpos0 elsewhere), else None (no legs: the
+        floating and legless variants)."""
         base = self.rm.base
         if base.leg_joints and len(base.init_qpos):
             return np.asarray(base.init_qpos, dtype=np.float32)[:self.num_leg_joints]
+        if self.num_leg_joints:
+            iq = np.asarray(self.rm.init_qpos, dtype=np.float32)
+            pos = {int(a): i for i, a in enumerate(self.init_qpos_idx)} if len(iq) == len(self.init_qpos_idx) else {}
+            q0 = self.model.qpos0.cpu().numpy()
+            return np.array([iq[pos[int(a)]] if int(a) in pos else q0[int(a)] for a in self.part_qpos_idx["legs"]],
+                            dtype=np.float32)
         return None

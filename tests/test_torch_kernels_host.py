@@ -371,7 +371,8 @@ HOST_ONLY = {"rs_forward_threads": [_I, _I] + [_V] * 5 + [_I, _V] * 3 + [_I, _V,
              "rs_fk_blocks": [_I] + [_V] * 4 + [_I], "rs_walk": [_I] + [_V] * 6 + [_I], "rs_s_substep": [],
              "rs_cut": [_V, _I, _I, _V, _V], "rs_substep_threads": [_I, _I] + [_V] * 17 + [_I],
              "rs_cut_threads": [_I, _V, _I, _I, _V, _V]}
-CARD_ONLY = ("rs_substep_resident", "rs_forward_smem_bytes", "rs_fk_smem_bytes", "rs_contact_solve_smem_bytes")
+CARD_ONLY = ("rs_substep_resident", "rs_forward_smem_bytes", "rs_fk_smem_bytes", "rs_contact_solve_smem_bytes",
+             "rs_forward_scenarios", "rs_contact_solve_scenarios", "rs_smem_limit")
 
 
 @pytest.fixture(scope="module")

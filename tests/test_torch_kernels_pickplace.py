@@ -186,20 +186,22 @@ def test_carves_fit_the_card(lib, pick):
 
 def test_maxima_take_pickplace_and_refuse_more(pick):
     """PickPlaceCan fits K1's and K2's maxima (raised since for the
-    two-arm worlds, tests/test_torch_kernels_twoarm.py, and for PickPlace
-    and NutAssembly with Baxter and PandaDexRH: nq 48, nv 44, 32 sites,
-    tests/test_torch_tendon_robots.py), and so does
-    TwoArmTransport, the largest world (53 bodies, nq 39, nv 36, 23 sites:
-    the body maximum raised to 56 for it, and to 64 bodies and 32 joints
-    for Lift-Tiago, tests/test_torch_mobile_robots.py); a model one past any of the
-    maxima is refused by K1's table and K2's sizes; the fused substep's
-    gate refuses PickPlaceCan for its row compaction before any maximum."""
+    two-arm worlds, tests/test_torch_kernels_twoarm.py, for PickPlace
+    and NutAssembly with Baxter and PandaDexRH, tests/test_torch_tendon_robots.py,
+    for Lift-Tiago, tests/test_torch_mobile_robots.py, and for GR1: 96
+    bodies, 56 joints, nq 64, nv 60, 52 sites,
+    tests/test_torch_gr1_kernels.py), and so does
+    TwoArmTransport (53 bodies, nq 39, nv 36, 23 sites); a model one past
+    any of the maxima is refused by K1's table and K2's sizes, the
+    actuators only where the fused substep packs them (K1 and K4 read
+    none); the fused substep's gate refuses PickPlaceCan for its row
+    compaction before any maximum."""
     import robosuite_tpu_torch
 
     env, _ = pick
     m = env.model
     assert (tables.MAXB, tables.MAXJ, tables.MAXQ, tables.MAXV, tables.MAXG, tables.MAXS, tables.MAXU) == (
-        64, 32, 48, 44, 176, 32, 24)
+        96, 56, 64, 60, 176, 52, 24)
     assert tables.check_model(m, contacts=False) == 0
     contact_solve.check_sizes(m.nv, C.ROW_CAP)
     big_world = robosuite_tpu_torch.make("TwoArmTransport", robots=("Panda", "Panda"), device="cpu").model
@@ -207,12 +209,17 @@ def test_maxima_take_pickplace_and_refuse_more(pick):
     assert tables.check_model(big_world, contacts=False) == 0
     contact_solve.check_sizes(big_world.nv, C.ROW_CAP)
     for name, cap in (("nbody", tables.MAXB), ("njnt", tables.MAXJ), ("nq", tables.MAXQ), ("nv", tables.MAXV),
-                      ("ngeom", tables.MAXG), ("nsite", tables.MAXS), ("nu", tables.MAXU)):
+                      ("ngeom", tables.MAXG), ("nsite", tables.MAXS)):
         big = copy.copy(m)
         setattr(big, name, cap + 1)
         with pytest.raises(ValueError, match=f"{name}={cap + 1}"):
             tables.check_model(big, contacts=False)
-    with pytest.raises(ValueError, match="nv=45"):
+    big = copy.copy(m)
+    big.nu = tables.MAXU + 1
+    assert tables.check_model(big, contacts=False) == 0
+    with pytest.raises(ValueError, match=f"nu={tables.MAXU + 1}"):
+        tables.check_model(big, contacts=True)
+    with pytest.raises(ValueError, match="nv=61"):
         contact_solve.check_sizes(tables.MAXV + 1, C.ROW_CAP)
     with pytest.raises(ValueError, match="K=193"):
         contact_solve.check_sizes(m.nv, tables.MAXK + 1)

@@ -161,7 +161,7 @@ def setup(robot, controller_configs=None):
         obs, _ = jenv._finalize_observations(obs, jax.random.PRNGKey(0), t)
         return obs, jenv.reward(obs, phys, kin)
 
-    pieces = dict(start=jax.jit(jax.vmap(start)), substep=substep, observe=jax.jit(jax.vmap(observe)))
+    pieces = dict(start=jax.jit(jax.vmap(start)), substep=substep, observe=jax.jit(jax.vmap(observe)), pre=pre)
     return jenv, penv, pressed_state(penv), pieces
 
 
@@ -186,10 +186,35 @@ def hold_ctrl(pc, jc, atol):
         np.testing.assert_array_equal(g.numpy(), np.asarray(jc.gripper_action[arm]))
 
 
-def hold_step(robot, controller_configs=None, observations=False, action=None, goal_tol=1e-5):
+def hold_substep_on_tie(penv, pieces, jphys, packed, same_in, jnext, b, worst_dof):
+    """Scenario b of a substep whose port output parts from the JAX one,
+    most in dof worst_dof: passes only where a float64 witness shows a
+    contact decision float32 rounding takes either way in that dof's
+    body's contact island (chip_smoke.contact_tie_witness: a box-box SAT
+    or manifold-cut near-tie: GR1's head-roll box deep in its chest box),
+    and the port's solve and integration on the JAX step's own solver
+    operands give the JAX substep's output (qpos 1e-5, qvel 1e-4): the two
+    differ only in which of the tied contact points fill the compacted
+    slots. -> the witness."""
+    import chip_smoke
+
+    pm = penv.model
+    wit = chip_smoke.contact_tie_witness(pm, same_in.qpos[b:b + 1], [int(pm.dof_bodyid[worst_dof])])[0]
+    assert wit is not None, f"scenario {b}: dof {worst_dof} parts from the JAX substep with no float64 tie witness"
+    args = [torch.tensor(np.asarray(x)[b:b + 1]) for x in pieces["pre"](jphys, packed)]
+    qvel, _ = contact_solve.vel_update_plain(*args, *C.solver_iterations(pm), pm.timestep)
+    qpos = engine.integrate_qpos(pm, same_in.qpos[b:b + 1], qvel, pm.timestep)
+    np.testing.assert_allclose(qpos.numpy(), np.asarray(jnext.qpos)[b:b + 1], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(qvel.numpy(), np.asarray(jnext.qvel)[b:b + 1], rtol=1e-5, atol=1e-4)
+    return wit
+
+
+def hold_step(robot, controller_configs=None, observations=False, action=None, goal_tol=1e-5, ties=False):
     """One step_batch from the injected JAX state held against the JAX
     step (the module docstring); the observations too where asked.
-    action: a (2, A) numpy action (default: seeded, clipped normal)."""
+    action: a (2, A) numpy action (default: seeded, clipped normal). With
+    `ties`, a scenario whose substep parts from the JAX one is held by
+    hold_substep_on_tie instead. -> the witnesses of those scenarios."""
     jenv, penv, flat, pieces = setup(robot, controller_configs)
     pm = penv.model
     assert penv._fused_for(pm) is None and penv.n_substeps == 1
@@ -207,14 +232,24 @@ def hold_step(robot, controller_configs=None, observations=False, action=None, g
     hold_ctrl(ctrl, jenv._unpack_ctrl(packed)[0], goal_tol)
     substep = penv._substep_fn(pm, ctrl, kin)
     jphys, phys = js.physics, ps.physics
+    witnesses = []
     for k in range(penv.n_substeps):
         jnext, jf = pieces["substep"](jphys, packed)
         same_in = State(qpos=torch.tensor(np.asarray(jphys.qpos)), qvel=torch.tensor(np.asarray(jphys.qvel)),
                         time=torch.tensor(np.asarray(jphys.time)))
         out, f = substep(same_in, k)
         assert f.shape[1] == C.contact_warmstart_dim(pm) == jf.shape[1]
-        np.testing.assert_allclose(out.qpos.numpy(), np.asarray(jnext.qpos), rtol=0, atol=1e-5, err_msg=f"{k}")
-        np.testing.assert_allclose(out.qvel.numpy(), np.asarray(jnext.qvel), rtol=1e-5, atol=1e-4, err_msg=f"{k}")
+        if ties:
+            jq, jv = np.asarray(jnext.qpos), np.asarray(jnext.qvel)
+            dv = np.abs(out.qvel.numpy() - jv)
+            far = (np.abs(out.qpos.numpy() - jq) > 1e-5).any(axis=1) | (dv > 1e-4 + 1e-5 * np.abs(jv)).any(axis=1)
+            for b in np.nonzero(far)[0]:
+                witnesses.append(hold_substep_on_tie(penv, pieces, jphys, packed, same_in, jnext, int(b),
+                                                     int(dv[b].argmax())))
+        else:
+            np.testing.assert_allclose(out.qpos.numpy(), np.asarray(jnext.qpos), rtol=0, atol=1e-5, err_msg=f"{k}")
+            np.testing.assert_allclose(out.qvel.numpy(), np.asarray(jnext.qvel), rtol=1e-5, atol=1e-4,
+                                       err_msg=f"{k}")
         phys, f_own = substep(phys, k)
         jphys = jnext
     torch.testing.assert_close(ps2.physics.qpos, phys.qpos, rtol=0, atol=0)
@@ -225,7 +260,7 @@ def hold_step(robot, controller_configs=None, observations=False, action=None, g
     torch.testing.assert_close(pr, r_own, rtol=0, atol=0)
     assert not bool(pd.any()) and ps2.t.tolist() == [1, 1]
     if not observations:
-        return
+        return witnesses
     jo, jr = pieces["observe"](jphys, jf, js.t)
     end = State(qpos=torch.tensor(np.asarray(jphys.qpos)), qvel=torch.tensor(np.asarray(jphys.qvel)),
                 time=torch.tensor(np.asarray(jphys.time)))
@@ -234,6 +269,7 @@ def hold_step(robot, controller_configs=None, observations=False, action=None, g
     assert set(obs) == set(jo) == set(po)
     hold_obs(penv, obs, jo, 1e-5, robot)
     np.testing.assert_allclose(r.numpy(), np.asarray(jr), rtol=0, atol=1e-5)
+    return witnesses
 
 
 def build_both(robot, **kw):
